@@ -1,0 +1,50 @@
+"""Carry the JAX package's model weights into the port.
+
+``params_from_numpy(tree, cfg, device)`` takes the JAX parameter tree as
+nested dicts of numpy arrays — the caller runs ``jax.device_get`` first, so
+this module never imports JAX — and returns the port's ``Model`` holding
+exactly those values.  The differential tests use it to start both packages
+from identical weights.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.errors import FormatError
+from repro_torch.models.model import Model
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
+    """Nested dicts -> {'a/b/c': leaf}."""
+    out = {}
+    for key, value in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(value, Mapping):
+            out.update(flatten_tree(value, path + "/"))
+        else:
+            out[path] = value
+    return out
+
+
+def params_from_numpy(tree: Mapping, cfg, device="cuda") -> Model:
+    """The port's model for ``cfg`` with the weights of ``tree`` (nested
+    dicts of numpy arrays, keyed as the JAX package's ``init_model``
+    returns them)."""
+    model = Model(cfg, device=device)
+    flat = flatten_tree(tree)
+    params = model.param_dict()
+    if set(flat) != set(params):
+        raise FormatError(f"parameter paths differ: only in tree "
+                          f"{sorted(set(flat) - set(params))}, only in model "
+                          f"{sorted(set(params) - set(flat))}")
+    with torch.no_grad():
+        for path, p in params.items():
+            value = np.asarray(flat[path], dtype=np.float32)
+            if value.shape != tuple(p.shape):
+                raise FormatError(f"{path}: shape {value.shape}, the model "
+                                  f"has {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(value.copy()))
+    return model

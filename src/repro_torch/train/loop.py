@@ -1,0 +1,135 @@
+"""Training step construction (mirrors ``repro.train.loop``): loss, grad
+accumulation, clipping, optimizer.
+
+    model = init_model(cfg, generator, device=device)
+    state = TrainState(opt_state=opt.init(model.param_dict()), step=0)
+    step = make_train_step(cfg, model, opt)
+    state, metrics = step(state, pipe.batch_at(i))
+
+The optimizer's masters are the model's parameters (``Block8bitOptimizer``
+updates them in place), so the step needs no params view: the forward of
+step i+1 reads what ``apply`` wrote in step i.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Mapping, NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.models import model as M
+
+
+class TrainState(NamedTuple):
+    """The optimizer state (masters = the model's parameters, 8-bit
+    statistics, clipping history) and the step count."""
+    opt_state: Any
+    step: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHyper:
+    grad_clip: float = 1.0
+    microbatches: int = 1
+    label_smoothing: float = 0.0
+    lr_schedule: Optional[Callable[[int], Any]] = None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  smoothing: float = 0.0) -> torch.Tensor:
+    """Mean token NLL in f32. logits (B, S, V), labels (B, S)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if smoothing > 0.0:
+        mean_lp = (logits - logz[..., None]).mean(dim=-1)
+        nll = (1 - smoothing) * nll - smoothing * mean_lp
+    return nll.mean()
+
+
+def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor, summed per tensor in
+    path order."""
+    sums = [tree[k].to(torch.float32).square().sum() for k in sorted(tree)]
+    return torch.sqrt(torch.stack(sums).sum())
+
+
+def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float):
+    """Scale every tensor of ``tree`` **in place** so the global norm is at
+    most ``max_norm``.  Returns (tree, norm before clipping)."""
+    norm = global_norm(tree)
+    limit = torch.full_like(norm, max_norm)
+    scale = torch.clamp(limit / torch.clamp(norm, min=1e-12), max=1.0)
+    for t in tree.values():
+        t.mul_(scale)
+    return tree, norm
+
+
+def make_train_step(cfg, model: M.Model, optimizer,
+                    hyper: TrainHyper = TrainHyper()):
+    """Returns train_step(state, batch) -> (state, metrics).
+
+    ``batch``: {"tokens": (B, S+1) int array}; inputs are [:, :-1], labels
+    [:, 1:].  ``hyper.microbatches`` splits the batch and averages the
+    gradients.  Metrics are 0-d tensors (loss, grad_norm) and floats
+    (opt_fused_dispatches, state_bytes_per_param); reading a tensor waits
+    for the device."""
+    device = next(model.parameters()).device
+    params = model.param_dict()
+
+    def compute_grads(tokens):
+        model.zero_grad(set_to_none=True)
+        n = hyper.microbatches
+        loss_sum = torch.zeros((), device=device)
+        for mb in tokens.chunk(n, dim=0):
+            logits, _ = M.forward(cfg, model, mb[:, :-1])
+            loss = cross_entropy(logits, mb[:, 1:], hyper.label_smoothing)
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+        grads = {k: p.grad for k, p in params.items()}
+        if n > 1:
+            for g in grads.values():
+                g.div_(n)
+        return loss_sum / n, grads
+
+    def train_step(state: TrainState, batch):
+        tokens = torch.as_tensor(batch["tokens"]).to(device, torch.long)
+        loss, grads = compute_grads(tokens)
+        grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip)
+        lr = hyper.lr_schedule(state.step) if hyper.lr_schedule else None
+        dispatch0 = kops.fused_update_count()
+        _, new_opt = optimizer.apply(grads, state.opt_state, lr=lr)
+        metrics = {"loss": loss, "grad_norm": gnorm,
+                   "opt_fused_dispatches":
+                       float(kops.fused_update_count() - dispatch0)}
+        sb = optimizer.state_bytes(state.opt_state)
+        if sb["n_params"]:
+            metrics["state_bytes_per_param"] = (sb["state_bytes"]
+                                                / sb["n_params"])
+        return TrainState(opt_state=new_opt, step=state.step + 1), metrics
+
+    return train_step
+
+
+def init_train_state(cfg, optimizer, generator=None, *, device="cuda"
+                     ) -> tuple[TrainState, M.Model]:
+    """-> (state, model): a model from ``generator`` and its optimizer
+    state, whose masters are the model's parameters."""
+    model = M.init_model(cfg, generator, device=device)
+    opt_state = optimizer.init(model.param_dict())
+    return TrainState(opt_state=opt_state, step=0), model
+
+
+def warmup_cosine(lr: float, warmup: int, total: int, floor: float = 0.1):
+    """Linear warmup then cosine decay to ``floor * lr``; ``sched(step)``
+    returns a 0-d f32 CPU tensor (the f32 arithmetic of the JAX package's
+    schedule)."""
+    def sched(step):
+        step = torch.tensor(float(step), dtype=torch.float32)
+        warm = lr * torch.clamp((step + 1) / max(warmup, 1), max=1.0)
+        frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(torch.pi * frac))
+        return torch.where(step < warmup, warm, lr * cos)
+    return sched

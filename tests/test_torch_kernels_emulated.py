@@ -1,0 +1,229 @@
+"""The CUDA kernels' logic, checked on the CPU.
+
+Each source in ``src/repro_torch/kernels/csrc`` is compiled by the host C++
+compiler against a small emulation of the CUDA features it uses — one
+``std::thread`` per CUDA thread, ``std::barrier`` for ``__syncthreads`` and
+the warp shuffles, IEEE single-rounding float intrinsics — and its output
+is held bit for bit against the kernel's plain PyTorch version.  This
+covers the indexing, the block reductions, the binary-search encode and the
+in-place ordering of every kernel without a card.  What ``nvcc`` accepts,
+and the kernels' speed, only ``chip_smoke.py`` on an H100 can show."""
+import ctypes
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from repro_torch.core import qmap
+from repro_torch.kernels import blockwise_dequant as bdq
+from repro_torch.kernels import blockwise_quant as bq
+from repro_torch.kernels import build
+from repro_torch.kernels import fused_update as fu
+
+CUDA_RUNTIME_H = r"""
+#pragma once
+#include <barrier>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __shared__ static
+#define __launch_bounds__(x)
+struct dim3 { unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+struct uint3 { unsigned x, y, z; };
+inline thread_local uint3 threadIdx;
+inline uint3 blockIdx;
+inline dim3 blockDim;
+struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+struct uchar4 { unsigned char x, y, z, w; };
+struct uint2 { unsigned x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef struct CUstream_st* cudaStream_t;
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+inline std::barrier<>* emu_block_barrier;
+inline std::vector<std::barrier<>*> emu_warp_barriers;
+inline float emu_warp_buf[32][32];
+inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+inline float __shfl_xor_sync(unsigned, float v, int o) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  emu_warp_buf[w][lane] = v;
+  emu_warp_barriers[w]->arrive_and_wait();
+  const float r = emu_warp_buf[w][lane ^ o];
+  emu_warp_barriers[w]->arrive_and_wait();
+  return r;
+}
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
+inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
+template <class F> void emu_launch(dim3 grid, dim3 block, F f) {
+  blockDim = block;
+  for (unsigned b = 0; b < grid.x; ++b) {
+    blockIdx = {b, 0, 0};
+    std::barrier<> bar(block.x);
+    emu_block_barrier = &bar;
+    std::vector<std::barrier<>*> warps;
+    for (unsigned w = 0; w < block.x / 32; ++w)
+      warps.push_back(new std::barrier<>(32));
+    emu_warp_barriers = warps;
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block.x; ++t)
+      threads.emplace_back([&, t] { threadIdx = {t, 0, 0}; f(); });
+    for (auto& t : threads) t.join();
+    for (auto* w : warps) delete w;
+  }
+}
+"""
+
+CUDA_BF16_H = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { unsigned short x; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat16 emu_bf16(float f) {  // round to nearest even
+  uint32_t u; std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return {0x7fc0};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {static_cast<unsigned short>(u >> 16)};
+}
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {emu_bf16(a), emu_bf16(b)};
+}
+"""
+
+LAUNCH = "<<<grid, block, 0, stream>>>("
+P = ctypes.c_void_p
+
+
+def _emulated_source(src: str) -> str:
+    """Rewrite each ``kernel<<<grid, block, 0, stream>>>(args)`` launch as
+    ``emu_launch(grid, block, [&]{ kernel(args); })``."""
+    out, i = [], 0
+    while (j := src.find(LAUNCH, i)) >= 0:
+        k = j
+        while src[k - 1] not in " \n\t:":
+            k -= 1
+        depth, m = 1, j + len(LAUNCH)
+        while depth:
+            depth += {"(": 1, ")": -1}.get(src[m], 0)
+            m += 1
+        args = src[j + len(LAUNCH):m - 1]
+        out.append(f"{src[i:k]}emu_launch(grid, block, [&]{{ "
+                   f"{src[k:j]}({args}); }})")
+        i = m
+    out.append(src[i:])
+    return "".join(out)
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler (g++) to build the emulation")
+    d = tmp_path_factory.mktemp("emulated_cuda")
+    (d / "cuda_runtime.h").write_text(CUDA_RUNTIME_H)
+    (d / "cuda_bf16.h").write_text(CUDA_BF16_H)
+    for f in build.CSRC.iterdir():
+        (d / f.name).write_text(_emulated_source(f.read_text()))
+    procs = {n: subprocess.Popen(
+        [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-pthread", f"-I{d}", "-x", "c++", str(d / f"{n}.cu"), "-o",
+         str(d / f"{n}.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for n in build.SOURCES}
+    for n, p in procs.items():
+        log, _ = p.communicate(timeout=300)
+        assert p.returncode == 0, f"{n}:\n{log}"
+    libs = {n: ctypes.CDLL(str(d / f"{n}.so")) for n in build.SOURCES}
+    libs["blockwise_quant"].blockwise_quantize.argtypes = [P] * 4 + [
+        ctypes.c_int] * 2 + [P]
+    libs["blockwise_dequant"].blockwise_dequantize.argtypes = [P] * 4 + [
+        ctypes.c_int] * 3 + [P]
+    libs["fused_update"].fused_adam8_update.argtypes = [P] * 8 + [
+        ctypes.c_int] * 2 + [ctypes.c_float] * 10 + [P]
+    return libs
+
+
+SHAPES = [(5, 2048), (3, 260), (2, 8192), (1, 64)]
+QS = torch.as_tensor(qmap.get_qmap("dynamic", True))
+QU = torch.as_tensor(qmap.get_qmap("dynamic", False))
+
+
+def _ptrs(*ts):
+    return [P(t.data_ptr()) for t in ts]
+
+
+def _x(nb, bsz, seed):
+    """Blocks over many decades, an all-zero block, and in block 0 the
+    codebook midpoints themselves (with absmax 1, so x / scale lands
+    exactly on them: a midpoint belongs to the upper code)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(nb, bsz, generator=g) * torch.exp(
+        torch.randn(nb, 1, generator=g) * 3)
+    k = min(bsz, 256) - 1
+    x[0, :k] = torch.as_tensor(qmap.boundaries(qmap.get_qmap(
+        "dynamic", True)))[:k]
+    x[0, k] = 1.0
+    x[nb // 2] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("nb,bsz", SHAPES)
+def test_quantize_kernel_emulated(libs, nb, bsz):
+    x = _x(nb, bsz, 0)
+    if nb > 2:
+        x[2, 3] = float("nan")        # NaN: code 0, NaN absmax
+    codes = torch.empty(nb, bsz, dtype=torch.uint8)
+    absmax = torch.empty(nb)
+    rc = libs["blockwise_quant"].blockwise_quantize(
+        *_ptrs(x, QS, codes, absmax), nb, bsz, None)
+    want_c, want_a = bq.quantize_plain(x, QS)
+    assert rc == 0
+    assert torch.equal(codes, want_c)
+    assert torch.equal(absmax.nan_to_num(-1.0), want_a.nan_to_num(-1.0))
+
+
+@pytest.mark.parametrize("nb,bsz", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequantize_kernel_emulated(libs, nb, bsz, dtype):
+    codes, absmax = bq.quantize_plain(_x(nb, bsz, 1), QS)
+    out = torch.empty(nb, bsz, dtype=dtype)
+    rc = libs["blockwise_dequant"].blockwise_dequantize(
+        *_ptrs(codes, absmax, QS, out), int(dtype == torch.bfloat16), nb, bsz,
+        None)
+    assert rc == 0
+    assert torch.equal(out, bdq.dequantize_plain(codes, absmax, QS, dtype))
+
+
+@pytest.mark.parametrize("nb,bsz", SHAPES)
+def test_fused_update_kernel_emulated(libs, nb, bsz):
+    g = torch.Generator().manual_seed(2)
+    p = torch.randn(nb, bsz, generator=g) * 0.02
+    grad = torch.randn(nb, bsz, generator=g) * 1e-3
+    cm = torch.randint(0, 256, (nb, bsz), generator=g, dtype=torch.uint8)
+    cr = torch.randint(0, 256, (nb, bsz), generator=g, dtype=torch.uint8)
+    am = torch.rand(nb, generator=g) * 1e-3 + 1e-5
+    ar = torch.rand(nb, generator=g) * 1e-6 + 1e-9
+    s = fu.scalars(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                   weight_decay=0.01, step=7.0, gnorm_scale=0.5, device="cpu")
+    want = fu.fused_update_plain(p, grad, cm, am, cr, ar, QS, QU, s,
+                                 algo="adamw")
+    got = [t.clone() for t in (p, grad, cm, am, cr, ar)]
+    v = {k: float(t) for k, t in s.items()}
+    rc = libs["fused_update"].fused_adam8_update(
+        *_ptrs(*got, QS, QU), nb, bsz, v["lr"], v["beta1"],
+        float(1.0 - s["beta1"]), v["beta2"], float(1.0 - s["beta2"]),
+        v["eps"], v["weight_decay"], v["c1"], v["c2"], v["gnorm_scale"], None)
+    assert rc == 0
+    for a, b in zip((got[0], *got[2:]), want[:5]):    # updated in place
+        assert torch.equal(a, b)
