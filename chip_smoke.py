@@ -1,30 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
-The paper's two-line change at full width: ``make_optimizer("adamw8")``
-trains paper-lm-209m (10 layers, d_model 1024, vocab 50264, bf16 compute,
-f32 masters) for a few steps on synthetic data, through the port's
-hand-written CUDA kernels.  Phases, one line or more each:
+The paper's two-line change at full width: ``make_optimizer("adamw8")`` —
+and the rest of the element-wise 8-bit family, momentum8, lars8, lamb8,
+adagrad8 and stochastic-rounding adamw8 — trains paper-lm-209m (10
+layers, d_model 1024, vocab 50264, bf16 compute, f32 masters) for a few
+steps on synthetic data, through the port's hand-written CUDA kernels.
+Phases, one line or more each:
 
 1. device  — require CUDA (exit 2 without it).
-2. build   — compile every kernel from ``src/repro_torch/kernels/csrc``.
-3. kernels — each kernel against its plain PyTorch version on the card, at
-   the main path's largest leaf (blocks/b0_attn/mlp/w_in: 40960 blocks of
-   2048); exact agreement is required (fused update: code mismatches only
-   within 2 f32 ULP of a codebook midpoint, counted).  Median times beside
-   the least time the card could take (bytes over 3.35 TB/s, f32 operations
-   over 67 TFLOP/s: the H100 SXM data-sheet peaks).
-4. train   — launch counters zeroed, then the main path: adamw8 train steps
-   (per-leaf dispatch), then a read-back of the trained 8-bit state through
-   the kernel layer (both moments dequantized; the second moment
-   requantized, which must give back its codes and absmax exactly),
-   counters read.  The fused-update count must equal steps x
-   quantized leaves; losses must be finite and fall.  Then the same steps
-   with adamw32, both final losses on one line (reported, not gated), and a
-   profile of one adamw8 step by kernel.
-5. summary — the kernels JSON line, the card's name and power limit, and
+2. build   — compile every kernel from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, all in parallel).
+3. kernels — each kernel and variant against its plain PyTorch version on
+   the card, at the main path's largest leaf (blocks/b0_attn/mlp/w_in:
+   40960 blocks of 2048): quantize, dequantize, the fused update for
+   adamw8, stochastic adamw8, momentum8, lars8, lamb8 and adagrad8, and the
+   lars/lamb norm prologue.  Exact agreement is required (p, codes, absmax,
+   partials: 0 mismatches).  Median times beside the least time the card
+   could take (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s: the
+   H100 SXM data-sheet peaks), the plain version's time and, for the norm
+   prologue, torch.linalg.vector_norm's.
+4. train   — each path with the launch counters zeroed just before it and
+   read just after: adamw8 for 10 steps (per-leaf dispatch), then a
+   read-back of the trained 8-bit state through the kernel layer (both
+   moments dequantized; the second moment requantized, which must give
+   back its codes and absmax exactly), then adamw32 for 10 steps and a
+   profile of one adamw8 step by kernel; then 5 steps each of momentum,
+   lars, lamb and adagrad at 8 and at 32 bits, stochastic adamw8 and
+   adafactor32, all from the same weights and batches.  Each 8-bit run
+   must launch the fused update steps x quantized leaves times (and, for
+   lamb/lars, the norm prologue as often); losses must be finite; 8-bit
+   and 32-bit final losses must agree within 1%.
+5. checkpoint — lamb8 for 3 steps, saved with the port's checkpoint,
+   restored into a fresh state; step 4 from both must give bit-identical
+   params, codes and absmax.
+6. summary — the kernels JSON line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script then exits non-zero without the last line.
@@ -33,9 +45,11 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -45,18 +59,34 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
 STEPS = 10
+FAMILY_STEPS = 5           # steps of each further optimizer's run
 SEQ_LEN, BATCH = 512, 8
 LR, WEIGHT_DECAY = 1e-3, 0.01
 SEED = 0
 
+FUSED = ("src/repro_torch/kernels/csrc/fused_update.cu",
+         "src/repro/kernels/fused_update.py:642")
+NORMS = ("src/repro_torch/kernels/csrc/norm_partials.cu",
+         "src/repro/kernels/fused_update.py:455")
+# JSON row name -> (source, replaced TPU kernel, launch-counter key)
 KERNEL_META = {
     "blockwise_quant": ("src/repro_torch/kernels/csrc/blockwise_quant.cu",
-                        "src/repro/kernels/blockwise_quant.py:46"),
+                        "src/repro/kernels/blockwise_quant.py:46",
+                        "blockwise_quant"),
     "blockwise_dequant": ("src/repro_torch/kernels/csrc/blockwise_dequant.cu",
-                          "src/repro/kernels/blockwise_dequant.py:41"),
-    "fused_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
-                     "src/repro/kernels/fused_update.py:642"),
+                          "src/repro/kernels/blockwise_dequant.py:41",
+                          "blockwise_dequant"),
+    **{f"fused_update/{v}": (*FUSED, "fused_update")
+       for v in ("adamw8", "adamw8_sr", "momentum8", "lars8", "lamb8",
+                 "adagrad8")},
+    "norm_partials/lars": (*NORMS, "norm_partials"),
+    "norm_partials/lamb": (*NORMS, "norm_partials"),
 }
+# fused-update variant -> (algo, stochastic); the optimizer name of its
+# train run is the variant without "_sr" plus stochastic rounding
+VARIANTS = {"adamw8": ("adamw", False), "adamw8_sr": ("adamw", True),
+            "momentum8": ("momentum", False), "lars8": ("lars", False),
+            "lamb8": ("lamb", False), "adagrad8": ("adagrad", False)}
 
 
 class SmokeFailure(RuntimeError):
@@ -109,7 +139,7 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
     from repro_torch.core import qmap
     from repro_torch.kernels import blockwise_dequant as bdq
     from repro_torch.kernels import blockwise_quant as bq
-    from repro_torch.kernels import common, ops
+    from repro_torch.kernels import ops
     from repro_torch.kernels import fused_update as fu
 
     n = nb * bsz
@@ -157,73 +187,113 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
                                             bound_by=by)
     del x, ck, cp, vk, vp
 
-    # B3(a) fused adamw update: one step from random nonzero states
+    # B3 fused updates and the B4 norm prologue: one step from random
+    # nonzero states, each variant against its plain version
     p = torch.randn(nb, bsz, generator=gen, device=dev) * 0.02
     g = torch.randn(nb, bsz, generator=gen, device=dev) * 1e-3
-    cm = torch.randint(0, 256, (nb, bsz), generator=gen, device=dev,
-                       dtype=torch.uint8)
-    cr = torch.randint(0, 256, (nb, bsz), generator=gen, device=dev,
-                       dtype=torch.uint8)
+    codes = [torch.randint(0, 256, (nb, bsz), generator=gen, device=dev,
+                           dtype=torch.uint8) for _ in range(2)]
     am = torch.rand(nb, generator=gen, device=dev) * 1e-3 + 1e-5
     ar = torch.rand(nb, generator=gen, device=dev) * 1e-6 + 1e-9
     hyper = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
                  weight_decay=WEIGHT_DECAY, step=7.0, gnorm_scale=1.0)
     s = fu.scalars(device=dev, **hyper)
-    want = fu.fused_update_plain(p, g, cm, am, cr, ar, qs, qu, s,
-                                 algo="adamw")
-    got = [t.clone() for t in (p, g, cm, am, cr, ar)]
-    ops.fused_update("adamw", *got, qs, qu, **hyper)
-    kp, _, kcm, kam, kcr, kar = got
-    require(torch.equal(kp, want.p), "fused_update: p disagrees with the "
-            f"plain version (err {(kp - want.p).abs().max().item()})")
-    require(torch.equal(kam, want.absmax_m) and torch.equal(kar, want.absmax_r),
-            "fused_update: absmax disagrees with the plain version")
-    # code mismatches are allowed only within 2 ULP of a midpoint
-    m = common.decode(cm, qs) * am[:, None]
-    r = common.decode(cr, qu) * ar[:, None]
-    m2, r2, _ = fu.update_math(fu.ALGO_SPECS["adamw"], g * s["gnorm_scale"],
-                               p, m, r, s)
-    n_mis = 0
-    for x2, a2, kc, wc, q in ((m2, want.absmax_m, kcm, want.codes_m, qs),
-                              (r2, want.absmax_r, kcr, want.codes_r, qu)):
-        bad = kc != wc
-        k = int(bad.sum())
-        n_mis += k
-        if k:
-            xn = (x2 / torch.where(a2 > 0, a2, 1.0)[:, None])[bad]
-            lo = torch.minimum(kc[bad], wc[bad]).long()
-            bnd = common.padded_bounds(q)[0][lo]
-            ulp = (torch.nextafter(bnd, torch.full_like(bnd, math.inf)) - bnd)
-            near = ((xn - bnd).abs() <= 2 * ulp) & \
-                   ((kc[bad].int() - wc[bad].int()).abs() == 1)
-            require(bool(near.all()), f"fused_update: {k} code mismatches, "
-                    f"{int((~near).sum())} not within 2 ULP of a midpoint")
-    err = max((kp - want.p).abs().max().item(),
-              (kam - want.absmax_m).abs().max().item(),
-              (kar - want.absmax_r).abs().max().item(),
-              (kcm.int() - want.codes_m.int()).abs().max().item(),
-              (kcr.int() - want.codes_r.int()).abs().max().item())
-    del want, m, r, m2, r2
-    ms = median_ms(torch, lambda: ops.fused_update("adamw", *got, qs, qu,
-                                                   **hyper), 20)
-    plain = median_ms(torch, lambda: fu.fused_update_plain(
-        p, g, cm, am, cr, ar, qs, qu, s, algo="adamw"), 3, 2, 1)
-    b, by = bound_ms(n * 16 + nb * 16 + 2048, n * 56)
-    out["fused_update"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                               bound_ms=b, bound_by=by)
-    print(f"kernel fused_update adamw8 ({nb}x{bsz}): p and absmax exact, "
-          f"{n_mis} code mismatches (all within 2 ULP of a midpoint); "
-          f"{ms:.4f} ms, bound {b:.4f} ms ({by}), plain {plain:.3f} ms")
+    norm_hyper = {k: v for k, v in hyper.items() if k != "lr"}
+    library = median_ms(torch, lambda: (torch.linalg.vector_norm(p, dim=1),
+                                        torch.linalg.vector_norm(g, dim=1)),
+                        20)
+    for kind in ("lars", "lamb"):
+        lamb = kind == "lamb"
+        state = (codes[0], am, codes[1], ar, qs, qu) if lamb \
+            else (None,) * 6
+        want = fu.norm_partials_plain(p, g, *state, s, algo=kind)
+        got = fu.norm_partials_cuda(p, g, *state, algo=kind, **norm_hyper)
+        err = (got - want).abs().max().item()
+        n_bad = int((got != want).sum())
+        require(n_bad == 0, f"norm_partials/{kind}: {n_bad} partials "
+                f"disagree with the plain version (err {err})")
+        ms = median_ms(torch, lambda: fu.norm_partials_cuda(
+            p, g, *state, algo=kind, **norm_hyper), 20)
+        plain = median_ms(torch, lambda: fu.norm_partials_plain(
+            p, g, *state, s, algo=kind), 3, 2, 1)
+        b, by = bound_ms(n * (10 if lamb else 8) + nb * (40 if lamb else 32),
+                         n * (26 if lamb else 6))
+        out[f"norm_partials/{kind}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=library)
+        print(f"kernel norm_partials {kind} ({nb}x{bsz}): exact, 0 "
+              f"mismatches; {ms:.4f} ms, bound {b:.4f} ms ({by}), plain "
+              f"{plain:.3f} ms, torch.linalg.vector_norm of p and g "
+              f"{library:.4f} ms")
+        if lamb:
+            partials_lamb = got
+    ts = fu.segment_scales_from_partials(fu.ALGO_SPECS["lamb"],
+                                         partials_lamb, ((0, nb),), nb,
+                                         WEIGHT_DECAY, 1e-3)
+    del want, got, partials_lamb
+
+    for variant, (algo, sr) in VARIANTS.items():
+        spec = fu.ALGO_SPECS[algo]
+        two = spec.n_states == 2
+        q1 = qs if spec.state1_signed else qu
+        cr, arr = (codes[1], ar) if two else (None, None)
+        ts_v = ts if spec.needs_norms else None
+        uniforms = (fu.block_uniforms(nb, bsz, two=two, seed=SEED,
+                                      device=dev) if sr else (None, None))
+        want = fu.fused_update_plain(p, g, codes[0], am, cr, arr, q1, qu, s,
+                                     algo=algo, tensor_scale=ts_v,
+                                     uniforms=uniforms)
+        del uniforms
+        got = [None if t is None else t.clone()
+               for t in (p, codes[0], am, cr, arr)]
+        # the update kernel alone: lamb/lars take the trust ratio computed
+        # above (the prologue is checked and timed on its own)
+        kw = dict(hyper, algo=algo, stochastic=sr, seed=SEED,
+                  tensor_scale_blocks=ts_v)
+        fu.fused_update_cuda(got[0], g, got[1], got[2], got[3], got[4], q1,
+                             qu, **kw)
+        err, n_bad = 0.0, 0
+        for name, k_, w_ in zip(want._fields, got, want[:5]):
+            if w_ is None:
+                continue
+            n_bad += int((k_ != w_).sum())
+            err = max(err, (k_.float() - w_.float()).abs().max().item())
+        require(n_bad == 0, f"fused_update/{variant}: {n_bad} values "
+                f"(p, codes, absmax) disagree with the plain version "
+                f"(err {err})")
+        del want
+        ms = median_ms(torch, lambda: fu.fused_update_cuda(
+            got[0], g, got[1], got[2], got[3], got[4], q1, qu, **kw), 20)
+        plain = median_ms(torch, lambda: fu.fused_update_plain(
+            p, g, codes[0], am, cr, arr, q1, qu, s, algo=algo,
+            tensor_scale=ts_v,
+            uniforms=(fu.block_uniforms(nb, bsz, two=two, seed=SEED,
+                                        device=dev)
+                      if sr else (None, None))), 3, 2, 1)
+        per_elem = (16 if two else 14)
+        per_block = (16 if two else 8) + (4 if spec.needs_norms else 0)
+        ops_ = (56 if two else 30) + (40 if sr else 0)
+        b, by = bound_ms(n * per_elem + nb * per_block + 2048, n * ops_)
+        out[f"fused_update/{variant}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=None)
+        print(f"kernel fused_update {variant} ({nb}x{bsz}): p, codes and "
+              f"absmax exact, 0 mismatches; {ms:.4f} ms, bound {b:.4f} ms "
+              f"({by}), plain {plain:.3f} ms")
+        del got
     return out
 
 
 # ------------------------------------------------------------------ phase 4
-def train(torch, dev, cfg, name: str, steps: int, batches) -> dict:
+def train(torch, dev, cfg, name: str, steps: int, batches, label=None,
+          **opt_kw) -> dict:
     from repro_torch.core.optim import make_optimizer
     from repro_torch.train import loop as L
 
+    label = label or name
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    opt = make_optimizer(name, lr=LR, weight_decay=WEIGHT_DECAY, device=dev)
+    opt = make_optimizer(name, lr=LR, weight_decay=WEIGHT_DECAY, device=dev,
+                         **opt_kw)
     state, model = L.init_train_state(cfg, opt, gen, device=dev)
     step = L.make_train_step(cfg, model, opt)
     losses, ms, metrics = [], [], {}
@@ -234,7 +304,7 @@ def train(torch, dev, cfg, name: str, steps: int, batches) -> dict:
         losses.append(metrics["loss"].item())
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        print(f"train {name} step {i}: loss {losses[-1]:.6f}  "
+        print(f"train {label} step {i}: loss {losses[-1]:.6f}  "
               f"{ms[-1]:.1f} ms  grad_norm {metrics['grad_norm'].item():.4f}")
     return dict(opt=opt, state=state, step=step, losses=losses, ms=ms,
                 metrics=metrics)
@@ -292,12 +362,59 @@ def readback(torch, opt, state) -> int:
     return n_quant
 
 
+# ------------------------------------------------------------------ phase 5
+def checkpoint_roundtrip(torch, dev, cfg, batches, steps: int = 3) -> None:
+    """lamb8 for ``steps`` steps, saved with the port's checkpoint and
+    restored into a fresh state (another model, other weights); one more
+    step from both must give bit-identical params, codes and absmax.  The
+    checkpoint goes to a directory under build/ and is removed after."""
+    from repro_torch.core.optim import make_optimizer
+    from repro_torch.train import checkpoint as C
+    from repro_torch.train import loop as L
+
+    def fresh(seed):
+        opt = make_optimizer("lamb8", lr=LR, weight_decay=WEIGHT_DECAY,
+                             device=dev)
+        state, model = L.init_train_state(
+            cfg, opt, torch.Generator(device=dev).manual_seed(seed),
+            device=dev)
+        return state, L.make_train_step(cfg, model, opt)
+
+    state, step = fresh(SEED)
+    for i in range(steps):
+        state, _ = step(state, batches[i])
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(dir=ROOT / "build", prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        path = C.save(ckpt, steps, state)
+        size = sum(f.stat().st_size for f in Path(path).iterdir())
+        state_b, step_b = fresh(SEED + 1)
+        state_b = C.restore(ckpt, steps, state_b)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    state, _ = step(state, batches[steps])
+    state_b, _ = step_b(state_b, batches[steps])
+    torch.cuda.synchronize()
+    pairs = list(zip(C._flatten(state), C._flatten(state_b)))
+    n_bad = sum(not (a == b if isinstance(a, int) else torch.equal(a, b))
+                for (_, a), (_, b) in pairs)
+    require(n_bad == 0, f"checkpoint: {n_bad} of {len(pairs)} arrays differ "
+            f"after step {steps + 1} from the restored lamb8 state")
+    print(f"checkpoint lamb8: saved after {steps} steps ({size / 1e9:.2f} "
+          f"GB), restored into a fresh state in {secs:.1f} s; step "
+          f"{steps + 1} from both bit-identical ({len(pairs)} arrays: "
+          f"params, codes, absmax, 32-bit moments, step counts)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.configs import base
+    from repro_torch.core.optim import Quant8Leaf
     from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
     from repro_torch.kernels import build, ops
 
@@ -375,16 +492,104 @@ def main() -> int:
     print(f"final loss after {STEPS} steps: adamw8 {losses[-1]:.6f}  "
           f"adamw32 {run32['losses'][-1]:.6f}; median step ms: adamw8 "
           f"{ms8:.1f}, adamw32 {statistics.median(run32['ms'][1:]):.1f}")
+    adamw32_at = run32["losses"][FAMILY_STEPS - 1]
+    adamw32_ms = statistics.median(run32["ms"][1:])
+    del run32
+    torch.cuda.empty_cache()
 
-    # ---- 5. summary
+    # the rest of the family: each 8-bit path with its counters zeroed
+    # just before it and read just after, then its 32-bit twin
+    # launches of each run, and of its train steps alone (adamw8's count
+    # also holds the read-back's quantize/dequantize launches)
+    run_launches = {"adamw8": launches}
+    step_launches = {"adamw8": dict(launches, blockwise_quant=0,
+                                    blockwise_dequant=0)}
+    run_steps = {"adamw8": STEPS}
+    for variant, (algo, sr) in VARIANTS.items():
+        if variant == "adamw8":
+            continue
+        ops.reset_launch_counts()
+        run = train(torch, dev, cfg, f"{algo}8", FAMILY_STEPS, batches,
+                    label=variant, stochastic_rounding=sr)
+        torch.cuda.synchronize()
+        counts = run_launches[variant] = ops.launch_counts()
+        step_launches[variant], run_steps[variant] = counts, FAMILY_STEPS
+        nq = sum(isinstance(leaf, Quant8Leaf)
+                 for leaf in run["state"].opt_state.leaves.values())
+        norms = FAMILY_STEPS * nq if algo in ("lamb", "lars") else 0
+        require(nq == n_quant, f"{variant}: {nq} quantized leaves")
+        require(counts["fused_update"] == FAMILY_STEPS * nq and
+                counts["norm_partials"] == norms,
+                f"{variant}: launches {counts}, expected fused_update "
+                f"{FAMILY_STEPS} steps x {nq} leaves and norm_partials "
+                f"{norms}")
+        require(all(math.isfinite(x) for x in run["losses"]),
+                f"non-finite {variant} loss")
+        # one more step under the profiler: the port's kernels per step
+        prof, wall = profile_step(torch, run["step"], run["state"],
+                                  batches[FAMILY_STEPS])
+        total = sum(t for t, _, _ in prof)
+        ours = {}
+        for t, count, key in prof:
+            for k in ("fused_update_kernel", "norm_partials_kernel"):
+                if k in key:
+                    ms_, n_ = ours.get(k, (0.0, 0))
+                    ours[k] = (ms_ + t, n_ + count)
+        print(f"profile {variant} step: {total:.2f} ms device time over "
+              f"{wall:.2f} ms wall (device idle "
+              f"{100 * (1 - total / wall):.1f}%); port kernels: "
+              + "; ".join(f"{k} {t:.3f} ms in {n} launches"
+                          for k, (t, n) in ours.items()))
+        l8, ms_8 = run["losses"][-1], statistics.median(run["ms"][1:])
+        sb = run["metrics"]["state_bytes_per_param"]
+        del run
+        torch.cuda.empty_cache()
+        if sr:
+            l32, ms_32 = adamw32_at, adamw32_ms
+            twin = f"adamw32 (step {FAMILY_STEPS})"
+        else:
+            run = train(torch, dev, cfg, f"{algo}32", FAMILY_STEPS, batches)
+            require(all(math.isfinite(x) for x in run["losses"]),
+                    f"non-finite {algo}32 loss")
+            l32, ms_32 = run["losses"][-1], statistics.median(run["ms"][1:])
+            twin = f"{algo}32"
+            del run
+            torch.cuda.empty_cache()
+        rel = abs(l8 - l32) / abs(l32)
+        print(f"final loss after {FAMILY_STEPS} steps: {variant} {l8:.6f}  "
+              f"{twin} {l32:.6f} ({100 * rel:.3f}% apart); median step ms "
+              f"{ms_8:.1f} vs {ms_32:.1f}; {variant} launches {counts}; "
+              f"state_bytes_per_param {sb:.4f}")
+        require(rel < 0.01, f"{variant} and {twin} final losses differ by "
+                f"{100 * rel:.2f}% (limit 1%)")
+    run = train(torch, dev, cfg, "adafactor32", FAMILY_STEPS, batches)
+    require(all(math.isfinite(x) for x in run["losses"]),
+            "non-finite adafactor32 loss")
+    print(f"final loss after {FAMILY_STEPS} steps: adafactor32 "
+          f"{run['losses'][-1]:.6f}; median step ms "
+          f"{statistics.median(run['ms'][1:]):.1f}; state_bytes_per_param "
+          f"{run['metrics']['state_bytes_per_param']:.4f}")
+    del run
+    torch.cuda.empty_cache()
+
+    # ---- 5. checkpoint
+    checkpoint_roundtrip(torch, dev, cfg, batches)
+
+    # ---- 6. summary
     rows = []
-    for name, (source, replaces) in KERNEL_META.items():
+    for name, (source, replaces, counter) in KERNEL_META.items():
         k = kernels[name]
+        run = name.split("/")[-1] if "/" in name else "adamw8"
+        run = {"lars": "lars8", "lamb": "lamb8"}.get(run, run)
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces,
+                     "launches": run_launches[run][counter],
+                     "launches_per_step":
+                         step_launches[run][counter] / run_steps[run],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": None})
+                     "bound_by": k["bound_by"],
+                     "library_ms": k.get("library_ms")})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

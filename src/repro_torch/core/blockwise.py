@@ -7,11 +7,16 @@ normalized by its own absmax before nearest-code lookup in a 256-entry
 codebook.  These functions run on whatever device their inputs live on; the
 CUDA kernels in ``repro_torch.kernels`` are held against them.
 
-Stochastic rounding is not ported yet (ROADMAP A7).
+Stochastic rounding here draws its uniforms from a ``torch.Generator``, as
+the JAX package draws them from a PRNG key: the two cannot give the same
+numbers, so the port is held to the rounding's invariants (neighbouring
+codes, unbiased mean), not bit for bit.  The optimizer's stochastic
+rounding uses the counter hash instead (``kernels/common.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -37,15 +42,33 @@ def nearest_code(x_norm: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
     return torch.searchsorted(bounds, x_norm, right=True).to(torch.uint8)
 
 
-def quantize_blocks(blocks: torch.Tensor, codebook: torch.Tensor
+def quantize_blocks(blocks: torch.Tensor, codebook: torch.Tensor, *,
+                    stochastic_rounding: bool = False,
+                    generator: Optional[torch.Generator] = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Quantize ``(n_blocks, B)`` f32 -> (codes uint8, absmax f32 (n_blocks,))."""
+    """Quantize ``(n_blocks, B)`` f32 -> (codes uint8, absmax f32 (n_blocks,)).
+
+    ``stochastic_rounding`` rounds to one of the two neighbouring codes with
+    probability proportional to proximity (paper App H), with uniforms from
+    ``generator`` (required)."""
     blocks = blocks.to(torch.float32)
     absmax = blocks.abs().amax(dim=-1)
     scale = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
-    x = blocks / scale[:, None]
+    x = (blocks / scale[:, None]).contiguous()
     bounds = (codebook[1:] + codebook[:-1]) * 0.5
-    return nearest_code(x.contiguous(), bounds), absmax
+    codes = torch.searchsorted(bounds, x, right=True)
+    if stochastic_rounding:
+        if generator is None:
+            raise ValueError("stochastic_rounding requires a torch.Generator")
+        q_near = codebook[codes]
+        direction = torch.where(x > q_near, 1, -1)
+        other = (codes + direction).clamp(0, codebook.shape[0] - 1)
+        span = (codebook[other] - q_near).abs()
+        p_other = torch.where(span > 0, (x - q_near).abs() / torch.where(
+            span > 0, span, torch.ones_like(span)), torch.zeros_like(span))
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        codes = torch.where(u < p_other, other, codes)
+    return codes.to(torch.uint8), absmax
 
 
 def dequantize_blocks(codes: torch.Tensor, absmax: torch.Tensor,
@@ -92,7 +115,8 @@ def _codebook(qmap_name: str, signed: bool, device) -> torch.Tensor:
 
 def quantize(x: torch.Tensor, *, qmap_name: str = "dynamic",
              signed: bool = True, block_size: int = DEFAULT_BLOCK_SIZE,
-             pad_blocks_to: int = 1) -> QuantizedTensor:
+             pad_blocks_to: int = 1, stochastic_rounding: bool = False,
+             generator: Optional[torch.Generator] = None) -> QuantizedTensor:
     """Quantize an arbitrary-shape tensor into the flat block domain.
 
     ``pad_blocks_to``: pad n_blocks up to a multiple (whole blocks per
@@ -105,7 +129,9 @@ def quantize(x: torch.Tensor, *, qmap_name: str = "dynamic",
         target = -(-nb // pad_blocks_to) * pad_blocks_to
         if target != nb:
             blocks = torch.nn.functional.pad(blocks, (0, 0, 0, target - nb))
-    codes, absmax = quantize_blocks(blocks, codebook)
+    codes, absmax = quantize_blocks(blocks, codebook,
+                                    stochastic_rounding=stochastic_rounding,
+                                    generator=generator)
     return QuantizedTensor(codes=codes, absmax=absmax, shape=shape,
                            qmap_name=qmap_name, signed=signed)
 

@@ -1,16 +1,32 @@
 """The paper's 8-bit optimizers (and their 32-bit twins) as one engine
 (mirrors ``repro.core.optim.blockopt`` on its per-leaf path).
 
-``Block8bitOptimizer`` implements Adam/AdamW with per-leaf state that is
-either block-wise 8-bit quantized (``Quant8Leaf``) or full 32-bit
-(``Full32Leaf`` — the 32-bit baselines, leaves below ``min_8bit_size``, and
-leaves matched by the stable-embedding override, paper §2.3).  The 8-bit
-update is the paper's §2 procedure — dequantize, 32-bit math, requantize —
-through ``repro_torch.kernels.ops.fused_update``: one launch of the fused
-CUDA kernel per quantized leaf per step.
+``Block8bitOptimizer`` implements Adam/AdamW/Momentum/LAMB/LARS/AdaGrad
+with per-leaf state that is either block-wise 8-bit quantized
+(``Quant8Leaf``) or full 32-bit (``Full32Leaf`` — the 32-bit baselines,
+leaves below ``min_8bit_size``, and leaves matched by the stable-embedding
+override, paper §2.3).  The 8-bit update is the paper's §2 procedure —
+dequantize, 32-bit math, requantize — through
+``repro_torch.kernels.ops.fused_update``: one launch of the fused CUDA
+kernel per quantized leaf per step, after one launch of the norm prologue
+for lamb/lars (the trust ratio is per leaf: a stacked leaf holds all its
+layers, as in the JAX package).  The tensor-wise ablation
+(``blockwise_norm=False``) has no kernel: ``ops.fused_update`` serves it
+with the plain oracle, as the JAX package serves it with its jnp entry.
 
-State signedness (paper §2.2): m uses the signed dynamic map, r the unsigned
-one.  State is keyed by the parameters' path strings ('a/b/c', as the JAX
+State signedness per algorithm (paper §2.2):
+
+  adam/adamw/lamb : m -> signed dynamic, r -> unsigned dynamic
+  momentum/lars   : m -> signed dynamic
+  adagrad         : accumulator -> unsigned dynamic (stored in the m slot)
+
+Stochastic rounding seeds derive from the step, as the JAX package's do
+when ``apply`` gets no key: ``step * 1000003 + i * 7919`` in int32
+wrap-around, i the leaf's index in the parameter tree's order, so a
+restart replays the same rounding.  A ``jax.random`` key cannot be
+reproduced in PyTorch, so ``apply`` takes none.
+
+State is keyed by the parameters' path strings ('a/b/c', as the JAX
 package's ``path_str`` gives them), so the two packages' states compare leaf
 by leaf.
 
@@ -22,9 +38,8 @@ updated by ``apply`` directly.
 
 Not ported yet, and rejected with :class:`ConfigError` naming the ROADMAP
 item: the pooled single dispatch (``pooled=True`` with quantized leaves,
-A9 — ``make_optimizer`` defaults to ``pooled=False``), the other
-algorithms (A7, A10), tensor-wise quantization and stochastic rounding
-(A7), the sentinel (A11) and bf16 masters.
+A9 — ``make_optimizer`` defaults to ``pooled=False``), muon (A10), the
+sentinel (A11) and bf16 masters.
 """
 from __future__ import annotations
 
@@ -33,6 +48,7 @@ from typing import Callable, Mapping, NamedTuple, Optional
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.device import to_device
 from repro_torch.core.lowbit import CodeFormat
 from repro_torch.core.optim import base
 from repro_torch.core.optim.base import (Full32Leaf, OptimConfig, Quant8Leaf,
@@ -40,6 +56,13 @@ from repro_torch.core.optim.base import (Full32Leaf, OptimConfig, Quant8Leaf,
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import fused_update as kfu
 from repro_torch.kernels import ops as kops
+
+
+def leaf_order(leaves: Mapping[str, object]) -> list:
+    """Path strings in the JAX package's tree order: nested dict keys
+    sorted level by level (which plain string order is not: '-' sorts
+    before '/')."""
+    return sorted(leaves, key=lambda path: path.split("/"))
 
 
 class OptState(NamedTuple):
@@ -53,15 +76,11 @@ class OptState(NamedTuple):
 def _check_ported(cfg: OptimConfig) -> None:
     if cfg.algo not in kfu.ALGO_SPECS:
         raise ConfigError(f"algo {cfg.algo!r} is not ported yet (ROADMAP "
-                          f"{'A10' if cfg.algo == 'muon' else 'A7'}); the "
-                          f"port has {tuple(kfu.ALGO_SPECS)}")
+                          f"A10); the port has {tuple(kfu.ALGO_SPECS)}")
     if cfg.pooling_active:
         raise ConfigError("pooled=True (the pooled single dispatch) is not "
                           "ported yet (ROADMAP A9); pass pooled=False — "
                           "per-leaf and pooled updates are bit-identical")
-    if not cfg.blockwise_norm or cfg.stochastic_rounding:
-        raise ConfigError("tensor-wise quantization and stochastic rounding "
-                          "are not ported yet (ROADMAP A7)")
     if cfg.sentinel:
         raise ConfigError("the numerics sentinel is not ported yet "
                           "(ROADMAP A11)")
@@ -84,8 +103,10 @@ class Block8bitOptimizer:
         self.device = device_lib.resolve(device)
         self.override_32bit = override_32bit or (lambda path: False)
         bits1, bits2 = config.state_bits_pair
-        self._fmt1 = CodeFormat(bits=bits1, signed=True,
-                                qmap_name=config.qmap_m)
+        signed1 = kfu.ALGO_SPECS[config.algo].state1_signed
+        self._fmt1 = CodeFormat(
+            bits=bits1, signed=signed1,
+            qmap_name=config.qmap_m if signed1 else config.qmap_r)
         self._fmt2 = CodeFormat(bits=bits2, signed=False,
                                 qmap_name=config.qmap_r)
         self._qmap1 = torch.as_tensor(self._fmt1.codebook(),
@@ -116,6 +137,7 @@ class Block8bitOptimizer:
             master = p.detach()
             if master.dtype != torch.float32:
                 master = master.to(torch.float32)
+            second = cfg.has_second_moment
             if self._leaf_is_quantized(path, p):
                 nb = base.n_blocks_for(tuple(p.shape), cfg.block_size,
                                        cfg.shard_multiple)
@@ -124,13 +146,15 @@ class Block8bitOptimizer:
                     master=master,
                     codes_m=self._fmt1.init_codes(nb, bs, self.device),
                     absmax_m=torch.zeros(nb, device=self.device),
-                    codes_r=self._fmt2.init_codes(nb, bs, self.device),
-                    absmax_r=torch.zeros(nb, device=self.device),
+                    codes_r=(self._fmt2.init_codes(nb, bs, self.device)
+                             if second else None),
+                    absmax_r=(torch.zeros(nb, device=self.device)
+                              if second else None),
                     shape=tuple(p.shape), n=p.numel())
             else:
-                leaves[path] = Full32Leaf(master=master,
-                                          m=torch.zeros_like(master),
-                                          r=torch.zeros_like(master))
+                leaves[path] = Full32Leaf(
+                    master=master, m=torch.zeros_like(master),
+                    r=torch.zeros_like(master) if second else None)
         gnorm_vec = (torch.zeros(cfg.pclip_history, device=self.device)
                      if cfg.percentile_clipping < 100 else None)
         return OptState(step=0, leaves=leaves, gnorm_vec=gnorm_vec)
@@ -139,13 +163,19 @@ class Block8bitOptimizer:
     def _math32(self, g, p, m, r, lr, step_f):
         """32-bit update math for Full32 leaves — the same update the fused
         kernel runs (``kernels/fused_update.update_math``), with the JAX
-        engine's scalar types: lr and step f32, the rest Python floats."""
+        engine's scalar types (lr and step f32, the rest Python floats) and
+        the lamb/lars trust ratio from whole-tensor norms.  This is plain
+        PyTorch on the card too, as the JAX package runs it without a
+        kernel."""
         cfg = self.cfg
+        spec = kfu.ALGO_SPECS[cfg.algo]
         c1, c2 = kfu.bias_corrections(cfg.beta1, cfg.beta2, step_f)
         s = dict(lr=lr, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
-                 weight_decay=cfg.weight_decay, c1=c1.to(p.device),
-                 c2=c2.to(p.device))
-        return kfu.update_math(kfu.ALGO_SPECS[cfg.algo], g, p, m, r, s)
+                 weight_decay=cfg.weight_decay, c1=to_device(c1, p.device),
+                 c2=to_device(c2, p.device))
+        s["tensor_scale"] = kfu.tensor_scale_for(spec, g, p, m, r, s,
+                                                 cfg.trust_coeff)
+        return kfu.update_math(spec, g, p, m, r, s)
 
     # -------------------------------------------------------------- clipping
     def percentile_clip(self, grads: Mapping[str, torch.Tensor],
@@ -163,7 +193,7 @@ class Block8bitOptimizer:
             return torch.ones(()), state.gnorm_vec
         one = torch.ones((), device=self.device)
         gn2 = torch.zeros((), device=self.device)
-        for path in sorted(grads):
+        for path in leaf_order(grads):
             gn2 = gn2 + grads[path].to(torch.float32).square().sum()
         hist = state.gnorm_vec
         new_vec = hist.clone()
@@ -177,7 +207,7 @@ class Block8bitOptimizer:
 
     # ---------------------------------------------------------------- update
     def _apply_quant8(self, leaf: Quant8Leaf, g: torch.Tensor, lr, step_f,
-                      gnorm_scale) -> None:
+                      seed: int, gnorm_scale) -> None:
         cfg = self.cfg
         gb = flatten_to_blocks(g, cfg.block_size, cfg.shard_multiple)
         mb = flatten_to_blocks(leaf.master, cfg.block_size, cfg.shard_multiple)
@@ -185,7 +215,9 @@ class Block8bitOptimizer:
             cfg.algo, mb, gb, leaf.codes_m, leaf.absmax_m, leaf.codes_r,
             leaf.absmax_r, self._qmap1, self._qmap2, lr=lr, beta1=cfg.beta1,
             beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay,
-            step=step_f, gnorm_scale=gnorm_scale, impl=self._impl)
+            step=step_f, trust_coeff=cfg.trust_coeff,
+            gnorm_scale=gnorm_scale, blockwise=cfg.blockwise_norm,
+            stochastic=cfg.stochastic_rounding, seed=seed, impl=self._impl)
         # mb is a view of the master unless padding forced a copy; the
         # "cuda" backend writes its result into mb.
         if not (res.p is mb and mb.data_ptr() == leaf.master.data_ptr()):
@@ -200,7 +232,8 @@ class Block8bitOptimizer:
         m2, r2, p2 = self._math32(g, leaf.master, leaf.m, leaf.r, lr, step_f)
         leaf.master.copy_(p2)
         leaf.m.copy_(m2)
-        leaf.r.copy_(r2)
+        if leaf.r is not None:
+            leaf.r.copy_(r2)
 
     @torch.no_grad()
     def apply(self, grads: Mapping[str, torch.Tensor], state: OptState, *,
@@ -219,13 +252,16 @@ class Block8bitOptimizer:
         # 32-bit leaves' tensor math.
         lr_host = torch.as_tensor(cfg.lr if lr is None else lr,
                                   dtype=torch.float32).cpu()
-        lr_dev = lr_host.to(self.device)
+        lr_dev = to_device(lr_host, self.device)
         step_f = torch.tensor(float(state.step + 1), dtype=torch.float32)
         gnorm_scale, new_vec = self.percentile_clip(grads, state)
-        for path in sorted(state.leaves):
+        base_seed = kfu.to_i32(state.step * 1000003)
+        for i, path in enumerate(leaf_order(state.leaves)):
             leaf, g = state.leaves[path], grads[path]
             if isinstance(leaf, Quant8Leaf):
-                self._apply_quant8(leaf, g, lr_host, step_f, gnorm_scale)
+                seed = kfu.to_i32(base_seed + i * 7919)
+                self._apply_quant8(leaf, g, lr_host, step_f, seed,
+                                   gnorm_scale)
             else:
                 self._apply_full32(leaf, g, lr_dev, step_f, gnorm_scale)
         new_state = OptState(step=state.step + 1, leaves=state.leaves,
@@ -244,11 +280,15 @@ class Block8bitOptimizer:
         stats = master = n_params = 0
         for leaf in state.leaves.values():
             if isinstance(leaf, Quant8Leaf):
-                stats += leaf.codes_m.numel() + leaf.absmax_m.numel() * 4
-                stats += leaf.codes_r.numel() + leaf.absmax_r.numel() * 4
+                for c, a in ((leaf.codes_m, leaf.absmax_m),
+                             (leaf.codes_r, leaf.absmax_r)):
+                    if c is not None:
+                        stats += c.numel() + a.numel() * 4
                 n_params += leaf.n
             else:
-                stats += (leaf.m.numel() + leaf.r.numel()) * 4
+                for t in (leaf.m, leaf.r):
+                    if t is not None:
+                        stats += t.numel() * 4
                 n_params += leaf.master.numel()
             master += leaf.master.numel() * leaf.master.element_size()
         return {"state_bytes": int(stats), "master_bytes": int(master),

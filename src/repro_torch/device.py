@@ -14,3 +14,12 @@ def resolve(device) -> torch.device:
             f"device={str(device)!r} but torch.cuda.is_available() is False;"
             f" pass device='cpu' to run the plain PyTorch path")
     return dev
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A small host tensor (a step's scalars) on ``device`` without waiting
+    for the device: PyTorch's blocking host-to-device copy synchronizes the
+    stream, which would stall the host once per copy.  From pageable
+    memory the data is staged before the call returns, so the source may
+    be freed at once."""
+    return t.to(device, non_blocking=True)

@@ -1,7 +1,8 @@
 // In-kernel helpers shared by the block-wise kernels.
 //
 // Replaces the helpers that src/repro/kernels/common.py inlines into the
-// Pallas kernels (encode, decode, block_requantize).  On the TPU the
+// Pallas kernels (encode, decode, hash_uniform, element_indices,
+// stochastic_codes, block_requantize).  On the TPU the
 // codebook lookup is a one-hot matmul and encode a compare-count over all
 // 255 midpoints; here, as in the paper's own CUDA kernels, the codebook is a
 // 256-entry lookup table in shared memory and encode is a branch-free binary
@@ -27,12 +28,17 @@ __device__ __forceinline__ float nanmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
+// Copy a 256-entry codebook into shared memory (no barrier).
+__device__ __forceinline__ void load_lut(const float* qmap, float* lut) {
+  for (int i = threadIdx.x; i < kCodebookSize; i += blockDim.x) lut[i] = qmap[i];
+}
+
 // Copy a 256-entry codebook into shared memory and build its 255 midpoints
 // (cb[i+1] + cb[i]) * 0.5 — the values kernels/common.py::padded_bounds
 // computes.  Ends with a barrier.
 __device__ __forceinline__ void load_codebook(const float* qmap, float* lut,
                                               float* bounds) {
-  for (int i = threadIdx.x; i < kCodebookSize; i += blockDim.x) lut[i] = qmap[i];
+  load_lut(qmap, lut);
   __syncthreads();
   for (int i = threadIdx.x; i < kCodebookSize - 1; i += blockDim.x)
     bounds[i] = __fmul_rn(__fadd_rn(lut[i + 1], lut[i]), 0.5f);
@@ -105,11 +111,93 @@ __device__ __forceinline__ uchar4 encode4(float4 v, float scale,
   return c;
 }
 
+// ---- stochastic rounding (kernels/common.py: hash_uniform,
+// element_indices, stochastic_codes).  Exact integer arithmetic on uint32
+// with wrap-around, as the JAX package's jnp.uint32 ops.
+constexpr uint32_t kState1Salt = 0u;
+constexpr uint32_t kState2Salt = 0x9E3779B9u;
+
+// Uniform [0, 1) from element index + seed: a finalizer hash, then the top
+// 24 bits times 2^-24 (exact in f32).
+__device__ __forceinline__ float hash_uniform(uint32_t idx, uint32_t seed) {
+  uint32_t x = idx + seed * 2654435761u;
+  x ^= x >> 16;
+  x *= 0x21F0AAADu;
+  x ^= x >> 15;
+  x *= 0x735A2D97u;
+  x ^= x >> 15;
+  return __fmul_rn(static_cast<float>(x >> 8), 1.0f / 16777216.0f);
+}
+
+// The code of one value of a block being requantized: nearest code of
+// x / scale; with a uniform u, moved to the neighbour on the far side of
+// x / scale with probability |x - q_near| / |q_other - q_near| (never past
+// max_code).  NaN gets code 0 and stays there.
+__device__ __forceinline__ uint32_t requant_code(float x, float scale,
+                                                 const float* lut,
+                                                 const float* bounds,
+                                                 bool stochastic, float u,
+                                                 uint32_t max_code) {
+  const float xn = __fdiv_rn(x, scale);
+  const uint32_t code = encode(xn, bounds);
+  if (!stochastic) return code;
+  const float q_near = lut[code];
+  int other = static_cast<int>(code) + (xn > q_near ? 1 : -1);
+  other = other < 0 ? 0 : (other > static_cast<int>(max_code)
+                               ? static_cast<int>(max_code) : other);
+  const float span = fabsf(__fsub_rn(lut[other], q_near));
+  const float p_other =
+      span > 0.f ? __fdiv_rn(fabsf(__fsub_rn(xn, q_near)), span) : 0.f;
+  return u < p_other ? static_cast<uint32_t>(other) : code;
+}
+
 __device__ __forceinline__ float absmax4(float m, float4 v) {
   m = nanmax(m, fabsf(v.x));
   m = nanmax(m, fabsf(v.y));
   m = nanmax(m, fabsf(v.z));
   return nanmax(m, fabsf(v.w));
+}
+
+// Sum over the CTA of three values at once, in one fixed order: each warp
+// adds by the xor-shuffle tree (lane i + lane i^o, o = 16..1), lane 0
+// stores the warp's sums in shared memory, and warp 0 adds the warp sums
+// (lanes past the last warp hold 0) by the same tree.  red holds 99
+// floats.  Contains barriers: every thread of the CTA must call it.  The
+// plain version of this order is kernels/fused_update.py::block_sums.
+__device__ __forceinline__ float3 block_sum3(float a, float b, float c,
+                                             float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, o));
+    b = __fadd_rn(b, __shfl_xor_sync(0xffffffffu, b, o));
+    c = __fadd_rn(c, __shfl_xor_sync(0xffffffffu, c, o));
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    red[warp] = a;
+    red[32 + warp] = b;
+    red[64 + warp] = c;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nwarps = blockDim.x >> 5;
+    a = lane < nwarps ? red[lane] : 0.f;
+    b = lane < nwarps ? red[32 + lane] : 0.f;
+    c = lane < nwarps ? red[64 + lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, o));
+      b = __fadd_rn(b, __shfl_xor_sync(0xffffffffu, b, o));
+      c = __fadd_rn(c, __shfl_xor_sync(0xffffffffu, c, o));
+    }
+    if (lane == 0) {
+      red[96] = a;
+      red[97] = b;
+      red[98] = c;
+    }
+  }
+  __syncthreads();
+  return make_float3(red[96], red[97], red[98]);
 }
 
 }  // namespace rq

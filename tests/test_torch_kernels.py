@@ -179,6 +179,10 @@ def test_fused_update_plain_matches_oracle(algo):
 
 def test_registry_and_counters():
     assert ops.registered("adamw") == [("adamw", "cuda"), ("adamw", "torch")]
+    # "cuda" is registered for exactly the algorithms the kernel takes
+    assert sorted(a for a, i in ops.registered() if i == "cuda") == \
+        sorted(fu.KERNEL_ALGOS) == sorted(ops.ALGOS)
+    assert "muon" not in ops.ALGOS
     ops.reset_launch_counts()
     ops.reset_fused_update_count()
     nb, bsz = 2, 256
@@ -189,15 +193,20 @@ def test_registry_and_counters():
     assert ops.fused_update_count() == 1
     # CPU runs of the plain versions are not kernel launches
     assert ops.launch_counts() == {"blockwise_quant": 0,
-                                   "blockwise_dequant": 0, "fused_update": 0}
+                                   "blockwise_dequant": 0, "fused_update": 0,
+                                   "norm_partials": 0}
     with pytest.raises(KeyError):
         ops.fused_update("adam", None, None, None, None, lr=1e-3,
                          impl="pallas")
-    with pytest.raises(ValueError):
-        ops.fused_update("adam", *(T(v) for v in (_rand(nb, bsz, 0),
-                                                  _rand(nb, bsz, 1), cm, am,
-                                                  cr, ar)), T(QS), T(QU),
-                         lr=1e-3, stochastic=True)
+    with pytest.raises(KeyError):
+        ops.fused_update("muon", None, None, None, None, lr=1e-3)
+    # the tensor-wise ablation is served by the oracle, and counted so
+    ops.fused_update("adam", *(T(v) for v in (_rand(nb, bsz, 0),
+                                              _rand(nb, bsz, 1), cm, am,
+                                              cr, ar)), T(QS), T(QU),
+                     lr=1e-3, blockwise=False, stochastic=True)
+    assert ops.fused_update_routes() == {"cuda": 1, "torch": 1}
+    assert ops.fused_update_count() == 2
 
 
 def test_wrappers_reject_bad_inputs():
@@ -214,5 +223,10 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         ops.dequantize_blockwise(c, a, T(QS), dtype=torch.float16)
     with pytest.raises(ValueError):
-        fu.fused_update_cuda(x, x, c, a, c, a, T(QS), T(QU), algo="lamb",
+        fu.fused_update_cuda(x, x, c, a, c, a, T(QS), T(QU), algo="muon",
                              lr=1e-3)
+    with pytest.raises(ValueError):       # a two-state algorithm needs r
+        fu.fused_update_cuda(x, x, c, a, None, None, T(QS), T(QU),
+                             algo="lamb", lr=1e-3)
+    with pytest.raises(ValueError):       # no norm prologue for adam
+        fu.norm_partials_cuda(x, x, c, a, c, a, T(QS), T(QU), algo="adam")

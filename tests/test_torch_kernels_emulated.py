@@ -41,10 +41,16 @@ inline thread_local uint3 threadIdx;
 inline uint3 blockIdx;
 inline dim3 blockDim;
 struct float4 { float x, y, z, w; };
+struct float3 { float x, y, z; };
 struct float2 { float x, y; };
 struct uchar4 { unsigned char x, y, z, w; };
 struct uint2 { unsigned x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float3 make_float3(float a, float b, float c) { return {a, b, c}; }
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d}; }
+inline uchar4 make_uchar4(unsigned char a, unsigned char b, unsigned char c,
+                          unsigned char d) { return {a, b, c, d}; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef struct CUstream_st* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -107,12 +113,14 @@ P = ctypes.c_void_p
 
 
 def _emulated_source(src: str) -> str:
-    """Rewrite each ``kernel<<<grid, block, 0, stream>>>(args)`` launch as
+    """Rewrite each ``kernel<<<grid, block, 0, stream>>>(args)`` launch (the
+    kernel name may carry template arguments) as
     ``emu_launch(grid, block, [&]{ kernel(args); })``."""
     out, i = [], 0
     while (j := src.find(LAUNCH, i)) >= 0:
-        k = j
-        while src[k - 1] not in " \n\t:":
+        k, angle = j, 0
+        while angle or src[k - 1] not in " \n\t:":
+            angle += {">": 1, "<": -1}.get(src[k - 1], 0)
             k -= 1
         depth, m = 1, j + len(LAUNCH)
         while depth:
@@ -149,8 +157,8 @@ def libs(tmp_path_factory):
         ctypes.c_int] * 2 + [P]
     libs["blockwise_dequant"].blockwise_dequantize.argtypes = [P] * 4 + [
         ctypes.c_int] * 3 + [P]
-    libs["fused_update"].fused_adam8_update.argtypes = [P] * 8 + [
-        ctypes.c_int] * 2 + [ctypes.c_float] * 10 + [P]
+    for name, argtypes in fu.ARGTYPES.items():
+        getattr(libs[name], name).argtypes = argtypes
     return libs
 
 
@@ -219,11 +227,100 @@ def test_fused_update_kernel_emulated(libs, nb, bsz):
     want = fu.fused_update_plain(p, grad, cm, am, cr, ar, QS, QU, s,
                                  algo="adamw")
     got = [t.clone() for t in (p, grad, cm, am, cr, ar)]
-    v = {k: float(t) for k, t in s.items()}
-    rc = libs["fused_update"].fused_adam8_update(
-        *_ptrs(*got, QS, QU), nb, bsz, v["lr"], v["beta1"],
-        float(1.0 - s["beta1"]), v["beta2"], float(1.0 - s["beta2"]),
-        v["eps"], v["weight_decay"], v["c1"], v["c2"], v["gnorm_scale"], None)
+    rc = libs["fused_update"].fused_update(
+        fu.KERNEL_ALGOS["adamw"], *_ptrs(*got, QS, QU), None, None, None, 0,
+        0, nb, bsz, *fu._kernel_scalars(s), None)
     assert rc == 0
     for a, b in zip((got[0], *got[2:]), want[:5]):    # updated in place
         assert torch.equal(a, b)
+
+
+def _algo_inputs(algo, nb, bsz, seed):
+    """p, g, states and codebooks for one algorithm: random codes with
+    nonzero absmax (adagrad's single state on the unsigned map)."""
+    spec = fu.ALGO_SPECS[algo]
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randn(nb, bsz, generator=g) * 0.02
+    grad = torch.randn(nb, bsz, generator=g) * 1e-3
+    grad[nb - 1, :8] = 0.0
+    cm = torch.randint(0, 256, (nb, bsz), generator=g, dtype=torch.uint8)
+    am = torch.rand(nb, generator=g) * 1e-3 + 1e-5
+    q1 = QS if spec.state1_signed else QU
+    cr = ar = None
+    if spec.n_states == 2:
+        cr = torch.randint(0, 256, (nb, bsz), generator=g, dtype=torch.uint8)
+        ar = torch.rand(nb, generator=g) * 1e-6 + 1e-9
+    return p, grad, cm, am, cr, ar, q1, QU
+
+
+def _scalars(step=7.0):
+    return fu.scalars(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                      weight_decay=0.01, step=step, gnorm_scale=0.5,
+                      device="cpu")
+
+
+@pytest.mark.parametrize("nb,bsz", [(3, 2048), (2, 260)])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("algo", ["adam", "lamb", "momentum", "lars",
+                                  "adagrad"])
+def test_fused_update_algos_emulated(libs, algo, stochastic, nb, bsz):
+    """Every algorithm of the templated kernel, deterministic and
+    stochastic (per-block seeds and leaf-local offsets), bit for bit
+    against the plain version; lamb/lars read a per-block trust ratio."""
+    spec = fu.ALGO_SPECS[algo]
+    p, grad, cm, am, cr, ar, q1, q2 = _algo_inputs(algo, nb, bsz, 3)
+    s = _scalars()
+    ts = (torch.rand(nb, generator=torch.Generator().manual_seed(4)) + 0.5
+          if spec.needs_norms else None)
+    seeds = torch.tensor([-7, 2 ** 31 - 1, 12345][:nb], dtype=torch.int32)
+    offs = torch.tensor([5, 0, 9][:nb], dtype=torch.int32)
+    uniforms = (fu.block_uniforms(nb, bsz, two=spec.n_states == 2,
+                                  block_seeds=seeds, block_offsets=offs)
+                if stochastic else (None, None))
+    want = fu.fused_update_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                 algo=algo, tensor_scale=ts,
+                                 uniforms=uniforms)
+    got = [None if t is None else t.clone() for t in (p, cm, am, cr, ar)]
+    ptr = lambda t: None if t is None else P(t.data_ptr())
+    rc = libs["fused_update"].fused_update(
+        fu.KERNEL_ALGOS[algo], ptr(got[0]), ptr(grad), *map(ptr, got[1:]),
+        ptr(q1), ptr(q2 if spec.n_states == 2 else None), ptr(ts),
+        ptr(seeds), ptr(offs), int(stochastic), 0, nb, bsz,
+        *fu._kernel_scalars(s), None)
+    assert rc == 0
+    for name, a, b in zip(want._fields, got, want[:5]):
+        if b is None:
+            continue
+        assert torch.equal(a, b), name
+    if stochastic:                    # the hash did move some codes
+        det = fu.fused_update_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                    algo=algo, tensor_scale=ts)
+        assert not torch.equal(det.codes_m, got[1])
+
+
+@pytest.mark.parametrize("nb,bsz", SHAPES)
+@pytest.mark.parametrize("algo", ["lars", "lamb"])
+def test_norm_partials_emulated(libs, algo, nb, bsz):
+    """The norm prologue's per-block partials, bit for bit against the
+    plain version, which adds in the kernel's own order (per thread in
+    sequence, then the warp and CTA trees)."""
+    p, grad, cm, am, cr, ar, q1, q2 = _algo_inputs("lamb", nb, bsz, 5)
+    p = p * torch.exp(torch.randn(nb, bsz, generator=torch.Generator()
+                                  .manual_seed(nb)) * 2)  # wide range
+    s = _scalars(step=3.0)
+    want = fu.norm_partials_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                  algo=algo)
+    out = torch.full((nb, fu.N_PARTIALS), float("nan"))
+    lamb = algo == "lamb"
+    state = (cm, am, cr, ar, q1, q2) if lamb else (None,) * 6
+    ptr = lambda t: None if t is None else P(t.data_ptr())
+    rc = libs["norm_partials"].norm_partials(
+        fu.NORM_KINDS[algo], ptr(p), ptr(grad), *map(ptr, state), ptr(out),
+        nb, bsz, *fu._kernel_scalars(s), None)
+    assert rc == 0
+    assert torch.equal(out, want)
+    assert (want[:, :2] > 0).all() and bool((want[:, 2] > 0).all()) == lamb
+    # the order is what the test holds: on uniform data a row sum in
+    # another order disagrees with block_sums
+    u = torch.rand(64, 2048, generator=torch.Generator().manual_seed(0))
+    assert not torch.equal(fu.block_sums(u), u.sum(dim=1))

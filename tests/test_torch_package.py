@@ -52,11 +52,17 @@ def _entry_points():
         "params_from_numpy": lambda: convert.params_from_numpy({}, cfg),
         "init_train_state": lambda: loop.init_train_state(
             cfg, optim.make_optimizer("adamw8", device="cpu")),
+        "make_optimizer_lamb8": lambda: optim.make_optimizer("lamb8"),
+        "make_optimizer_adafactor32":
+            lambda: optim.make_optimizer("adafactor32"),
+        "Adafactor": lambda: optim.Adafactor(optim.AdafactorConfig()),
     }
 
 
 @pytest.mark.parametrize("name", ["init_model", "Model", "make_optimizer",
-                                  "params_from_numpy", "init_train_state"])
+                                  "params_from_numpy", "init_train_state",
+                                  "make_optimizer_lamb8",
+                                  "make_optimizer_adafactor32", "Adafactor"])
 def test_entry_point_without_device_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
