@@ -5,7 +5,8 @@
 
 The paper's two-line change at full width: ``make_optimizer("adamw8")`` —
 and the rest of the element-wise 8-bit family, momentum8, lars8, lamb8,
-adagrad8 and stochastic-rounding adamw8 — trains paper-lm-209m (10
+adagrad8 and stochastic-rounding adamw8, the packed 4/5/6-bit states
+(``state_bits``) and Muon (muon8, muon32) — trains paper-lm-209m (10
 layers, d_model 1024, vocab 50264, bf16 compute, f32 masters) for a few
 steps on synthetic data, through the port's hand-written CUDA kernels.
 Phases, one line or more each:
@@ -17,11 +18,22 @@ Phases, one line or more each:
    the card, at the main path's largest leaf (blocks/b0_attn/mlp/w_in:
    40960 blocks of 2048): quantize, dequantize, the fused update for
    adamw8, stochastic adamw8, momentum8, lars8, lamb8 and adagrad8, and the
-   lars/lamb norm prologue.  Exact agreement is required (p, codes, absmax,
-   partials: 0 mismatches).  Median times beside the least time the card
-   could take (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s: the
-   H100 SXM data-sheet peaks), the plain version's time and, for the norm
-   prologue, torch.linalg.vector_norm's.
+   lars/lamb norm prologue; then the packed update at (4, 8) (deterministic
+   and stochastic), (5, 5) and (6, 6) for adam and at 4 bits for momentum,
+   lamb's prologue on (4, 8) states, and quantize/dequantize at 4 bits
+   (quantize also stochastic).  Exact agreement is required (p, codes,
+   absmax, partials: 0 mismatches).  Then the Newton–Schulz kernels at the
+   head's shape (1024 x 50264, padded to 50432): the gram A = X X^T and the
+   apply X' = a X + B X against their tile-replaying plain versions within
+   a stated tolerance, and bit-identical over two launches; the same
+   checks at the stacked norm vectors' shape (10 x 1024, padded to
+   16 x 1024).  Median times beside the least time the card could take
+   (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s: the H100 SXM
+   data-sheet peaks; the gram counts the m (m + 1) / 2 dot products of a
+   symmetric result), the plain
+   version's time and, where one PyTorch call computes the same function,
+   that call's (torch.linalg.vector_norm for the norm prologue, torch.mm /
+   torch.addmm with TF32 off for the Newton–Schulz products).
 4. train   — each path with the launch counters zeroed just before it and
    read just after: adamw8 for 10 steps (per-leaf dispatch), then a
    read-back of the trained 8-bit state through the kernel layer (both
@@ -32,7 +44,19 @@ Phases, one line or more each:
    adafactor32, all from the same weights and batches.  Each 8-bit run
    must launch the fused update steps x quantized leaves times (and, for
    lamb/lars, the norm prologue as often); losses must be finite; 8-bit
-   and 32-bit final losses must agree within 1%.
+   and 32-bit final losses must agree within 1%.  Then 5 steps each of the
+   third slice's paths: adam8 at state_bits (4, 8), stochastic (4, 8),
+   (5, 5) and (6, 6) against adam32, lamb8 at (4, 8) and momentum8 at 4
+   bits, muon8, muon8 at (4, 8) and stochastic muon8 at (4, 8) against
+   muon32 — one run for each packed variant and 4-bit quantizer of phase
+   3, whose launches its JSON row reports.  The (5, 5) and (6, 6) runs,
+   whose second moment is below 8 bits, are held to the same run through
+   the torch oracle (losses within 2e-4) instead of to adam32 within 1%
+   (see ORACLE_RUNS).  Each Muon step must launch the
+   Newton–Schulz
+   kernels 5 x the matrix leaves times each, and muon8 the quantize and
+   dequantize kernels once per quantized matrix leaf; a profile of one
+   muon8 step gives the Newton–Schulz kernels' share of device time.
 5. checkpoint — lamb8 for 3 steps, saved with the port's checkpoint,
    restored into a fresh state; step 4 from both must give bit-identical
    params, codes and absmax.
@@ -82,6 +106,68 @@ KERNEL_META = {
     "norm_partials/lars": (*NORMS, "norm_partials"),
     "norm_partials/lamb": (*NORMS, "norm_partials"),
 }
+NS = "src/repro_torch/kernels/csrc/newton_schulz.cu"
+# third slice: JSON row -> (source, replaced TPU kernel, launch counter,
+# the train run whose launches the row reports)
+SLICE3_META = {
+    **{f"fused_update/{v}": (*FUSED, "fused_update", v) for v in (
+        "adam8_4_8", "adam8_4_8_sr", "adam8_5_5", "adam8_6_6",
+        "momentum8_4")},
+    "norm_partials/lamb_4_8": (*NORMS, "norm_partials", "lamb8_4_8"),
+    "blockwise_quant/4bit": (KERNEL_META["blockwise_quant"][0],
+                             KERNEL_META["blockwise_quant"][1],
+                             "blockwise_quant", "muon8_4_8"),
+    "blockwise_quant/4bit_sr": (KERNEL_META["blockwise_quant"][0],
+                                KERNEL_META["blockwise_quant"][1],
+                                "blockwise_quant", "muon8_4_8_sr"),
+    "blockwise_dequant/4bit": (KERNEL_META["blockwise_dequant"][0],
+                               KERNEL_META["blockwise_dequant"][1],
+                               "blockwise_dequant", "muon8_4_8"),
+    "ns_gram": (NS, "src/repro/kernels/newton_schulz.py:103", "ns_gram",
+                "muon8"),
+    "ns_apply": (NS, "src/repro/kernels/newton_schulz.py:127", "ns_apply",
+                 "muon8"),
+}
+# packed fused-update variant -> (algo, bits_m, bits_r, stochastic)
+PACKED_VARIANTS = {"adam8_4_8": ("adam", 4, 8, False),
+                   "adam8_4_8_sr": ("adam", 4, 8, True),
+                   "adam8_5_5": ("adam", 5, 5, False),
+                   "adam8_6_6": ("adam", 6, 6, False),
+                   "momentum8_4": ("momentum", 4, 8, False)}
+# third slice's train runs: label -> (optimizer, kwargs, 32-bit twin)
+# (each packed variant and 4-bit quantizer of phase 3 has a run that
+# launches it and no other variant of its kernel: its launch count)
+SLICE3_RUNS = {
+    "adam8_4_8": ("adam8", dict(state_bits=(4, 8)), "adam32"),
+    "adam8_4_8_sr": ("adam8", dict(state_bits=(4, 8),
+                                   stochastic_rounding=True), "adam32"),
+    "adam8_5_5": ("adam8", dict(state_bits=(5, 5)), "adam32"),
+    "adam8_6_6": ("adam8", dict(state_bits=(6, 6)), "adam32"),
+    "lamb8_4_8": ("lamb8", dict(state_bits=(4, 8)), "lamb32"),
+    "momentum8_4": ("momentum8", dict(state_bits=4), "momentum32"),
+    "muon8": ("muon8", {}, "muon32"),
+    "muon8_4_8": ("muon8", dict(state_bits=(4, 8)), "muon32"),
+    "muon8_4_8_sr": ("muon8", dict(state_bits=(4, 8),
+                                   stochastic_rounding=True), "muon32"),
+}
+# Runs with a second moment below 8 bits, outside the paper's claim of
+# equal loss (it makes it for 8-bit states; the reference's packed golden
+# configuration keeps the second moment at 8 bits): adam8 at (5, 5) ends
+# 1% from adam32 after 5 steps at full width, with an update that agrees
+# with the JAX package's at these widths (tests/test_torch_lowbit.py).
+# They are held instead to the same run on the torch oracle path (the
+# plain update, no kernel launch): per-step losses within the loss-trace
+# tests' rtol.
+ORACLE_RUNS = ("adam8_5_5", "adam8_6_6")
+ORACLE_RTOL = 2e-4
+# Newton–Schulz check: relative error limit of the kernels against their
+# tile-replaying plain versions (largest |difference| over the output's
+# largest magnitude).  Both sum the same f32 products in other orders
+# (within a 256-column tile, FMAs in column order vs the library GEMM's
+# blocking): each entry carries a relative rounding error of order
+# sqrt(terms) * 2^-24 ~ 1e-6 on these sums, 1e-5 leaves room for the
+# spread of 1024^2 entries.
+NS_RTOL = 1e-5
 # fused-update variant -> (algo, stochastic); the optimizer name of its
 # train run is the variant without "_sr" plus stochastic rounding
 VARIANTS = {"adamw8": ("adamw", False), "adamw8_sr": ("adamw", True),
@@ -284,6 +370,224 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
     return out
 
 
+def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
+                         bsz: int = 2048, ns_shape=(1024, 50264)) -> dict:
+    """The third slice's kernels against their plain versions: the packed
+    update (B3(d)), lamb's prologue on packed states (B4), quantize and
+    dequantize at 4 bits (B1/B2) at (nb, bsz); the Newton–Schulz gram and
+    apply (B5/B6) at ``ns_shape``, the main path's head."""
+    from repro_torch.core import qmap
+    from repro_torch.core.lowbit import pack_codes
+    from repro_torch.kernels import blockwise_dequant as bdq
+    from repro_torch.kernels import blockwise_quant as bq
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import newton_schulz as ns
+
+    n = nb * bsz
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    qm = lambda bits, signed=True: torch.as_tensor(
+        qmap.get_qmap("dynamic", signed, bits=bits), device=dev)
+    p = torch.randn(nb, bsz, generator=gen, device=dev) * 0.02
+    g = torch.randn(nb, bsz, generator=gen, device=dev) * 1e-3
+    hyper = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=WEIGHT_DECAY, step=7.0, gnorm_scale=1.0)
+    s = fu.scalars(device=dev, **hyper)
+    am = torch.rand(nb, generator=gen, device=dev) * 1e-3 + 1e-5
+    ar = torch.rand(nb, generator=gen, device=dev) * 1e-6 + 1e-9
+    codes = lambda bits: pack_codes(torch.randint(
+        0, 1 << bits, (nb, bsz), generator=gen, device=dev), bits)
+    out = {}
+
+    def mismatches(got, want):
+        n_bad, err = 0, 0.0
+        for k_, w_ in zip(got, want):
+            if w_ is None:
+                continue
+            n_bad += int((k_ != w_).sum())
+            err = max(err, (k_.float() - w_.float()).abs().max().item())
+        return n_bad, err
+
+    # B3(d): the packed update, every variant bit-exact
+    for variant, (algo, bits_m, bits_r, sr) in PACKED_VARIANTS.items():
+        spec = fu.ALGO_SPECS[algo]
+        two = spec.n_states == 2
+        bits_r = bits_r if two else 8
+        q1, q2 = qm(bits_m), qm(bits_r, False)
+        cm, cr = codes(bits_m), codes(bits_r) if two else None
+        arr = ar if two else None
+        uniforms = (fu.block_uniforms(nb, bsz, two=two, seed=SEED,
+                                      device=dev) if sr else (None, None))
+        want = fu.fused_update_plain(p, g, cm, am, cr, arr, q1, q2, s,
+                                     algo=algo, uniforms=uniforms,
+                                     bits_m=bits_m, bits_r=bits_r)
+        del uniforms
+        got = [None if t is None else t.clone() for t in (p, cm, am, cr, arr)]
+        kw = dict(hyper, algo=algo, stochastic=sr, seed=SEED, bits_m=bits_m,
+                  bits_r=bits_r)
+        fu.fused_update_cuda(got[0], g, *got[1:], q1, q2, **kw)
+        n_bad, err = mismatches(got, want[:5])
+        require(n_bad == 0, f"fused_update/{variant}: {n_bad} values (p, "
+                f"packed codes, absmax) disagree with the plain version "
+                f"(err {err})")
+        del want
+        ms = median_ms(torch, lambda: fu.fused_update_cuda(
+            got[0], g, *got[1:], q1, q2, **kw), 20)
+        plain = median_ms(torch, lambda: fu.fused_update_plain(
+            p, g, cm, am, cr, arr, q1, q2, s, algo=algo,
+            uniforms=(fu.block_uniforms(nb, bsz, two=two, seed=SEED,
+                                        device=dev)
+                      if sr else (None, None)),
+            bits_m=bits_m, bits_r=bits_r), 3, 2, 1)
+        # p read and written, g read, each state's codes read and written
+        per_elem = 12 + 2 * (bits_m + (bits_r if two else 0)) / 8
+        ops_ = (56 if two else 30) + (40 if sr else 0)
+        b, by = bound_ms(n * per_elem + nb * (16 if two else 8) + 2048,
+                         n * ops_)
+        out[f"fused_update/{variant}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=None)
+        print(f"kernel fused_update {variant} ({nb}x{bsz}, bits "
+              f"{bits_m}/{bits_r if two else '-'}): p, packed codes and "
+              f"absmax exact, 0 mismatches; {ms:.4f} ms, bound {b:.4f} ms "
+              f"({by}), plain {plain:.3f} ms")
+        del got, cm, cr
+
+    # B4: lamb's norm prologue on (4, 8) states
+    q1, q2 = qm(4), qm(8, False)
+    cm, cr = codes(4), codes(8)
+    state = (cm, am, cr, ar, q1, q2)
+    norm_hyper = {k: v for k, v in hyper.items() if k != "lr"}
+    want = fu.norm_partials_plain(p, g, *state, s, algo="lamb", bits_m=4,
+                                  bits_r=8)
+    got = fu.norm_partials_cuda(p, g, *state, algo="lamb", bits_m=4,
+                                bits_r=8, **norm_hyper)
+    n_bad, err = mismatches([got], [want])
+    require(n_bad == 0, f"norm_partials/lamb_4_8: {n_bad} partials disagree "
+            f"with the plain version (err {err})")
+    ms = median_ms(torch, lambda: fu.norm_partials_cuda(
+        p, g, *state, algo="lamb", bits_m=4, bits_r=8, **norm_hyper), 20)
+    plain = median_ms(torch, lambda: fu.norm_partials_plain(
+        p, g, *state, s, algo="lamb", bits_m=4, bits_r=8), 3, 2, 1)
+    library = median_ms(torch, lambda: (torch.linalg.vector_norm(p, dim=1),
+                                        torch.linalg.vector_norm(g, dim=1)),
+                        20)
+    b, by = bound_ms(n * 9.5 + nb * 40, n * 26)
+    out["norm_partials/lamb_4_8"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+        library_ms=library)
+    print(f"kernel norm_partials lamb_4_8 ({nb}x{bsz}): exact, 0 mismatches; "
+          f"{ms:.4f} ms, bound {b:.4f} ms ({by}), plain {plain:.3f} ms, "
+          f"torch.linalg.vector_norm of p and g {library:.4f} ms")
+    del want, got, state, cm, cr
+
+    # B1 / B2 at 4 bits; B1 also stochastic
+    q4 = qm(4)
+    x = torch.randn(nb, bsz, generator=gen, device=dev) * torch.exp(
+        torch.randn(nb, 1, generator=gen, device=dev) * 3)
+    x[0] = 0.0
+    for name, seed in (("blockwise_quant/4bit", None),
+                       ("blockwise_quant/4bit_sr", SEED + 11)):
+        ck, ak = bq.quantize_blockwise(x, q4, bits=4, seed=seed)
+        cp, ap = bq.quantize_plain(x, q4, bits=4, seed=seed)
+        n_bad, err = mismatches([ck, ak], [cp, ap])
+        require(n_bad == 0, f"{name}: {n_bad} packed codes or absmax "
+                f"disagree with the plain version (err {err})")
+        ms = median_ms(torch, lambda: bq.quantize_blockwise(
+            x, q4, bits=4, seed=seed), 20)
+        plain = median_ms(torch, lambda: bq.quantize_plain(
+            x, q4, bits=4, seed=seed), 3, 2, 1)
+        b, by = bound_ms(n * 4.5 + nb * 4 + 64,
+                         n * (19 + (40 if seed is not None else 0)))
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                         bound_by=by, library_ms=None)
+        print(f"kernel {name} ({nb}x{bsz} f32): exact; {ms:.4f} ms, bound "
+              f"{b:.4f} ms ({by}), plain {plain:.3f} ms")
+    vk = bdq.dequantize_blockwise(ck, ak, q4, bits=4)
+    vp = bdq.dequantize_plain(ck, ak, q4, bits=4)
+    n_bad, err = mismatches([vk], [vp])
+    require(n_bad == 0, f"blockwise_dequant/4bit disagrees with its plain "
+            f"version (err {err})")
+    ms = median_ms(torch, lambda: bdq.dequantize_blockwise(ck, ak, q4,
+                                                           bits=4), 20)
+    plain = median_ms(torch, lambda: bdq.dequantize_plain(ck, ak, q4,
+                                                          bits=4), 3, 2, 1)
+    b, by = bound_ms(n * 4.5 + nb * 4 + 64, n)
+    out["blockwise_dequant/4bit"] = dict(max_abs_err=err, ms=ms,
+                                         plain_ms=plain, bound_ms=b,
+                                         bound_by=by, library_ms=None)
+    print(f"kernel blockwise_dequant/4bit ({nb}x{bsz} -> f32): exact; "
+          f"{ms:.4f} ms, bound {b:.4f} ms ({by}), plain {plain:.3f} ms")
+    del x, ck, ak, cp, ap, vk, vp, p, g
+
+    # B5 / B6 at the head's shape, against the tile-replaying plain versions
+    m, n_cols = ns_shape
+    x = torch.randn(m, n_cols, generator=gen, device=dev)
+    x = ns.pad_matrix(x / x.norm()).contiguous()
+    m, n_pad = x.shape
+    a_, b_, c_ = ns.NS_COEFFS
+    gram = ns.gram_cuda(x)
+    want = ns.gram_plain(x)
+    b_mat = (b_ * want + c_ * (want @ want)).contiguous()
+    results = {"ns_gram": (gram, ns.gram_cuda(x), want,
+                           lambda: ns.gram_cuda(x),
+                           lambda: ns.gram_plain(x),
+                           lambda: torch.mm(x, x.T),
+                           (m * n_pad + m * m) * 4,
+                           # A is symmetric: m (m + 1) / 2 distinct dot
+                           # products of n FMAs (the kernel computes all m^2)
+                           float(m * (m + 1) * n_pad))}
+    applied = ns.apply_cuda(x, b_mat, a_)
+    results["ns_apply"] = (applied, ns.apply_cuda(x, b_mat, a_),
+                           ns.apply_plain(x, b_mat, a_),
+                           lambda: ns.apply_cuda(x, b_mat, a_),
+                           lambda: ns.apply_plain(x, b_mat, a_),
+                           lambda: torch.addmm(x, b_mat, x, beta=a_),
+                           (2 * m * n_pad + m * m) * 4,
+                           2.0 * m * m * n_pad)
+    for name, (k1, k2, w, fn, plain_fn, lib_fn, n_bytes,
+               n_ops) in results.items():
+        rel = ((k1 - w).abs().max() / w.abs().max()).item()
+        same = torch.equal(k1, k2)
+        require(rel < NS_RTOL, f"{name}: largest error {rel:.3e} of the "
+                f"output's largest magnitude (limit {NS_RTOL:g})")
+        require(same, f"{name}: two launches on the same input differ")
+        ms = median_ms(torch, fn, 5, 2, 1)
+        plain = median_ms(torch, plain_fn, 3, 1, 1)
+        library = median_ms(torch, lib_fn, 5, 2, 1)
+        b, by = bound_ms(n_bytes, n_ops)
+        out[name] = dict(max_abs_err=(k1 - w).abs().max().item(),
+                         rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b,
+                         bound_by=by, library_ms=library)
+        print(f"kernel {name} ({m}x{n_pad} f32): largest error {rel:.3e} of "
+              f"the largest magnitude (limit {NS_RTOL:g}), identical over "
+              f"two launches; {ms:.4f} ms, bound {b:.4f} ms ({by}), plain "
+              f"{plain:.3f} ms, library {library:.4f} ms")
+
+    # B5 / B6 at the stacked norm vectors' shape, (10, 1024) padded to
+    # (16, 1024): 20 of a muon8 step's 25 launches of each, one partial
+    # 64 x 64 tile (rows past m masked on load and store)
+    x = torch.randn(10, 1024, generator=gen, device=dev)
+    x = ns.pad_matrix(x / x.norm()).contiguous()
+    gram, want = ns.gram_cuda(x), ns.gram_plain(x)
+    b_mat = (b_ * want + c_ * (want @ want)).contiguous()
+    checks = {"ns_gram": (gram, ns.gram_cuda(x), want),
+              "ns_apply": (ns.apply_cuda(x, b_mat, a_),
+                           ns.apply_cuda(x, b_mat, a_),
+                           ns.apply_plain(x, b_mat, a_))}
+    for name, (k1, k2, w) in checks.items():
+        rel = ((k1 - w).abs().max() / w.abs().max()).item()
+        require(rel < NS_RTOL, f"{name} at {tuple(x.shape)}: largest error "
+                f"{rel:.3e} of the output's largest magnitude (limit "
+                f"{NS_RTOL:g})")
+        require(torch.equal(k1, k2), f"{name} at {tuple(x.shape)}: two "
+                f"launches on the same input differ")
+        out[name]["rel_err_small"] = rel
+        print(f"kernel {name} ({x.shape[0]}x{x.shape[1]} f32): largest "
+              f"error {rel:.3e} of the largest magnitude (limit "
+              f"{NS_RTOL:g}), identical over two launches")
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 def train(torch, dev, cfg, name: str, steps: int, batches, label=None,
           **opt_kw) -> dict:
@@ -360,6 +664,139 @@ def readback(torch, opt, state) -> int:
                 f"{path}: second moment does not round-trip "
                 f"({int((c2 != leaf.codes_r).sum())} codes differ)")
     return n_quant
+
+
+def _kernel_share(prof, names) -> dict:
+    """{kernel name: (device ms, launches)} of the kernels whose profiler
+    key contains one of ``names``."""
+    ours = {}
+    for t, count, key in prof:
+        for k in names:
+            if k in key:
+                ms_, n_ = ours.get(k, (0.0, 0))
+                ours[k] = (ms_ + t, n_ + count)
+    return ours
+
+
+def train_slice3(torch, dev, cfg, batches, losses32: dict,
+                 run_launches: dict, step_launches: dict,
+                 run_steps: dict) -> None:
+    """The third slice's paths: packed states and Muon, each run with the
+    launch counters zeroed just before it and read just after, against its
+    32-bit twin (run here when the family phase did not)."""
+    from repro_torch.core.lowbit import PackedCodes
+    from repro_torch.core.optim import Full32Leaf, Quant8Leaf
+    from repro_torch.kernels import ops
+
+    def expected(opt, state) -> dict:
+        """Launches per step of each kernel for this optimizer's leaves."""
+        leaves = list(state.opt_state.leaves.values())
+        muon = opt.cfg.algo == "muon"
+        quant = [leaf for leaf in leaves if isinstance(leaf, Quant8Leaf)]
+        matrix_q = [leaf for leaf in quant
+                    if muon and leaf.codes_r is None]
+        matrix_32 = [leaf for leaf in leaves if muon and
+                     isinstance(leaf, Full32Leaf) and leaf.r is None]
+        fused = len(quant) - len(matrix_q)
+        return {"fused_update": fused,
+                "norm_partials": fused if opt.cfg.algo in ("lamb", "lars")
+                else 0,
+                "blockwise_quant": len(matrix_q),
+                "blockwise_dequant": len(matrix_q),
+                "ns_gram": opt.cfg.ns_steps * (len(matrix_q)
+                                               + len(matrix_32)) if muon
+                else 0,
+                "ns_apply": opt.cfg.ns_steps * (len(matrix_q)
+                                                + len(matrix_32)) if muon
+                else 0}
+
+    def counted_run(name, label, **kw):
+        ops.reset_launch_counts()
+        run = train(torch, dev, cfg, name, FAMILY_STEPS, batches,
+                    label=label, **kw)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {k: v * FAMILY_STEPS
+                for k, v in expected(run["opt"], run["state"]).items()}
+        require(counts == want, f"{label}: launches {counts}, expected "
+                f"{want} ({FAMILY_STEPS} steps)")
+        require(all(math.isfinite(x) for x in run["losses"]),
+                f"non-finite {label} loss")
+        run_launches[label], step_launches[label] = counts, counts
+        run_steps[label] = FAMILY_STEPS
+        return run, counts
+
+    for label, (name, kw, twin) in SLICE3_RUNS.items():
+        if twin not in losses32:
+            run, counts = counted_run(twin, twin)
+            losses32[twin] = (run["losses"][-1],
+                              statistics.median(run["ms"][1:]))
+            print(f"train {twin}: launches {counts}; state_bytes_per_param "
+                  f"{run['metrics']['state_bytes_per_param']:.4f}")
+            del run
+            torch.cuda.empty_cache()
+        run, counts = counted_run(name, label, **kw)
+        bits = kw.get("state_bits")
+        if bits is not None:
+            b_m, b_r = (bits, 8) if isinstance(bits, int) else bits
+            quant = [leaf for leaf in run["state"].opt_state.leaves.values()
+                     if isinstance(leaf, Quant8Leaf)]
+            packed = lambda c, b: (isinstance(c, PackedCodes) and c.bits == b
+                                   if b < 8 else isinstance(c, torch.Tensor))
+            require(quant and all(packed(leaf.codes_m, b_m) for leaf in quant)
+                    and all(packed(leaf.codes_r, b_r) for leaf in quant
+                            if leaf.codes_r is not None),
+                    f"{label}: codes are not packed at {b_m}/{b_r} bits")
+        if label == "muon8":
+            prof, wall = profile_step(torch, run["step"], run["state"],
+                                      batches[FAMILY_STEPS])
+            total = sum(t for t, _, _ in prof)
+            ours = _kernel_share(prof, ("ns_gram_kernel", "ns_apply_kernel",
+                                        "fused_update_kernel",
+                                        "::quantize_kernel",
+                                        "::dequantize_kernel"))
+            ns_ms = sum(t for k, (t, _) in ours.items() if "ns_" in k)
+            print(f"profile muon8 step: {total:.2f} ms device time over "
+                  f"{wall:.2f} ms wall (device idle "
+                  f"{100 * (1 - total / wall):.1f}%); Newton–Schulz kernels "
+                  f"{ns_ms:.3f} ms ({100 * ns_ms / total:.1f}% of device "
+                  f"time); port kernels: "
+                  + "; ".join(f"{k} {t:.3f} ms in {n} launches"
+                              for k, (t, n) in ours.items()))
+            for t, count, key in prof[:8]:
+                print(f"profile   {t:9.3f} ms  x{count:<5d} {key[:90]}")
+        l8, ms_8 = run["losses"][-1], statistics.median(run["ms"][1:])
+        l32, ms_32 = losses32[twin]
+        rel = abs(l8 - l32) / abs(l32)
+        print(f"final loss after {FAMILY_STEPS} steps: {label} {l8:.6f}  "
+              f"{twin} {l32:.6f} ({100 * rel:.3f}% apart); median step ms "
+              f"{ms_8:.1f} vs {ms_32:.1f}; {label} launches {counts}; "
+              f"state_bytes_per_param "
+              f"{run['metrics']['state_bytes_per_param']:.4f}")
+        if label in ORACLE_RUNS:
+            losses = run["losses"]
+            del run
+            torch.cuda.empty_cache()
+            ops.reset_launch_counts()
+            oracle = train(torch, dev, cfg, name, FAMILY_STEPS, batches,
+                           label=f"{label} (torch oracle)", impl="torch",
+                           **kw)
+            require(not any(ops.launch_counts().values()),
+                    f"{label}: the torch-oracle run launched kernels "
+                    f"{ops.launch_counts()}")
+            worst = max(abs(a - b) / abs(b)
+                        for a, b in zip(losses, oracle["losses"]))
+            print(f"{label}: losses of the kernel path and the torch oracle "
+                  f"path at most {worst:.3e} apart over {FAMILY_STEPS} steps "
+                  f"(limit {ORACLE_RTOL:g})")
+            require(worst <= ORACLE_RTOL, f"{label}: kernel and torch-oracle "
+                    f"losses {worst:.3e} apart (limit {ORACLE_RTOL:g})")
+            del oracle
+        else:
+            require(rel < 0.01, f"{label} and {twin} final losses differ by "
+                    f"{100 * rel:.2f}% (limit 1%)")
+            del run
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ phase 5
@@ -445,6 +882,8 @@ def main() -> int:
     # ---- 3. kernels vs plain versions
     kernels = check_kernels(torch, dev)
     torch.cuda.empty_cache()
+    kernels.update(check_slice3_kernels(torch, dev))
+    torch.cuda.empty_cache()
 
     # ---- 4. train
     cfg = base.get_config("paper-lm-209m")
@@ -494,6 +933,7 @@ def main() -> int:
           f"{ms8:.1f}, adamw32 {statistics.median(run32['ms'][1:]):.1f}")
     adamw32_at = run32["losses"][FAMILY_STEPS - 1]
     adamw32_ms = statistics.median(run32["ms"][1:])
+    losses32 = {}                 # 32-bit twin -> (final loss, median ms)
     del run32
     torch.cuda.empty_cache()
 
@@ -553,6 +993,7 @@ def main() -> int:
                     f"non-finite {algo}32 loss")
             l32, ms_32 = run["losses"][-1], statistics.median(run["ms"][1:])
             twin = f"{algo}32"
+            losses32[twin] = (l32, ms_32)
             del run
             torch.cuda.empty_cache()
         rel = abs(l8 - l32) / abs(l32)
@@ -572,24 +1013,34 @@ def main() -> int:
     del run
     torch.cuda.empty_cache()
 
+    train_slice3(torch, dev, cfg, batches, losses32, run_launches,
+                 step_launches, run_steps)
+
     # ---- 5. checkpoint
     checkpoint_roundtrip(torch, dev, cfg, batches)
 
     # ---- 6. summary
     rows = []
-    for name, (source, replaces, counter) in KERNEL_META.items():
+    meta = [(name, source, replaces, counter,
+             {"lars": "lars8", "lamb": "lamb8"}.get(
+                 name.split("/")[-1], name.split("/")[-1])
+             if "/" in name else "adamw8")
+            for name, (source, replaces, counter) in KERNEL_META.items()]
+    meta += [(name, *m) for name, m in SLICE3_META.items()]
+    for name, source, replaces, counter, run in meta:
         k = kernels[name]
-        run = name.split("/")[-1] if "/" in name else "adamw8"
-        run = {"lars": "lars8", "lamb": "lamb8"}.get(run, run)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces,
                      "launches": run_launches[run][counter],
                      "launches_per_step":
                          step_launches[run][counter] / run_steps[run],
+                     "run": run,
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k.get("library_ms")})
+        require(rows[-1]["launches"] > 0, f"{name}: no launch in the {run} "
+                f"run")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

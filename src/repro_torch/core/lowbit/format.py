@@ -1,9 +1,10 @@
 """Per-state-slot code format: bitwidth + signedness + codebook family
 (mirrors ``repro.core.lowbit.format``).
 
-The port serves the paper's 8-bit slots.  Sub-byte widths (4/5/6-bit,
-bit-packed) are ROADMAP item A8 and raise :class:`FormatError` here until
-the packing module and the packed fused-update kernel are ported.
+One :class:`CodeFormat` describes how a single optimizer state slot (first
+moment, second moment, ...) is stored: a 2^bits-entry codebook from
+``repro_torch.core.qmap`` and, for sub-byte widths, bit-packed storage via
+:class:`~repro_torch.core.lowbit.packing.PackedCodes`.
 """
 from __future__ import annotations
 
@@ -13,10 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import qmap as qmap_lib
+from repro_torch.core.lowbit.packing import SUPPORTED_BITS, PackedCodes
 from repro_torch.errors import FormatError
-
-SUPPORTED_BITS = (4, 5, 6, 8)
-PORTED_BITS = (8,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,10 +30,6 @@ class CodeFormat:
         if self.bits not in SUPPORTED_BITS:
             raise FormatError(f"bits={self.bits} unsupported; choose from "
                               f"{SUPPORTED_BITS}")
-        if self.bits not in PORTED_BITS:
-            raise FormatError(f"bits={self.bits}: packed sub-byte states are "
-                              f"not ported yet (ROADMAP A8); the port stores "
-                              f"{PORTED_BITS}-bit codes")
 
     @property
     def n_levels(self) -> int:
@@ -52,12 +47,18 @@ class CodeFormat:
         """Code index whose level is (closest to) 0.0 — the init fill."""
         return int(np.argmin(np.abs(self.codebook())))
 
-    def init_codes(self, n_blocks: int, block_size: int,
-                   device) -> torch.Tensor:
-        """Zero-state codes: a (n_blocks, block_size) uint8 tensor."""
-        return torch.full((n_blocks, block_size), self.zero_code(),
-                          dtype=torch.uint8, device=device)
+    def init_codes(self, n_blocks: int, block_size: int, device):
+        """Zero-state codes: PackedCodes below 8 bits, else a plain
+        (n_blocks, block_size) uint8 tensor."""
+        zc = self.zero_code()
+        if self.bits == 8:
+            return torch.full((n_blocks, block_size), zc, dtype=torch.uint8,
+                              device=device)
+        row = PackedCodes.from_codes(
+            torch.full((1, block_size), zc, dtype=torch.int32), self.bits)
+        return PackedCodes(row.packed.repeat(n_blocks, 1).to(device),
+                           self.bits, block_size)
 
     def bytes_per_param(self, block_size: int) -> float:
-        """Analytic storage cost: codes + amortized f32 absmax."""
+        """Analytic storage cost: packed codes + amortized f32 absmax."""
         return self.bits / 8.0 + 4.0 / block_size

@@ -10,7 +10,10 @@ that flat block domain; the f32 master stays in parameter shape.
 means the same in both packages; the engine (``blockopt.py``) raises
 :class:`~repro_torch.errors.ConfigError` for the settings whose code paths
 are not ported yet, naming the ROADMAP item.  The pooled arena containers
-(``QuantArena``, ``Pool32Arena``, ...) are ROADMAP A9.
+(``QuantArena``, ``Pool32Arena``, ...) are ROADMAP A9.  A quantized state
+slot holds plain uint8 codes at 8 bits and
+:class:`~repro_torch.core.lowbit.PackedCodes` at 4, 5 and 6 bits
+(``state_bits``).
 """
 from __future__ import annotations
 
@@ -161,6 +164,9 @@ class OptimConfig:
                 raise ConfigError(f"state_bits={self.state_bits}: width {b} "
                                   f"unsupported (choose from "
                                   f"{SUPPORTED_BITS})")
+        if not isinstance(self.ns_steps, int) or self.ns_steps < 0:
+            raise ConfigError(f"ns_steps={self.ns_steps!r} must be an int "
+                              f">= 0")
 
     @property
     def state_bits_pair(self) -> tuple:
@@ -257,9 +263,9 @@ class Quant8Leaf:
     master is kept in parameter shape; the optimizer updates it, the codes
     and the absmax vectors in place."""
     master: torch.Tensor            # param shape, f32
-    codes_m: torch.Tensor           # (n_blocks, B) uint8
+    codes_m: Any                    # (n_blocks, B) uint8 | PackedCodes
     absmax_m: torch.Tensor          # (n_blocks,)  f32
-    codes_r: Optional[torch.Tensor]  # present iff algo has second moment
+    codes_r: Any                    # present iff the leaf has 2 states
     absmax_r: Optional[torch.Tensor]
     shape: tuple                    # original param shape
     n: int                          # logical element count

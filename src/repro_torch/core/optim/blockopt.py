@@ -36,10 +36,20 @@ masters, codes, absmax vectors and 32-bit moments in place, saving a copy of
 each.  A model whose parameters were passed to ``init`` is therefore
 updated by ``apply`` directly.
 
+Sub-byte states (``state_bits``, e.g. ``(4, 8)``) store
+:class:`~repro_torch.core.lowbit.PackedCodes`; the fused update takes them
+as they are.
+
+Matrix-class optimizers (``MuonOptimizer``, ``core/optim/muon.py``) plug in
+through three hooks, as in the JAX package: ``_leaf_class`` ("ew" or
+"matrix" per leaf), ``_init_matrix_leaf`` and ``_elementwise_algo`` (the
+algorithm the other leaves run, "adamw" for muon).  The base engine is
+element-wise only and rejects matrix-class algorithms.
+
 Not ported yet, and rejected with :class:`ConfigError` naming the ROADMAP
 item: the pooled single dispatch (``pooled=True`` with quantized leaves,
-A9 — ``make_optimizer`` defaults to ``pooled=False``), muon (A10), the
-sentinel (A11) and bf16 masters.
+A9 — ``make_optimizer`` defaults to ``pooled=False``), the sentinel (A11)
+and bf16 masters.
 """
 from __future__ import annotations
 
@@ -49,7 +59,7 @@ import torch
 
 from repro_torch import device as device_lib
 from repro_torch.device import to_device
-from repro_torch.core.lowbit import CodeFormat
+from repro_torch.core.lowbit import CodeFormat, PackedCodes
 from repro_torch.core.optim import base
 from repro_torch.core.optim.base import (Full32Leaf, OptimConfig, Quant8Leaf,
                                          blocks_to_param, flatten_to_blocks)
@@ -74,9 +84,6 @@ class OptState(NamedTuple):
 
 
 def _check_ported(cfg: OptimConfig) -> None:
-    if cfg.algo not in kfu.ALGO_SPECS:
-        raise ConfigError(f"algo {cfg.algo!r} is not ported yet (ROADMAP "
-                          f"A10); the port has {tuple(kfu.ALGO_SPECS)}")
     if cfg.pooling_active:
         raise ConfigError("pooled=True (the pooled single dispatch) is not "
                           "ported yet (ROADMAP A9); pass pooled=False — "
@@ -102,6 +109,11 @@ class Block8bitOptimizer:
         self.cfg = config
         self.device = device_lib.resolve(device)
         self.override_32bit = override_32bit or (lambda path: False)
+        # The algorithm element-wise leaves run through the fused registry;
+        # matrix-class optimizers (MuonOptimizer) override
+        # `_elementwise_algo` with their fallback ("adamw") and route their
+        # matrix leaves through `_leaf_class` / `_init_matrix_leaf`.
+        self._ew_algo = self._elementwise_algo(config.algo)
         bits1, bits2 = config.state_bits_pair
         signed1 = kfu.ALGO_SPECS[config.algo].state1_signed
         self._fmt1 = CodeFormat(
@@ -123,6 +135,28 @@ class Block8bitOptimizer:
             return False
         return not self.override_32bit(path)
 
+    def _elementwise_algo(self, algo: str) -> str:
+        """The algorithm non-matrix leaves dispatch through the fused
+        registry.  Matrix optimizers override this (muon -> "adamw")."""
+        if kfu.ALGO_SPECS[algo].matrix:
+            raise ValueError(
+                f"'{algo}' is a matrix-class algorithm; construct it via "
+                f"make_optimizer / MuonOptimizer — Block8bitOptimizer has "
+                f"no matrix-leaf routing")
+        return algo
+
+    def _leaf_class(self, path: str, param: torch.Tensor) -> str:
+        """Per-leaf algorithm class: "ew" (element-wise, the fused-registry
+        path) or "matrix" (Newton–Schulz leaves, MuonOptimizer only).  The
+        base engine is entirely element-wise."""
+        del path, param
+        return "ew"
+
+    def _init_matrix_leaf(self, path: str, param: torch.Tensor,
+                          master: torch.Tensor):
+        raise NotImplementedError(
+            "matrix-class leaves need a matrix optimizer (MuonOptimizer)")
+
     def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
         """State for ``params`` (path string -> tensor on the optimizer's
         device).  The masters alias f32 parameters; others are copied to
@@ -137,6 +171,9 @@ class Block8bitOptimizer:
             master = p.detach()
             if master.dtype != torch.float32:
                 master = master.to(torch.float32)
+            if self._leaf_class(path, p) == "matrix":
+                leaves[path] = self._init_matrix_leaf(path, p, master)
+                continue
             second = cfg.has_second_moment
             if self._leaf_is_quantized(path, p):
                 nb = base.n_blocks_for(tuple(p.shape), cfg.block_size,
@@ -168,7 +205,7 @@ class Block8bitOptimizer:
         PyTorch on the card too, as the JAX package runs it without a
         kernel."""
         cfg = self.cfg
-        spec = kfu.ALGO_SPECS[cfg.algo]
+        spec = kfu.ALGO_SPECS[self._ew_algo]
         c1, c2 = kfu.bias_corrections(cfg.beta1, cfg.beta2, step_f)
         s = dict(lr=lr, beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps,
                  weight_decay=cfg.weight_decay, c1=to_device(c1, p.device),
@@ -212,7 +249,7 @@ class Block8bitOptimizer:
         gb = flatten_to_blocks(g, cfg.block_size, cfg.shard_multiple)
         mb = flatten_to_blocks(leaf.master, cfg.block_size, cfg.shard_multiple)
         res = kops.fused_update(
-            cfg.algo, mb, gb, leaf.codes_m, leaf.absmax_m, leaf.codes_r,
+            self._ew_algo, mb, gb, leaf.codes_m, leaf.absmax_m, leaf.codes_r,
             leaf.absmax_r, self._qmap1, self._qmap2, lr=lr, beta1=cfg.beta1,
             beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay,
             step=step_f, trust_coeff=cfg.trust_coeff,
@@ -276,14 +313,16 @@ class Block8bitOptimizer:
 
     # ------------------------------------------------------------- utilities
     def state_bytes(self, state: OptState) -> dict:
-        """Measured memory of optimizer statistics vs the masters."""
+        """Measured memory of optimizer statistics vs the masters (packed
+        codes count their packed bytes)."""
         stats = master = n_params = 0
         for leaf in state.leaves.values():
             if isinstance(leaf, Quant8Leaf):
                 for c, a in ((leaf.codes_m, leaf.absmax_m),
                              (leaf.codes_r, leaf.absmax_r)):
                     if c is not None:
-                        stats += c.numel() + a.numel() * 4
+                        stats += (c.nbytes() if isinstance(c, PackedCodes)
+                                  else c.numel()) + a.numel() * 4
                 n_params += leaf.n
             else:
                 for t in (leaf.m, leaf.r):

@@ -17,9 +17,11 @@ operations, so the plain versions hold them in int64 and keep the low 32
 bits after every multiply and shift (``& 0xFFFFFFFF``); a multiply of two
 32-bit values is split in 16-bit halves so no int64 product overflows.
 
-Boundary rows are padded to 256 lanes (boundary 256 = +inf), as in the JAX
-package.  Codebooks are the 256-entry 8-bit maps; padding them for sub-byte
-maps (``padded_qmap``) comes with ROADMAP A8.
+Boundary rows are padded to 256 lanes with +inf, as in the JAX package;
+for a 2^bits-entry codebook (bits < 8) the padding starts after its
+2^bits - 1 real midpoints, which caps encode at ``max_code`` = 2^bits - 1.
+The kernels build the same padded rows in shared memory from the short
+codebook itself, so no padded copy of the codebook is needed.
 """
 from __future__ import annotations
 

@@ -18,31 +18,80 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+// A dynamic shared-memory array of the launch's third <<<>>> argument.
+#ifndef RQ_DYNAMIC_SHARED
+#define RQ_DYNAMIC_SHARED(T, name) extern __shared__ __align__(16) T name[]
+#endif
+
 namespace rq {
 
 constexpr int kCodebookSize = 256;
 constexpr int kThreads = 256;  // threads per CTA; one CTA per block
+constexpr int kMaxBlock = 8192;  // largest block (kernels/common.py)
+// Bytes of a staged packed row: the widest (8-bit) row plus the one byte
+// unpack_code may read past its end, rounded to 16.
+constexpr int kMaxStagedRow = kMaxBlock + 16;
 
 // NaN-propagating max, like jnp.max / torch.amax.
 __device__ __forceinline__ float nanmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-// Copy a 256-entry codebook into shared memory (no barrier).
-__device__ __forceinline__ void load_lut(const float* qmap, float* lut) {
-  for (int i = threadIdx.x; i < kCodebookSize; i += blockDim.x) lut[i] = qmap[i];
+// Copy a codebook of n_levels = 2^bits <= 256 entries into a 256-entry
+// shared-memory table (entries past n_levels are 0 and never read: codes
+// stay below n_levels).  No barrier.
+__device__ __forceinline__ void load_lut(const float* qmap, float* lut,
+                                         int n_levels = kCodebookSize) {
+  for (int i = threadIdx.x; i < kCodebookSize; i += blockDim.x)
+    lut[i] = i < n_levels ? qmap[i] : 0.f;
 }
 
-// Copy a 256-entry codebook into shared memory and build its 255 midpoints
-// (cb[i+1] + cb[i]) * 0.5 — the values kernels/common.py::padded_bounds
-// computes.  Ends with a barrier.
+// Copy a codebook of n_levels entries into shared memory and build its
+// n_levels - 1 midpoints (cb[i+1] + cb[i]) * 0.5, padded with +inf to 255
+// — the values kernels/common.py::padded_bounds computes.  The padding
+// caps encode at n_levels - 1 (no value compares >= +inf but +inf, which
+// a normalized value never is).  Ends with a barrier.
 __device__ __forceinline__ void load_codebook(const float* qmap, float* lut,
-                                              float* bounds) {
-  load_lut(qmap, lut);
+                                              float* bounds,
+                                              int n_levels = kCodebookSize) {
+  load_lut(qmap, lut, n_levels);
   __syncthreads();
   for (int i = threadIdx.x; i < kCodebookSize - 1; i += blockDim.x)
-    bounds[i] = __fmul_rn(__fadd_rn(lut[i + 1], lut[i]), 0.5f);
+    bounds[i] = i < n_levels - 1
+                    ? __fmul_rn(__fadd_rn(lut[i + 1], lut[i]), 0.5f)
+                    : INFINITY;
   __syncthreads();
+}
+
+// ---- bit-packed codes (core/lowbit/packing.py): a row of b-bit codes is
+// an MSB-first big-endian bitstream, code j at stream bits [j*b, j*b + b),
+// byte k holding stream bits [8k, 8k + 8) with bit 8k at its bit 7.  5- and
+// 6-bit codes straddle bytes.  b = 8 is the plain byte layout.
+
+// Code j of a packed row staged in shared memory, which must hold one
+// readable byte past the row's end (a code spans at most two bytes).
+__device__ __forceinline__ uint32_t unpack_code(const uint8_t* row,
+                                                uint32_t j, int bits) {
+  const uint32_t bit = j * static_cast<uint32_t>(bits);
+  const uint32_t w = (static_cast<uint32_t>(row[bit >> 3]) << 8) |
+                     static_cast<uint32_t>(row[(bit >> 3) + 1]);
+  return (w >> (16u - (bit & 7u) - static_cast<uint32_t>(bits))) &
+         ((1u << bits) - 1u);
+}
+
+// Byte k of the packed row of `codes` (one code per byte): the OR of every
+// code that overlaps stream bits [8k, 8k + 8), each shifted so that its
+// last bit lands at stream bit (c + 1) * b - 1.
+__device__ __forceinline__ uint8_t pack_byte(const uint8_t* codes,
+                                             uint32_t k, int bits) {
+  const int hi = 8 * static_cast<int>(k) + 8;
+  uint32_t acc = 0;
+  for (int c = 8 * static_cast<int>(k) / bits; c * bits < hi; ++c) {
+    const int shift = hi - (c + 1) * bits;
+    const uint32_t code = codes[c];
+    acc |= shift >= 0 ? code << shift : code >> -shift;
+  }
+  return static_cast<uint8_t>(acc & 0xFFu);
 }
 
 // Number of midpoints b_j <= x, j < 255: binary lifting over the sorted

@@ -1,12 +1,14 @@
-"""Fused 8-bit optimizer update (mirrors ``repro.kernels.fused_update``).
+"""Fused k-bit optimizer update (mirrors ``repro.kernels.fused_update``).
 
-The paper's §2 procedure in one HBM pass per block: dequantize the 8-bit
-states, run the 32-bit update math, write the parameter, requantize the
-states with a per-block absmax.  This port covers the six element-wise
-algorithms (adam, adamw, lamb, momentum, lars, adagrad) at 8/8 bits, with
-deterministic or stochastic rounding: the CUDA kernel is
-``csrc/fused_update.cu`` (ROADMAP B3(a)-(c)).  Packed sub-byte states and
-the sentinel output are ROADMAP B3(d)-(e); muon is A10.
+The paper's §2 procedure in one HBM pass per block: dequantize the
+quantized states, run the 32-bit update math, write the parameter,
+requantize the states with a per-block absmax.  This port covers the six
+element-wise algorithms (adam, adamw, lamb, momentum, lars, adagrad) with
+deterministic or stochastic rounding, at 8-bit states and at bit-packed
+4/5/6-bit states (``bits_m`` / ``bits_r``, ``core/lowbit/packing.py``):
+the CUDA kernels are in ``csrc/fused_update.cu`` (ROADMAP B3(a)-(d); the
+sentinel output is B3(e)).  Muon is a matrix-class algorithm: its spec is
+here, its update is ``ops``'s muon entry over ``newton_schulz.py``.
 
 LAMB and LARS scale their step by a per-tensor trust ratio, a global
 reduction that cannot live in a block-local pass.  They get a *norm
@@ -41,6 +43,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.lowbit.packing import (pack_codes, packed_width,
+                                             unpack_codes)
 from repro_torch.device import to_device
 from repro_torch.kernels import build, common
 
@@ -54,7 +58,8 @@ class AlgoSpec:
     state1_signed : first state uses the signed codebook (False: adagrad's
                     non-negative accumulator uses the unsigned map)
     norm_kind     : "" (block-local), "lamb" or "lars" (per-tensor norms)
-    matrix        : matrix-class algorithm (muon, ROADMAP A10)
+    matrix        : matrix-class algorithm (muon): its leaves take the
+                    Newton–Schulz update (``ops``'s muon entry)
     """
     name: str
     n_states: int
@@ -67,7 +72,6 @@ class AlgoSpec:
         return self.norm_kind != ""
 
 
-# The element-wise algorithms; the JAX package's muon is ROADMAP A10.
 ALGO_SPECS: dict[str, AlgoSpec] = {
     "adam":     AlgoSpec("adam", 2, True),
     "adamw":    AlgoSpec("adamw", 2, True),
@@ -75,6 +79,7 @@ ALGO_SPECS: dict[str, AlgoSpec] = {
     "momentum": AlgoSpec("momentum", 1, True),
     "lars":     AlgoSpec("lars", 1, True, norm_kind="lars"),
     "adagrad":  AlgoSpec("adagrad", 1, False),
+    "muon":     AlgoSpec("muon", 1, True, matrix=True),
 }
 
 # Algorithm ids of the kernels' C interface (adam and adamw share one
@@ -306,19 +311,23 @@ def block_sums(x: torch.Tensor) -> torch.Tensor:
 
 
 def norm_partials_plain(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
-                        qmap_r, s, *, algo: str) -> torch.Tensor:
+                        qmap_r, s, *, algo: str, bits_m: int = 8,
+                        bits_r: int = 8) -> torch.Tensor:
     """Plain PyTorch version of the norm-prologue kernel (any device):
     (n_blocks, 8) f32 rows [||p||^2, ||g*gnorm_scale||^2, ||u||^2, 0 x 5],
     each summed in the kernel's order (:func:`block_sums`).  lamb
-    re-derives u from the dequantized states as ``adam_base_update`` does;
-    lars leaves ||u||^2 at 0."""
+    re-derives u from the dequantized states (packed ``bits_m`` /
+    ``bits_r``-bit codes below 8) as ``adam_base_update`` does; lars leaves
+    ||u||^2 at 0."""
     spec = ALGO_SPECS[algo]
     g = g.to(torch.float32) * s["gnorm_scale"]
     zero = torch.zeros(p.shape[0], dtype=torch.float32, device=p.device)
     un2 = zero
     if spec.norm_kind == "lamb":
-        m = common.decode(codes_m, qmap_m) * absmax_m[:, None]
-        r = common.decode(codes_r, qmap_r) * absmax_r[:, None]
+        m = common.decode(unpack_codes(codes_m, bits_m), qmap_m) \
+            * absmax_m[:, None]
+        r = common.decode(unpack_codes(codes_r, bits_r), qmap_r) \
+            * absmax_r[:, None]
         _, _, u = adam_base_update(g, p, m, r, s)
         un2 = block_sums(u * u)
     return torch.stack([block_sums(p * p), block_sums(g * g), un2]
@@ -336,53 +345,69 @@ def _check_blocks(p, g):
 
 
 def _check_state(spec, p, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
-                 qmap_r, slots):
+                 qmap_r, slots, bits=(8, 8)):
+    """Codes (n_blocks, B * bits / 8) uint8, absmax (n_blocks,) f32 and a
+    2^bits-entry f32 codebook for each of the first ``slots`` states."""
     nb, bsz = p.shape
     dev = p.device
     names = (("m", codes_m, absmax_m, qmap_m), ("r", codes_r, absmax_r,
                                                 qmap_r))
-    for name, c, a, q in names[:slots]:
+    for (name, c, a, q), b in list(zip(names, bits))[:slots]:
         if c is None or a is None or q is None:
             raise ValueError(f"{spec.name} needs codes_{name}, absmax_{name}"
                              f" and qmap_{name}")
-        build.require(c, f"codes_{name}", torch.uint8, (nb, bsz), dev)
+        build.require(c, f"codes_{name}", torch.uint8,
+                      (nb, packed_width(bsz, b)), dev)
         build.require(a, f"absmax_{name}", torch.float32, (nb,), dev)
-        build.require(q, f"qmap_{name}", torch.float32,
-                      (common.CODEBOOK_SIZE,), dev)
+        build.require(q, f"qmap_{name}", torch.float32, (1 << b,), dev)
 
 
 def norm_partials_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
                        qmap_r, *, algo: str, beta1=0.9, beta2=0.999,
                        eps=1e-8, weight_decay=0.0, step=1.0,
-                       gnorm_scale=1.0) -> torch.Tensor:
+                       gnorm_scale=1.0, bits_m: int = 8,
+                       bits_r: int = 8) -> torch.Tensor:
     """Per-block norm partials (n_blocks, 8) f32 for lamb/lars.  CUDA
     tensors launch ``csrc/norm_partials.cu``; CPU tensors run
-    :func:`norm_partials_plain`.  lars reads p and g only."""
+    :func:`norm_partials_plain`.  lars reads p and g only; lamb reads its
+    two states, as packed ``bits_m`` / ``bits_r``-bit codes below 8."""
     spec = ALGO_SPECS.get(algo)
     if spec is None or not spec.needs_norms:
         raise ValueError(f"no norm prologue for algo {algo!r}")
     _check_blocks(p, g)
     lamb = spec.norm_kind == "lamb"
+    packed = lamb and (bits_m, bits_r) != (8, 8)
     _check_state(spec, p, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
-                 qmap_r, 2 if lamb else 0)
+                 qmap_r, 2 if lamb else 0, (bits_m, bits_r))
     s = scalars(lr=0.0, beta1=beta1, beta2=beta2, eps=eps,
                 weight_decay=weight_decay, step=step,
                 gnorm_scale=gnorm_scale, device="cpu")
     if p.device.type == "cpu":
         return norm_partials_plain(p, g, codes_m, absmax_m, codes_r,
-                                   absmax_r, qmap_m, qmap_r, s, algo=algo)
+                                   absmax_r, qmap_m, qmap_r, s, algo=algo,
+                                   bits_m=bits_m, bits_r=bits_r)
     if p.device.type != "cuda":
         raise ValueError(f"no norm-partials kernel for device {p.device}")
+    if packed and p.shape[1] % 8:
+        raise ValueError(f"packed states need a block size that is a "
+                         f"multiple of 8, got {p.shape[1]}")
     out = torch.empty((p.shape[0], N_PARTIALS), dtype=torch.float32,
                       device=p.device)
     opt = lambda t: build.ptr(t) if lamb else None
+    state = (opt(codes_m), opt(absmax_m), opt(codes_r), opt(absmax_r),
+             opt(qmap_m), opt(qmap_r))
     lib = _lib("norm_partials")
     with torch.cuda.device(p.device):
-        rc = lib.norm_partials(
-            NORM_KINDS[spec.norm_kind], build.ptr(p), build.ptr(g),
-            opt(codes_m), opt(absmax_m), opt(codes_r), opt(absmax_r),
-            opt(qmap_m), opt(qmap_r), build.ptr(out), p.shape[0],
-            p.shape[1], *_kernel_scalars(s), build.stream(p.device))
+        if packed:
+            rc = lib.norm_partials_packed(
+                build.ptr(p), build.ptr(g), *state, build.ptr(out),
+                p.shape[0], p.shape[1], bits_m, bits_r, *_kernel_scalars(s),
+                build.stream(p.device))
+        else:
+            rc = lib.norm_partials(
+                NORM_KINDS[spec.norm_kind], build.ptr(p), build.ptr(g),
+                *state, build.ptr(out), p.shape[0], p.shape[1],
+                *_kernel_scalars(s), build.stream(p.device))
     build.check(lib, rc, "norm_partials")
     norm_partials_cuda.launches += 1
     return out
@@ -413,29 +438,36 @@ def block_uniforms(nb: int, bsz: int, *, two: bool, seed=0,
 
 def fused_update_plain(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
                        qmap_r, s, *, algo: str = "adam", tensor_scale=None,
-                       uniforms=(None, None)) -> FusedUpdateResult:
-    """Plain PyTorch version of the kernel (any device; returns new
+                       uniforms=(None, None), bits_m: int = 8,
+                       bits_r: int = 8) -> FusedUpdateResult:
+    """Plain PyTorch version of the kernels (any device; returns new
     tensors).  ``s`` from :func:`scalars`; ``tensor_scale``: the per-block
     (n_blocks,) trust ratio for lamb/lars; ``uniforms``: (u1, u2) from
-    :func:`block_uniforms` for stochastic rounding."""
+    :func:`block_uniforms` for stochastic rounding; ``bits_m`` /
+    ``bits_r``: the states' widths (packed codes below 8, unpacked here
+    and re-packed after the update, with 2^bits-entry codebooks)."""
     spec = ALGO_SPECS[algo]
     two = spec.n_states == 2
     g = g.to(torch.float32) * s["gnorm_scale"]
-    m = common.decode(codes_m, qmap_m) * absmax_m[:, None]
-    r = common.decode(codes_r, qmap_r) * absmax_r[:, None] if two else None
+    m = common.decode(unpack_codes(codes_m, bits_m), qmap_m) \
+        * absmax_m[:, None]
+    r = (common.decode(unpack_codes(codes_r, bits_r), qmap_r)
+         * absmax_r[:, None] if two else None)
     if spec.needs_norms:
         s = dict(s, tensor_scale=tensor_scale[:, None])
     m2, r2, p2 = update_math(spec, g, p, m, r, s)
     u1, u2 = uniforms
-    cm, am = common.block_requantize(m2, common.padded_bounds(qmap_m),
-                                     qmap_m, u1)
+
+    def requantize(x, qmap, u, bits):
+        codes, absmax = common.block_requantize(
+            x, common.padded_bounds(qmap), qmap, u, max_code=(1 << bits) - 1)
+        return pack_codes(codes, bits), absmax[:, 0]
+
+    cm, am = requantize(m2, qmap_m, u1, bits_m)
     if not two:
-        return FusedUpdateResult(p2, cm.to(torch.uint8), am[:, 0], None,
-                                 None)
-    cr, ar = common.block_requantize(r2, common.padded_bounds(qmap_r),
-                                     qmap_r, u2)
-    return FusedUpdateResult(p2, cm.to(torch.uint8), am[:, 0],
-                             cr.to(torch.uint8), ar[:, 0])
+        return FusedUpdateResult(p2, cm, am, None, None)
+    cr, ar = requantize(r2, qmap_r, u2, bits_r)
+    return FusedUpdateResult(p2, cm, am, cr, ar)
 
 
 # ----------------------------------------------------------------- wrapper
@@ -453,30 +485,39 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
                       trust_coeff=0.001, gnorm_scale=1.0,
                       stochastic: bool = False, seed=0, block_seeds=None,
                       block_offsets=None, segments=None,
-                      tensor_scale_blocks=None) -> FusedUpdateResult:
-    """One fused 8-bit step of ``algo``, **in place**: ``p``, the code
+                      tensor_scale_blocks=None, bits_m: int = 8,
+                      bits_r: int = 8) -> FusedUpdateResult:
+    """One fused k-bit step of ``algo``, **in place**: ``p``, the code
     tensors and the absmax vectors are overwritten with the new values
     (saving a copy of each) and returned in the result.
 
-    p, g: (n_blocks, B) f32; codes: (n_blocks, B) uint8; absmax:
-    (n_blocks,) f32; qmaps: 256-entry f32 codebooks.  One-state algorithms
-    take codes_r = absmax_r = None.  lamb/lars first run the norm prologue
-    (:func:`norm_partials_cuda`) and finalize it per segment, unless
-    ``tensor_scale_blocks`` gives the per-block scales.  ``stochastic``
-    rounds with the counter hash seeded by ``seed`` (int32, every block) or
-    ``block_seeds``, at element index ``block_offsets * B + col``.  CUDA
-    tensors launch ``csrc/fused_update.cu``; CPU tensors run
+    p, g: (n_blocks, B) f32; codes: (n_blocks, B * bits / 8) uint8, plain
+    codes at ``bits`` = 8 and packed b-bit rows (``core/lowbit``) at 4, 5
+    and 6; absmax: (n_blocks,) f32; qmaps: 2^bits-entry f32 codebooks.
+    One-state algorithms take codes_r = absmax_r = None.  lamb/lars first
+    run the norm prologue (:func:`norm_partials_cuda`) and finalize it per
+    segment, unless ``tensor_scale_blocks`` gives the per-block scales.
+    ``stochastic`` rounds with the counter hash seeded by ``seed`` (int32,
+    every block) or ``block_seeds``, at element index ``block_offsets * B
+    + col``.  CUDA tensors launch ``csrc/fused_update.cu`` (the 8-bit
+    kernel when both widths are 8, else the packed one); CPU tensors run
     :func:`fused_update_plain`."""
     if algo not in KERNEL_ALGOS:
         raise ValueError(f"no fused-update kernel for algo {algo!r}; the "
                          f"kernel takes {tuple(KERNEL_ALGOS)}")
     spec = ALGO_SPECS[algo]
     two = spec.n_states == 2
+    if not two:
+        bits_r = 8
     _check_blocks(p, g)
     _check_state(spec, p, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
-                 qmap_r, spec.n_states)
+                 qmap_r, spec.n_states, (bits_m, bits_r))
     nb, bsz = p.shape
     dev = p.device
+    packed = (bits_m, bits_r) != (8, 8)
+    if packed and bsz % 8:
+        raise ValueError(f"packed states need a block size that is a "
+                         f"multiple of 8, got {bsz}")
     hyper = dict(beta1=beta1, beta2=beta2, eps=eps,
                  weight_decay=weight_decay, step=step,
                  gnorm_scale=gnorm_scale)
@@ -490,7 +531,8 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
         if tensor_scale_blocks is None:
             partials = norm_partials_cuda(p, g, codes_m, absmax_m, codes_r,
                                           absmax_r, qmap_m, qmap_r,
-                                          algo=algo, **hyper)
+                                          algo=algo, bits_m=bits_m,
+                                          bits_r=bits_r, **hyper)
             ts = segment_scales_from_partials(
                 spec, partials, segments or ((0, nb),), nb, weight_decay,
                 trust_coeff)
@@ -504,22 +546,29 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
                     if stochastic else (None, None))
         res = fused_update_plain(p, g, codes_m, absmax_m, codes_r, absmax_r,
                                  qmap_m, qmap_r, s, algo=algo,
-                                 tensor_scale=ts, uniforms=uniforms)
+                                 tensor_scale=ts, uniforms=uniforms,
+                                 bits_m=bits_m, bits_r=bits_r)
         for dst, src in zip((p, codes_m, absmax_m, codes_r, absmax_r),
                             res[:5]):
             if dst is not None:
                 dst.copy_(src)
     elif dev.type == "cuda":
         opt = lambda t: None if t is None else build.ptr(t)
-        lib = _lib("fused_update")
-        with torch.cuda.device(dev):
-            rc = lib.fused_update(
-                KERNEL_ALGOS[algo], build.ptr(p), build.ptr(g),
+        args = (KERNEL_ALGOS[algo], build.ptr(p), build.ptr(g),
                 build.ptr(codes_m), build.ptr(absmax_m), opt(codes_r),
                 opt(absmax_r), build.ptr(qmap_m),
                 opt(qmap_r if two else None), opt(ts), opt(block_seeds),
                 opt(block_offsets), int(bool(stochastic)), to_i32(seed), nb,
-                bsz, *_kernel_scalars(s), build.stream(dev))
+                bsz)
+        lib = _lib("fused_update")
+        with torch.cuda.device(dev):
+            if packed:
+                rc = lib.fused_update_packed(*args, bits_m, bits_r,
+                                             *_kernel_scalars(s),
+                                             build.stream(dev))
+            else:
+                rc = lib.fused_update(*args, *_kernel_scalars(s),
+                                      build.stream(dev))
         build.check(lib, rc, "fused_update")
         fused_update_cuda.launches += 1
     else:
@@ -532,21 +581,33 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
 fused_update_cuda.launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry -> (source, argtypes)
 ARGTYPES = {
     # algo, p, g, codes/absmax m and r, qmaps, tensor_scale, block_seeds,
     # block_offsets, stochastic, seed, n_blocks, block_size, 10 scalars,
     # stream
-    "fused_update": [_I] + [_P] * 11 + [_I] * 4 + [_F] * 10 + [_P],
+    "fused_update": ("fused_update", [_I] + [_P] * 11 + [_I] * 4
+                     + [_F] * 10 + [_P]),
+    # as fused_update, with bits_m, bits_r after block_size
+    "fused_update_packed": ("fused_update", [_I] + [_P] * 11 + [_I] * 6
+                            + [_F] * 10 + [_P]),
     # kind, p, g, codes/absmax m and r, qmaps, out, n_blocks, block_size,
     # 10 scalars, stream
-    "norm_partials": [_I] + [_P] * 9 + [_I] * 2 + [_F] * 10 + [_P],
+    "norm_partials": ("norm_partials", [_I] + [_P] * 9 + [_I] * 2
+                      + [_F] * 10 + [_P]),
+    # p, g, codes/absmax m and r, qmaps, out, n_blocks, block_size,
+    # bits_m, bits_r, 10 scalars, stream
+    "norm_partials_packed": ("norm_partials", [_P] * 9 + [_I] * 4
+                             + [_F] * 10 + [_P]),
 }
 
 
 @functools.cache
-def _lib(name: str) -> ctypes.CDLL:
-    lib = build.library(name)
-    fn = getattr(lib, name)
-    fn.argtypes = ARGTYPES[name]
-    fn.restype = ctypes.c_int
+def _lib(source: str) -> ctypes.CDLL:
+    lib = build.library(source)
+    for fn_name, (src, argtypes) in ARGTYPES.items():
+        if src == source:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib

@@ -8,7 +8,11 @@ quantization mechanics (``searchsorted`` + gather on the 255 real
 midpoints) and takes each trust ratio as one whole-tensor sum, as the JAX
 oracle does.  It also serves the ablation the kernels do not: tensor-wise
 (single absmax) quantization.  It is registered in ``ops.py`` as the
-``impl="torch"`` entry for every algorithm.
+``impl="torch"`` entry for every element-wise algorithm.  Sub-byte
+states arrive bit-packed: the oracle unpacks them, updates, and re-packs
+its results (``bits_m`` / ``bits_r``), as the JAX package's jnp entry does.
+Muon's oracles are ``newton_schulz.newton_schulz(impl="torch")`` and the
+``("muon", "torch")`` registry entry of ``ops.py``.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.lowbit.packing import pack_codes, unpack_codes
 from repro_torch.kernels import common
 from repro_torch.kernels import fused_update as fu
 
@@ -93,6 +98,7 @@ def segment_scales_ref(
     p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r, *,
     algo: str, lr, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0,
     step=1.0, trust_coeff=0.001, gnorm_scale=1.0, segments=None,
+    bits_m: int = 8, bits_r: int = 8,
 ) -> torch.Tensor:
     """Standalone (n_blocks,) per-block tensor_scale pass, exactly the
     vector ``fused_update_ref`` derives internally."""
@@ -100,6 +106,9 @@ def segment_scales_ref(
     n_blocks = p.shape[0]
     if not spec.needs_norms:
         return torch.ones(n_blocks, dtype=torch.float32, device=p.device)
+    codes_m = unpack_codes(codes_m, bits_m)
+    if codes_r is not None:
+        codes_r = unpack_codes(codes_r, bits_r)
     spec, s, p, g, m, r = _prepare(
         algo, p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r,
         dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
@@ -114,14 +123,19 @@ def fused_update_ref(
     algo: str, lr, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.0,
     step=1.0, trust_coeff=0.001, gnorm_scale=1.0, blockwise: bool = True,
     stochastic: bool = False, seed=0, block_seeds=None, block_offsets=None,
-    segments=None, tensor_scale_blocks=None,
+    segments=None, tensor_scale_blocks=None, bits_m: int = 8,
+    bits_r: int = 8,
 ) -> fu.FusedUpdateResult:
     """The paper's §2 procedure (dequantize -> 32-bit update -> requantize)
     for any of the six algorithms as straight-line ops; returns new
     tensors.  ``block_seeds`` / ``block_offsets`` / ``segments`` carry a
     pooled dispatch's per-leaf identity (None keeps the single-tensor
     meaning); ``tensor_scale_blocks`` replaces the trust-ratio computation
-    with a given per-block vector."""
+    with a given per-block vector.  ``bits_m`` / ``bits_r`` < 8: the codes
+    are packed rows, unpacked here and re-packed in the result."""
+    codes_m = unpack_codes(codes_m, bits_m)
+    if codes_r is not None:
+        codes_r = unpack_codes(codes_r, bits_r)
     spec, s, p, g, m, r = _prepare(
         algo, p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r,
         dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps,
@@ -147,7 +161,9 @@ def fused_update_ref(
                                    block_offsets=block_offsets,
                                    device=p.device)
     cm, am = _requantize(m2, qmap_m, blockwise=blockwise, random_u=u1)
+    cm = pack_codes(cm, bits_m)
     if two:
         cr, ar = _requantize(r2, qmap_r, blockwise=blockwise, random_u=u2)
-        return fu.FusedUpdateResult(p2, cm, am, cr, ar)
+        return fu.FusedUpdateResult(p2, cm, am, pack_codes(cr, bits_r), ar)
     return fu.FusedUpdateResult(p2, cm, am, None, None)
+

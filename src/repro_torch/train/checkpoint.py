@@ -17,7 +17,11 @@ of the JAX package's tree:
     the array's position among the leaf's children (None children, such as
     a one-state algorithm's second moment, are skipped and keep their
     positions free);
-  * an int (a step count) is stored as a 0-d int32 array, as JAX holds it.
+  * an int (a step count) is stored as a 0-d int32 array, as JAX holds it;
+  * bit-packed codes (:class:`~repro_torch.core.lowbit.PackedCodes`) are
+    stored as their packed uint8 bytes under the key of the codes they
+    replace, with a ``"packed": {"bits", "n_codes"}`` annotation in the
+    manifest entry, as the JAX package stores them.
 
 Writes are atomic (a ``.tmp_*`` directory, then a rename), ``keep_last``
 old steps are pruned, and ``latest_step`` scans the directory.  The
@@ -25,10 +29,12 @@ quantized states are stored as their uint8 codes and f32 absmax.
 
 ``restore`` loads **into the template's own tensors** (in place), so a
 model whose parameters are the optimizer's masters holds the restored
-weights; ints are returned anew.  It checks every key, shape and dtype
-before it writes anything.  Not ported yet: bit-packed sub-byte states
-(a ``packed`` manifest entry, ROADMAP A8) and pooled arenas (ROADMAP A9) —
-both raise :class:`~repro_torch.errors.ConfigError`.
+weights; ints are returned anew.  It checks every key, shape, dtype and
+packing annotation before it writes anything: packed codes restore only
+into packed codes of the same width and row length, and plain codes only
+into plain codes (ValueError otherwise, as in the JAX package).  Not
+ported yet: pooled arenas (ROADMAP A9), which raise
+:class:`~repro_torch.errors.ConfigError`.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.lowbit.packing import PackedCodes
 from repro_torch.core.optim.adafactor import AdafactorLeaf
 from repro_torch.core.optim.base import Full32Leaf, Quant8Leaf
 from repro_torch.core.optim.blockopt import leaf_order
@@ -69,8 +76,8 @@ def _flatten(tree, prefix: str = "") -> list:
     JAX package's flatten order."""
     if tree is None:
         return []
-    if isinstance(tree, torch.Tensor) or (isinstance(tree, int)
-                                          and not isinstance(tree, bool)):
+    if isinstance(tree, (torch.Tensor, PackedCodes)) or (
+            isinstance(tree, int) and not isinstance(tree, bool)):
         return [(prefix, tree)]
     if _is_namedtuple(tree):
         return [kv for f in tree._fields
@@ -89,6 +96,8 @@ def _flatten(tree, prefix: str = "") -> list:
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, int):
         return np.asarray(leaf, dtype=np.int32)
+    if isinstance(leaf, PackedCodes):
+        leaf = leaf.packed
     return leaf.detach().cpu().numpy()
 
 
@@ -101,10 +110,14 @@ def save(ckpt_dir: str, step: int, tree, *, keep_last: int = 3) -> str:
         arrays, index = {}, []
         for i, (key, leaf) in enumerate(_flatten(tree)):
             name = f"a{i}"
+            entry = {"key": key, "name": name}
+            if isinstance(leaf, PackedCodes):
+                entry["packed"] = {"bits": leaf.bits,
+                                   "n_codes": leaf.n_codes}
             arrays[name] = _to_numpy(leaf)
-            index.append({"key": key, "name": name,
-                          "dtype": str(arrays[name].dtype),
-                          "shape": list(arrays[name].shape)})
+            entry.update(dtype=str(arrays[name].dtype),
+                         shape=list(arrays[name].shape))
+            index.append(entry)
         np.savez(os.path.join(tmp, "leaves.npz"), **arrays)
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump({"step": step, "index": index}, f)
@@ -177,10 +190,9 @@ def restore(ckpt_dir: str, step: int, template: Any):
         for key, leaf in pairs:
             if key not in meta:
                 raise KeyError(f"checkpoint missing leaf {key}")
-            if "packed" in meta[key]:
-                raise ConfigError(f"{key}: bit-packed "
-                                  f"{meta[key]['packed']['bits']}-bit codes "
-                                  f"are not ported yet (ROADMAP A8)")
+            _check_packing(key, meta[key].get("packed"), leaf)
+            if isinstance(leaf, PackedCodes):
+                leaf = leaf.packed
             arr = data[meta[key]["name"]]
             want = _to_numpy(leaf) if isinstance(leaf, int) else None
             shape = () if want is not None else tuple(leaf.shape)
@@ -195,6 +207,26 @@ def restore(ckpt_dir: str, step: int, template: Any):
             arrays[key] = arr
     with torch.no_grad():
         for key, leaf in pairs:
+            if isinstance(leaf, PackedCodes):
+                leaf = leaf.packed
             if isinstance(leaf, torch.Tensor):
                 leaf.copy_(torch.from_numpy(np.array(arrays[key])))
     return _with_ints(template, "", arrays)
+
+
+def _check_packing(key: str, saved: Optional[dict], leaf) -> None:
+    """Packedness must agree both ways: packed bytes and plain codes can
+    share a shape without sharing a meaning."""
+    if isinstance(leaf, PackedCodes):
+        if saved is None:
+            raise ValueError(f"{key}: template expects {leaf.bits}-bit "
+                             f"packed codes; checkpoint stores a plain "
+                             f"array")
+        if (saved["bits"], saved["n_codes"]) != (leaf.bits, leaf.n_codes):
+            raise ValueError(f"{key}: checkpoint packs {saved['bits']}-bit x"
+                             f" {saved['n_codes']} codes; template expects "
+                             f"{leaf.bits}-bit x {leaf.n_codes}")
+    elif saved is not None:
+        raise ValueError(f"{key}: checkpoint stores packed "
+                         f"{saved['bits']}-bit codes; template expects a "
+                         f"plain array")

@@ -20,6 +20,7 @@ from repro.train import checkpoint as JC
 from repro.train import loop as JL
 from repro_torch.configs import base as tcb
 from repro_torch.core import optim as topt
+from repro_torch.core.lowbit import PackedCodes
 from repro_torch.errors import ConfigError
 from repro_torch.train import checkpoint as TC
 from repro_torch.train import loop as TL
@@ -63,7 +64,9 @@ def _tensors(tree):
 @pytest.mark.parametrize("name,kw", [
     ("adamw8", {"pooled": False}), ("adamw8", {}), ("lamb8", {}),
     ("momentum8", {"percentile_clipping": 50, "pclip_history": 3}),
-    ("adagrad8", {}), ("adafactor32", {})])
+    ("adagrad8", {}), ("adafactor32", {}),
+    ("adam8", {"state_bits": (4, 8)}), ("muon8", {"state_bits": (5, 8)}),
+    ("muon32", {})])
 def test_key_strings_match_jax(tmp_path, name, kw):
     """The port writes the very key strings, dtypes and shapes the JAX
     package writes for the same configuration (a pooled JAX state is
@@ -73,14 +76,17 @@ def test_key_strings_match_jax(tmp_path, name, kw):
     kw.pop("pooled", None)
     _, tstate, _, _ = _port(name, **kw)
     tm = _manifest(TC.save(str(tmp_path / "port"), 0, tstate))
-    strip = lambda m: sorted((e["key"], e["dtype"], tuple(e["shape"]))
+    strip = lambda m: sorted((e["key"], e["dtype"], tuple(e["shape"]),
+                              str(e.get("packed")))
                              for e in m["index"])
     assert strip(tm) == strip(jm)
 
 
 @pytest.mark.parametrize("name,kw", [
     ("adamw8", {"pooled": False}), ("adamw8", {}),
-    ("adamw8", {"stochastic_rounding": True}), ("lars8", {})])
+    ("adamw8", {"stochastic_rounding": True}), ("lars8", {}),
+    ("adam8", {"pooled": False, "state_bits": (4, 8)}),
+    ("muon8", {"pooled": False, "state_bits": (4, 8)})])
 def test_jax_checkpoint_restores_into_port(tmp_path, name, kw):
     """A JAX-written checkpoint after 2 steps restores into a fresh port
     state (the model's weights included: they are the masters); one more
@@ -109,7 +115,9 @@ def test_jax_checkpoint_restores_into_port(tmp_path, name, kw):
 @pytest.mark.parametrize("name,kw", [
     ("adamw8", {"pooled": False}), ("adamw8", {}), ("lamb8", {}),
     ("momentum8", {"percentile_clipping": 50, "pclip_history": 3}),
-    ("adagrad8", {"stochastic_rounding": True}), ("adafactor32", {})])
+    ("adagrad8", {"stochastic_rounding": True}), ("adafactor32", {}),
+    ("adam8", {"pooled": False, "state_bits": (4, 8)}),
+    ("muon8", {"pooled": False, "state_bits": (4, 8)})])
 def test_port_checkpoint_restores_into_jax(tmp_path, name, kw):
     """A port-written checkpoint restores through
     ``repro.train.checkpoint.restore`` with array-equal leaves (into a
@@ -124,17 +132,23 @@ def test_port_checkpoint_restores_into_jax(tmp_path, name, kw):
     got = JC.restore(str(tmp_path), 2,
                      jax.eval_shape(lambda s: s, jstate))
     got_c = JC._canonical(got)
-    want = {k: leaf for k, leaf in TC._flatten(tstate)}
-    flat = jax.tree_util.tree_flatten_with_path(got_c)[0]
+    want = {k: leaf.packed if isinstance(leaf, PackedCodes) else leaf
+            for k, leaf in TC._flatten(tstate)}
+    flat = jax.tree_util.tree_flatten_with_path(
+        got_c, is_leaf=JC._is_packed)[0]
     assert len(flat) == len(want)
     for p, leaf in flat:
         key = jax.tree_util.keystr(p)
+        if JC._is_packed(leaf):
+            leaf = leaf.packed
         w = want[key]
         w = np.asarray(w, np.int32) if isinstance(w, int) else w.numpy()
         np.testing.assert_array_equal(np.asarray(leaf), w, err_msg=key)
 
 
-@pytest.mark.parametrize("kw", [{}, {"stochastic_rounding": True}])
+@pytest.mark.parametrize("kw", [{}, {"stochastic_rounding": True},
+                                {"state_bits": (4, 8),
+                                 "stochastic_rounding": True}])
 def test_restart_equivalence_bit_exact(tmp_path, kw):
     """Save after 5 steps; 4 more steps from the live state and from the
     restored one (into a fresh state) end bit-identical."""
@@ -152,6 +166,9 @@ def test_restart_equivalence_bit_exact(tmp_path, kw):
     for a, b in zip(_tensors(state), _tensors(state_b)):
         if isinstance(a, int):
             assert a == b
+        elif isinstance(a, PackedCodes):
+            assert (a.bits, a.n_codes) == (b.bits, b.n_codes)
+            assert torch.equal(a.packed, b.packed)
         else:
             assert torch.equal(a, b)
 
@@ -218,17 +235,25 @@ def test_percentile_clipping_state_roundtrip(tmp_path):
 
 
 def test_packed_and_pooled_checkpoints_raise(tmp_path):
-    """Bit-packed sub-byte states (ROADMAP A8) and pooled arenas (A9) are
-    not ported: restoring them raises ConfigError naming the item."""
+    """Packed codes restore only into packed codes of the same width, and
+    plain codes only into plain ones (ValueError, as in the JAX package);
+    pooled arenas (A9) are not ported: restoring them raises ConfigError
+    naming the item."""
     _, jstate, _ = _jax_run("adam8", 0, pooled=False, state_bits=(4, 8))
     JC.save(str(tmp_path / "packed"), 0, jstate)
     _, tstate, _, _ = _port("adam8")
-    with pytest.raises(ConfigError, match="A8"):
+    with pytest.raises(ValueError, match="packed"):
         TC.restore(str(tmp_path / "packed"), 0, tstate)
-    path = TC.save(str(tmp_path / "pooled"), 0, tstate)
+    _, tstate5, _, _ = _port("adam8", state_bits=(5, 8))
+    with pytest.raises(ValueError, match="4-bit"):
+        TC.restore(str(tmp_path / "packed"), 0, tstate5)
+    path = TC.save(str(tmp_path / "plain"), 0, tstate)
+    _, tstate4, _, _ = _port("adam8", state_bits=(4, 8))
+    with pytest.raises(ValueError, match="plain"):
+        TC.restore(str(tmp_path / "plain"), 0, tstate4)
     m = _manifest(path)
     m["index"].append(dict(m["index"][0], key=".opt_state.arena[0]"))
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(m, f)
     with pytest.raises(ConfigError, match="A9"):
-        TC.restore(str(tmp_path / "pooled"), 0, tstate)
+        TC.restore(str(tmp_path / "plain"), 0, tstate)

@@ -179,10 +179,11 @@ def test_fused_update_plain_matches_oracle(algo):
 
 def test_registry_and_counters():
     assert ops.registered("adamw") == [("adamw", "cuda"), ("adamw", "torch")]
-    # "cuda" is registered for exactly the algorithms the kernel takes
+    # "cuda" is registered for every algorithm: the fused-update kernel's
+    # and muon's (whose entry runs the quantize and Newton–Schulz kernels)
     assert sorted(a for a, i in ops.registered() if i == "cuda") == \
-        sorted(fu.KERNEL_ALGOS) == sorted(ops.ALGOS)
-    assert "muon" not in ops.ALGOS
+        sorted(ops.ALGOS) == sorted([*fu.KERNEL_ALGOS, "muon"])
+    assert ops.registered("muon") == [("muon", "cuda"), ("muon", "torch")]
     ops.reset_launch_counts()
     ops.reset_fused_update_count()
     nb, bsz = 2, 256
@@ -194,12 +195,14 @@ def test_registry_and_counters():
     # CPU runs of the plain versions are not kernel launches
     assert ops.launch_counts() == {"blockwise_quant": 0,
                                    "blockwise_dequant": 0, "fused_update": 0,
-                                   "norm_partials": 0}
+                                   "norm_partials": 0, "ns_gram": 0,
+                                   "ns_apply": 0}
     with pytest.raises(KeyError):
         ops.fused_update("adam", None, None, None, None, lr=1e-3,
                          impl="pallas")
     with pytest.raises(KeyError):
-        ops.fused_update("muon", None, None, None, None, lr=1e-3)
+        ops.fused_update("muon", None, None, None, None, lr=1e-3,
+                         impl="pallas")
     # the tensor-wise ablation is served by the oracle, and counted so
     ops.fused_update("adam", *(T(v) for v in (_rand(nb, bsz, 0),
                                               _rand(nb, bsz, 1), cm, am,

@@ -9,6 +9,7 @@ covers the indexing, the block reductions, the binary-search encode and the
 in-place ordering of every kernel without a card.  What ``nvcc`` accepts,
 and the kernels' speed, only ``chip_smoke.py`` on an H100 can show."""
 import ctypes
+import re
 import shutil
 import subprocess
 
@@ -34,6 +35,10 @@ CUDA_RUNTIME_H = r"""
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(x)
+#define __align__(n) __attribute__((aligned(n)))
+inline unsigned char* emu_dyn_smem;
+#define RQ_DYNAMIC_SHARED(T, name) T* name = reinterpret_cast<T*>(emu_dyn_smem)
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 struct dim3 { unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct uint3 { unsigned x, y, z; };
@@ -53,6 +58,8 @@ inline uchar4 make_uchar4(unsigned char a, unsigned char b, unsigned char c,
                           unsigned char d) { return {a, b, c, d}; }
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef struct CUstream_st* cudaStream_t;
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 inline std::barrier<>* emu_block_barrier;
@@ -72,10 +79,14 @@ inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
-template <class F> void emu_launch(dim3 grid, dim3 block, F f) {
+template <class F> void emu_launch(dim3 grid, dim3 block, size_t smem, F f) {
   blockDim = block;
+  std::vector<float> dyn((smem + 3) / 4 + 4);
+  for (unsigned by = 0; by < grid.y; ++by)
   for (unsigned b = 0; b < grid.x; ++b) {
-    blockIdx = {b, 0, 0};
+    blockIdx = {b, by, 0};
+    emu_dyn_smem = reinterpret_cast<unsigned char*>(dyn.data());
+    std::memset(dyn.data(), 0xff, dyn.size() * 4);  // stale data: NaNs
     std::barrier<> bar(block.x);
     emu_block_barrier = &bar;
     std::vector<std::barrier<>*> warps;
@@ -108,27 +119,28 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
 }
 """
 
-LAUNCH = "<<<grid, block, 0, stream>>>("
+LAUNCH = re.compile(r"<<<grid, block, (\w+), stream>>>\(")
 P = ctypes.c_void_p
 
 
 def _emulated_source(src: str) -> str:
-    """Rewrite each ``kernel<<<grid, block, 0, stream>>>(args)`` launch (the
-    kernel name may carry template arguments) as
-    ``emu_launch(grid, block, [&]{ kernel(args); })``."""
+    """Rewrite each ``kernel<<<grid, block, smem, stream>>>(args)`` launch
+    (the kernel name may carry template arguments) as
+    ``emu_launch(grid, block, smem, [&]{ kernel(args); })``."""
     out, i = [], 0
-    while (j := src.find(LAUNCH, i)) >= 0:
+    while (hit := LAUNCH.search(src, i)) is not None:
+        j = hit.start()
         k, angle = j, 0
         while angle or src[k - 1] not in " \n\t:":
             angle += {">": 1, "<": -1}.get(src[k - 1], 0)
             k -= 1
-        depth, m = 1, j + len(LAUNCH)
+        depth, m = 1, hit.end()
         while depth:
             depth += {"(": 1, ")": -1}.get(src[m], 0)
             m += 1
-        args = src[j + len(LAUNCH):m - 1]
-        out.append(f"{src[i:k]}emu_launch(grid, block, [&]{{ "
-                   f"{src[k:j]}({args}); }})")
+        args = src[hit.end():m - 1]
+        out.append(f"{src[i:k]}emu_launch(grid, block, {hit.group(1)}, "
+                   f"[&]{{ {src[k:j]}({args}); }})")
         i = m
     out.append(src[i:])
     return "".join(out)
@@ -154,11 +166,15 @@ def libs(tmp_path_factory):
         assert p.returncode == 0, f"{n}:\n{log}"
     libs = {n: ctypes.CDLL(str(d / f"{n}.so")) for n in build.SOURCES}
     libs["blockwise_quant"].blockwise_quantize.argtypes = [P] * 4 + [
-        ctypes.c_int] * 2 + [P]
+        ctypes.c_int] * 5 + [P]
     libs["blockwise_dequant"].blockwise_dequantize.argtypes = [P] * 4 + [
-        ctypes.c_int] * 3 + [P]
-    for name, argtypes in fu.ARGTYPES.items():
-        getattr(libs[name], name).argtypes = argtypes
+        ctypes.c_int] * 4 + [P]
+    for name, (source, argtypes) in fu.ARGTYPES.items():
+        getattr(libs[source], name).argtypes = argtypes
+    libs["newton_schulz"].ns_gram.argtypes = [P] * 2 + [ctypes.c_int] * 2 \
+        + [P]
+    libs["newton_schulz"].ns_apply.argtypes = [P] * 3 + [ctypes.c_float] \
+        + [ctypes.c_int] * 2 + [P]
     return libs
 
 
@@ -194,7 +210,7 @@ def test_quantize_kernel_emulated(libs, nb, bsz):
     codes = torch.empty(nb, bsz, dtype=torch.uint8)
     absmax = torch.empty(nb)
     rc = libs["blockwise_quant"].blockwise_quantize(
-        *_ptrs(x, QS, codes, absmax), nb, bsz, None)
+        *_ptrs(x, QS, codes, absmax), nb, bsz, 8, 0, 0, None)
     want_c, want_a = bq.quantize_plain(x, QS)
     assert rc == 0
     assert torch.equal(codes, want_c)
@@ -208,7 +224,7 @@ def test_dequantize_kernel_emulated(libs, nb, bsz, dtype):
     out = torch.empty(nb, bsz, dtype=dtype)
     rc = libs["blockwise_dequant"].blockwise_dequantize(
         *_ptrs(codes, absmax, QS, out), int(dtype == torch.bfloat16), nb, bsz,
-        None)
+        8, None)
     assert rc == 0
     assert torch.equal(out, bdq.dequantize_plain(codes, absmax, QS, dtype))
 
@@ -324,3 +340,205 @@ def test_norm_partials_emulated(libs, algo, nb, bsz):
     # another order disagrees with block_sums
     u = torch.rand(64, 2048, generator=torch.Generator().manual_seed(0))
     assert not torch.equal(fu.block_sums(u), u.sum(dim=1))
+
+
+# ------------------------------------------------- packed k-bit states (B3(d))
+def _packed_inputs(algo, nb, bsz, bits_m, bits_r, seed):
+    """p, g, packed states with nonzero absmax and 2^bits codebooks."""
+    from repro_torch.core.lowbit import pack_codes
+    spec = fu.ALGO_SPECS[algo]
+    g = torch.Generator().manual_seed(seed)
+    p = torch.randn(nb, bsz, generator=g) * 0.02
+    grad = torch.randn(nb, bsz, generator=g) * 1e-3
+    q1 = torch.as_tensor(qmap.get_qmap("dynamic", spec.state1_signed,
+                                       bits=bits_m))
+    q2 = torch.as_tensor(qmap.get_qmap("dynamic", False, bits=bits_r))
+    cm = pack_codes(torch.randint(0, 1 << bits_m, (nb, bsz), generator=g),
+                    bits_m)
+    am = torch.rand(nb, generator=g) * 1e-3 + 1e-5
+    cr = ar = None
+    if spec.n_states == 2:
+        cr = pack_codes(torch.randint(0, 1 << bits_r, (nb, bsz),
+                                      generator=g), bits_r)
+        ar = torch.rand(nb, generator=g) * 1e-6 + 1e-9
+    return p, grad, cm, am, cr, ar, q1, q2
+
+
+PACKED_BITS = [(4, 8), (5, 6), (6, 4), (8, 5)]
+
+
+@pytest.mark.parametrize("nb,bsz", [(3, 2048), (2, 264)])
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("bits", PACKED_BITS, ids=lambda b: f"{b[0]}-{b[1]}")
+@pytest.mark.parametrize("algo", ["adam", "lamb", "momentum", "lars",
+                                  "adagrad"])
+def test_fused_update_packed_emulated(libs, algo, bits, stochastic, nb, bsz):
+    """The packed kernel at every width, every algorithm, deterministic
+    and stochastic, bit for bit against the plain version (p, packed
+    codes, absmax), updated in place."""
+    spec = fu.ALGO_SPECS[algo]
+    two = spec.n_states == 2
+    bits_m, bits_r = bits
+    p, grad, cm, am, cr, ar, q1, q2 = _packed_inputs(algo, nb, bsz, bits_m,
+                                                     bits_r, 6)
+    s = _scalars()
+    ts = (torch.rand(nb, generator=torch.Generator().manual_seed(4)) + 0.5
+          if spec.needs_norms else None)
+    seeds = torch.tensor([-7, 2 ** 31 - 1, 12345][:nb], dtype=torch.int32)
+    offs = torch.tensor([5, 0, 9][:nb], dtype=torch.int32)
+    uniforms = (fu.block_uniforms(nb, bsz, two=two, block_seeds=seeds,
+                                  block_offsets=offs)
+                if stochastic else (None, None))
+    want = fu.fused_update_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                 algo=algo, tensor_scale=ts,
+                                 uniforms=uniforms, bits_m=bits_m,
+                                 bits_r=bits_r if two else 8)
+    got = [None if t is None else t.clone() for t in (p, cm, am, cr, ar)]
+    ptr = lambda t: None if t is None else P(t.data_ptr())
+    rc = libs["fused_update"].fused_update_packed(
+        fu.KERNEL_ALGOS[algo], ptr(got[0]), ptr(grad), *map(ptr, got[1:]),
+        ptr(q1), ptr(q2 if two else None), ptr(ts), ptr(seeds), ptr(offs),
+        int(stochastic), 0, nb, bsz, bits_m, bits_r if two else 8,
+        *fu._kernel_scalars(s), None)
+    assert rc == 0
+    for name, a, b in zip(want._fields, got, want[:5]):
+        if b is None:
+            continue
+        assert torch.equal(a, b), name
+    assert want.codes_m.shape == (nb, bsz * bits_m // 8)
+
+
+def test_fused_update_packed_at_8_bits_equals_8bit_kernel(libs):
+    """The packed kernel at (8, 8) gives the 8-bit kernel's bits."""
+    p, grad, cm, am, cr, ar, q1, q2 = _algo_inputs("adam", 3, 2048, 8)
+    s = _scalars()
+    outs = []
+    for fn in ("fused_update", "fused_update_packed"):
+        got = [t.clone() for t in (p, cm, am, cr, ar)]
+        widths = (8, 8) if fn == "fused_update_packed" else ()
+        rc = getattr(libs["fused_update"], fn)(
+            fu.KERNEL_ALGOS["adam"], *_ptrs(got[0], grad, *got[1:], q1, q2),
+            None, None, None, 0, 0, 3, 2048, *widths,
+            *fu._kernel_scalars(s), None)
+        assert rc == 0
+        outs.append(got)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bits", [(4, 8), (5, 6), (6, 4)],
+                         ids=lambda b: f"{b[0]}-{b[1]}")
+@pytest.mark.parametrize("nb,bsz", [(3, 2048), (2, 264)])
+def test_norm_partials_packed_emulated(libs, bits, nb, bsz):
+    """lamb's norm prologue on packed states, bit for bit against the plain
+    version."""
+    p, grad, cm, am, cr, ar, q1, q2 = _packed_inputs("lamb", nb, bsz, *bits,
+                                                     7)
+    s = _scalars(step=3.0)
+    want = fu.norm_partials_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                  algo="lamb", bits_m=bits[0],
+                                  bits_r=bits[1])
+    out = torch.full((nb, fu.N_PARTIALS), float("nan"))
+    rc = libs["norm_partials"].norm_partials_packed(
+        *_ptrs(p, grad, cm, am, cr, ar, q1, q2, out), nb, bsz, *bits,
+        *fu._kernel_scalars(s), None)
+    assert rc == 0
+    assert torch.equal(out, want)
+    assert bool((want[:, 2] > 0).all())
+
+
+@pytest.mark.parametrize("nb,bsz", [(5, 2048), (3, 264), (1, 64)])
+@pytest.mark.parametrize("bits", [4, 5, 6, 8])
+@pytest.mark.parametrize("seed", [None, -3])
+def test_quantize_bits_emulated(libs, bits, seed, nb, bsz):
+    """B1 at every width, deterministic and stochastic (seed), and B2 on
+    its output, bit for bit against the plain versions."""
+    q = torch.as_tensor(qmap.get_qmap("dynamic", True, bits=bits))
+    x = _x(nb, bsz, 3)
+    from repro_torch.core.lowbit import packed_width
+    codes = torch.empty(nb, packed_width(bsz, bits), dtype=torch.uint8)
+    absmax = torch.empty(nb)
+    rc = libs["blockwise_quant"].blockwise_quantize(
+        *_ptrs(x, q, codes, absmax), nb, bsz, bits, int(seed is not None),
+        seed or 0, None)
+    want_c, want_a = bq.quantize_plain(x, q, bits=bits, seed=seed)
+    assert rc == 0
+    assert torch.equal(codes, want_c) and torch.equal(absmax, want_a)
+    if seed is not None and nb > 1:   # (one block of 1 is all zeros)
+        det, _ = bq.quantize_plain(x, q, bits=bits)
+        assert not torch.equal(det, want_c)
+    for dtype in (torch.float32, torch.bfloat16):
+        out = torch.empty(nb, bsz, dtype=dtype)
+        rc = libs["blockwise_dequant"].blockwise_dequantize(
+            *_ptrs(codes, absmax, q, out), int(dtype == torch.bfloat16), nb,
+            bsz, bits, None)
+        assert rc == 0
+        assert torch.equal(out, bdq.dequantize_plain(codes, absmax, q, dtype,
+                                                     bits=bits))
+
+
+# ----------------------------------------------- Newton–Schulz (B5, B6)
+NS_SHAPES = [(8, 256), (48, 256), (136, 512), (64, 64)]
+
+
+def _ns_x(m, n, seed):
+    return torch.randn(m, n, generator=torch.Generator().manual_seed(seed)) \
+        / n ** 0.5
+
+
+@pytest.mark.parametrize("m,n", NS_SHAPES)
+def test_ns_gram_emulated(libs, m, n):
+    """B5 against the tile-replaying plain version.  The kernel sums each
+    entry over all n in one sequential order with FMAs, the plain version
+    per 256-column tile, then the tiles: each entry is a sum of n products,
+    and any two orders agree within n u sum|x_i y_i| (u = 2^-24); with
+    |x| ~ N(0, 1/n) that is below 2e-6 of the largest entry at these n —
+    the tolerance is 1e-5 of the output's largest magnitude.  The entries
+    must also come out exactly symmetric (FMA is symmetric in its factors)
+    and the same on a second run."""
+    from repro_torch.kernels import newton_schulz as ns
+    x = _ns_x(m, n, m)
+    outs = []
+    for _ in range(2):
+        a = torch.full((m, m), float("nan"))
+        rc = libs["newton_schulz"].ns_gram(*_ptrs(x, a), m, n, None)
+        assert rc == 0
+        outs.append(a)
+    want = ns.gram_plain(x)
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], outs[0].T)
+    err = (outs[0] - want).abs().max() / want.abs().max()
+    assert err < 1e-5, float(err)
+
+
+@pytest.mark.parametrize("m,n", NS_SHAPES)
+def test_ns_apply_emulated(libs, m, n):
+    """B6 against the plain version (a X + B X per column tile), with the
+    quintic's a and a B of the iteration's own scale: each entry sums m
+    products in another order (tolerance 1e-5 of the largest magnitude,
+    as for the gram), bits identical run to run."""
+    from repro_torch.kernels import newton_schulz as ns
+    a_, b_, c_ = ns.NS_COEFFS
+    x = _ns_x(m, n, m + 1)
+    x = x / x.norm()
+    g = ns.gram_plain(x)
+    b_mat = (b_ * g + c_ * (g @ g)).contiguous()
+    outs = []
+    for _ in range(2):
+        out = torch.full((m, n), float("nan"))
+        rc = libs["newton_schulz"].ns_apply(*_ptrs(x, b_mat, out), a_, m, n,
+                                            None)
+        assert rc == 0
+        outs.append(out)
+    want = ns.apply_plain(x, b_mat, a_)
+    assert torch.equal(outs[0], outs[1])
+    err = (outs[0] - want).abs().max() / want.abs().max()
+    assert err < 1e-5, float(err)
+
+
+def test_ns_kernels_reject_bad_shapes(libs):
+    x = torch.zeros(8, 100)
+    a = torch.zeros(8, 8)
+    assert libs["newton_schulz"].ns_gram(*_ptrs(x, a), 8, 100, None) != 0
+    assert libs["newton_schulz"].ns_apply(*_ptrs(x, a, x), 1.0, 8, 128,
+                                          None) != 0    # out aliases x

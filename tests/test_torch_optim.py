@@ -105,8 +105,7 @@ def test_percentile_clipping_matches_jax():
 
 
 def test_names_and_unported_settings():
-    assert topt.optimizer_names() == [
-        n for n in jopt.optimizer_names() if not n.startswith("muon")]
+    assert topt.optimizer_names() == jopt.optimizer_names()
     opt = topt.make_optimizer("adamw8", device="cpu")
     assert opt.cfg.pooled is False and opt.cfg.algo == "adamw"
     with pytest.raises(ConfigError, match="A9"):
@@ -116,13 +115,20 @@ def test_names_and_unported_settings():
     topt.make_optimizer("adam8", stochastic_rounding=True, device="cpu")
     topt.make_optimizer(topt.OptimConfig(algo="lamb", pooled=False),
                         device="cpu")
-    with pytest.raises(ConfigError, match="A10"):
-        topt.make_optimizer(topt.OptimConfig(algo="muon", pooled=False),
-                            device="cpu")
+    # muon (A10) and packed states (A8) are ported
+    assert isinstance(topt.make_optimizer(
+        topt.OptimConfig(algo="muon", pooled=False), device="cpu"),
+        topt.MuonOptimizer)
+    topt.make_optimizer("adam8", state_bits=(4, 8), device="cpu")
     with pytest.raises(ConfigError, match="A11"):
         topt.make_optimizer("adam8", sentinel=True, device="cpu")
-    with pytest.raises(FormatError, match="A8"):
-        topt.make_optimizer("adam8", state_bits=(4, 8), device="cpu")
+    with pytest.raises(ConfigError):
+        topt.make_optimizer("adam8", state_bits=(3, 8), device="cpu")
+    with pytest.raises(FormatError):
+        topt.make_optimizer("adam8", state_bits=(5, 8), block_size=6,
+                            device="cpu").init({"w": torch.zeros(8192)})
+    with pytest.raises(ConfigError):
+        topt.make_optimizer("muon8", ns_steps=-1, device="cpu")
     with pytest.raises(ConfigError):
         topt.make_optimizer("sgd8", device="cpu")
 

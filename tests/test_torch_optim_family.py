@@ -36,6 +36,7 @@ from helpers import tiny_cfg, tiny_pipe
 
 from repro.core import optim as jopt
 from repro.core import qmap as jqm
+from repro.core.lowbit import packing as jpack
 from repro.core.optim import base as jbase
 from repro.kernels import common as jcommon
 from repro.kernels import fused_update as jfu
@@ -475,7 +476,10 @@ def _grads(step):
     ("momentum8", {}), ("adagrad8", {}), ("lamb8", {}), ("lars8", {}),
     ("adamw8", {"stochastic_rounding": True}),
     ("adam8", {"blockwise_norm": False}),
-    ("momentum32", {}), ("adagrad32", {}), ("lamb32", {}), ("lars32", {})])
+    ("momentum32", {}), ("adagrad32", {}), ("lamb32", {}), ("lars32", {}),
+    ("adam8", {"state_bits": (4, 8)}), ("lamb8", {"state_bits": (5, 6)}),
+    ("momentum8", {"state_bits": 4, "stochastic_rounding": True}),
+    ("adagrad8", {"state_bits": 6})])
 def test_engine_matches_jax_leaf_by_leaf(name, kw):
     """Three steps of both engines on the same params and gradients (the
     stochastic seeds derive from the step and the leaf index in both)."""
@@ -506,6 +510,9 @@ def test_engine_matches_jax_leaf_by_leaf(name, kw):
         if isinstance(tl, tbase.Quant8Leaf):
             for f in ("codes_m", "absmax_m", "codes_r", "absmax_r"):
                 t, j = getattr(tl, f), getattr(jl, f)
+                if isinstance(j, jpack.PackedCodes):   # packed k-bit codes
+                    assert (t.bits, t.n_codes) == (j.bits, j.n_codes)
+                    t, j = t.unpack(), j.unpack()
                 if j is None:
                     assert t is None, (path, f)
                 elif exact or f.startswith("absmax"):
@@ -641,9 +648,15 @@ def test_bias_correction_first_step_magnitude():
 
 
 def test_unported_algorithms_raise():
-    with pytest.raises(ConfigError, match="A10"):
-        topt.make_optimizer(topt.OptimConfig(algo="muon", pooled=False),
-                            device="cpu")
+    """Every algorithm of the JAX package is ported; an unknown one raises,
+    and the element-wise engine rejects the matrix-class muon (which
+    ``make_optimizer`` routes to ``MuonOptimizer``), as the JAX package's
+    does."""
+    with pytest.raises(ConfigError):
+        topt.OptimConfig(algo="sgd", pooled=False)
+    with pytest.raises(ValueError, match="matrix-class"):
+        topt.Block8bitOptimizer(topt.OptimConfig(algo="muon", pooled=False),
+                                device="cpu")
 
 
 # ------------------------------------------------------------ trajectories
@@ -657,7 +670,9 @@ def _tcfg():
 
 @pytest.mark.parametrize("name,kw", [
     ("momentum8", {}), ("lars8", {}), ("lamb8", {}), ("adagrad8", {}),
-    ("adamw8", {"stochastic_rounding": True}), ("adafactor32", {})])
+    ("adamw8", {"stochastic_rounding": True}), ("adafactor32", {}),
+    ("adam8", {"state_bits": (4, 8)}),
+    ("lamb8", {"state_bits": (5, 6), "stochastic_rounding": True})])
 def test_loss_trace_matches_live_jax(name, kw):
     """10 steps of the reduced paper LM in both packages from the same
     weights on the same batches: loss traces at rtol 2e-4."""

@@ -55,6 +55,9 @@ def _entry_points():
         "make_optimizer_lamb8": lambda: optim.make_optimizer("lamb8"),
         "make_optimizer_adafactor32":
             lambda: optim.make_optimizer("adafactor32"),
+        "make_optimizer_muon8": lambda: optim.make_optimizer("muon8"),
+        "make_optimizer_adam8_4bit":
+            lambda: optim.make_optimizer("adam8", state_bits=(4, 8)),
         "Adafactor": lambda: optim.Adafactor(optim.AdafactorConfig()),
     }
 
@@ -62,7 +65,9 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["init_model", "Model", "make_optimizer",
                                   "params_from_numpy", "init_train_state",
                                   "make_optimizer_lamb8",
-                                  "make_optimizer_adafactor32", "Adafactor"])
+                                  "make_optimizer_adafactor32", "Adafactor",
+                                  "make_optimizer_muon8",
+                                  "make_optimizer_adam8_4bit"])
 def test_entry_point_without_device_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
