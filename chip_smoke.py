@@ -60,7 +60,25 @@ Phases, one line or more each:
 5. checkpoint — lamb8 for 3 steps, saved with the port's checkpoint,
    restored into a fresh state; step 4 from both must give bit-identical
    params, codes and absmax.
-6. summary — the kernels JSON line, the card's name and power limit, and
+6. serve   — the paper LM at full width (random weights from SEED) served
+   by ``ContinuousBatchingEngine`` over the paged quantized KV cache, at
+   kv_bits 8 and then 4: 48 greedy requests, prompts cycling over
+   64/128/256/384 tokens, max_new uniform in [1, 128]; page 16, 16 slots,
+   32 pages per sequence (512 tokens), 512 pages per layer.  Every
+   request must return exactly its max_new tokens, the page bookkeeping
+   must hold its invariants, and the gather-dequant kernel B7 must launch
+   2 x 10 layers x decode steps times (counter zeroed just before the
+   run).  The same stream through the plain gather (``impl="torch"``)
+   must give identical tokens and bit-identical last-step logits, and a
+   tight pool (96 pages, every shape the same) must evict and still give
+   identical tokens.  Printed: decode tokens/s, p50/p99 request latency,
+   KV bytes per token, B7's share of device time in one profiled decode
+   step with every slot at 500 tokens, and the 8- and 4-bit
+   teacher-forced logit drift against the bf16 contiguous-cache
+   ``decode_step``.  (The kernels phase also holds B7 against its plain
+   version at the serve path's shapes, 8 and 4 bits, bf16 and f32 out, a
+   scrambled table with -1 entries: 0 mismatches.)
+7. summary — the kernels JSON line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script then exits non-zero without the last line.
@@ -168,6 +186,14 @@ ORACLE_RTOL = 2e-4
 # sqrt(terms) * 2^-24 ~ 1e-6 on these sums, 1e-5 leaves room for the
 # spread of 1024^2 entries.
 NS_RTOL = 1e-5
+# fourth slice: the serve path (paged KV, kernel B7)
+GATHER = ("src/repro_torch/kernels/csrc/paged_gather.cu",
+          "src/repro/kernels/paged_kv.py:170")
+SERVE_SLOTS, SERVE_PAGES_PER_SEQ, SERVE_PAGE = 16, 32, 16
+SERVE_POOL, SERVE_TIGHT_POOL = 512, 96
+SERVE_STREAMS, SERVE_PROMPT_LENS, SERVE_MAX_NEW = 48, "64,128,256,384", 128
+DRIFT_PROMPT, DRIFT_STEPS = 128, 32
+
 # fused-update variant -> (algo, stochastic); the optimizer name of its
 # train run is the variant without "_sr" plus stochastic rounding
 VARIANTS = {"adamw8": ("adamw", False), "adamw8_sr": ("adamw", True),
@@ -208,6 +234,31 @@ def median_ms(torch, fn, reps: int, per: int = 5, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per)
     return statistics.median(times)
+
+
+def device_ms(torch, fn, n: int = 50) -> float:
+    """Device time per call of ``fn``: the CUDA kernels' time summed by
+    torch.profiler over ``n`` calls, divided by ``n``.  For a kernel of a
+    few microseconds, CUDA events around back-to-back calls measure the
+    host's launch rate instead (each wrapper call costs tens of
+    microseconds of Python)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        total += t if t is not None else getattr(ev, "self_cuda_time_total",
+                                                 0.0)
+    require(total > 0, "the profiler saw no device time")
+    return total / 1e3 / n
 
 
 def card_line() -> str:
@@ -588,6 +639,61 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
     return out
 
 
+def check_gather_kernel(torch, dev) -> dict:
+    """B7 against its plain version at the serve path's shapes: a pool of
+    512 pages, 16 slots x 32 pages of 16 positions x 16 heads x 64, a
+    scrambled table with -1 entries; 8 and 4 bits, bf16 (the path's
+    dtype) and f32 out.  Exact: 0 mismatches."""
+    from repro_torch.kernels import paged_kv
+    B, P_, page, KV, Dh = (SERVE_SLOTS, SERVE_PAGES_PER_SEQ, SERVE_PAGE, 16,
+                           64)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = torch.randn(SERVE_POOL, page, KV, Dh, generator=gen,
+                       device=dev) * torch.exp(torch.randn(
+                           SERVE_POOL, page, KV, 1, generator=gen,
+                           device=dev) * 2)
+    rows[1, 2] = 0.0                                   # all-zero rows
+    table = torch.randperm(SERVE_POOL, generator=gen, device=dev)[
+        :B * P_].reshape(B, P_).int()
+    table[B // 4, P_ * 5 // 8:] = -1                  # unallocated tails
+    table[B - 1] = -1
+    pages_read = len(set(table.clamp(0, SERVE_POOL - 1).flatten().tolist()))
+    out = {}
+    for bits in (8, 4):
+        codes, absmax = paged_kv.quantize_rows(rows, bits)
+        W = codes.shape[-1]
+        for dt in (torch.bfloat16, torch.float32):
+            got = paged_kv.gather_cuda(codes, absmax, table, bits=bits,
+                                       dtype=dt)
+            want = paged_kv._gather_torch(codes, absmax, table, bits=bits,
+                                          dtype=dt)
+            n_bad = int((got != want).sum())
+            err = (got.float() - want.float()).abs().max().item()
+            require(n_bad == 0, f"paged_gather ({bits}-bit, {dt}): {n_bad} "
+                    f"values disagree with the plain version (err {err})")
+            call_ms = median_ms(torch, lambda: paged_kv.gather_cuda(
+                codes, absmax, table, bits=bits, dtype=dt), 20, per=20)
+            ms = device_ms(torch, lambda: paged_kv.gather_cuda(
+                codes, absmax, table, bits=bits, dtype=dt))
+            plain = device_ms(torch, lambda: paged_kv._gather_torch(
+                codes, absmax, table, bits=bits, dtype=dt))
+            n_out = B * P_ * page * KV * Dh
+            osz = 2 if dt == torch.bfloat16 else 4
+            b, by = bound_ms(pages_read * page * KV * (W + 4) + B * P_ * 4
+                             + n_out * osz + (1 << bits) * 4, n_out)
+            print(f"kernel paged_gather ({bits}-bit -> {dt}, {B}x{P_} pages "
+                  f"of {page}x{KV}x{Dh}, {pages_read} distinct): exact, 0 "
+                  f"mismatches; {ms:.4f} ms of device time, bound {b:.4f} "
+                  f"ms ({by}), plain {plain:.4f} ms of device time; "
+                  f"{call_ms:.4f} ms per call back to back by CUDA events "
+                  f"(the host's launch rate)")
+            if dt == torch.bfloat16:
+                out[f"paged_gather/{bits}bit"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
+                    bound_by=by, library_ms=None)
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 def train(torch, dev, cfg, name: str, steps: int, batches, label=None,
           **opt_kw) -> dict:
@@ -845,6 +951,224 @@ def checkpoint_roundtrip(torch, dev, cfg, batches, steps: int = 3) -> None:
           f"params, codes, absmax, 32-bit moments, step counts)")
 
 
+# ------------------------------------------------------------------ phase 6
+def serve_requests(vocab_size):
+    """The serve phase's stream, as ``repro_torch.launch.serve`` builds it:
+    48 greedy requests, prompts cycling over 64/128/256/384 tokens,
+    max_new uniform in [1, 128], from SEED."""
+    import argparse
+    from repro_torch.launch import serve as launcher
+    args = argparse.Namespace(seed=SEED, prompt_lens=SERVE_PROMPT_LENS,
+                              streams=SERVE_STREAMS, max_new=SERVE_MAX_NEW,
+                              uniform_new=False)
+    return launcher.build_requests(args, vocab_size)
+
+
+def serve_run(torch, cfg, model, reqs, kv_bits, n_pages, impl):
+    """One ``serve`` of the stream with B7's counter zeroed just before it
+    and read just after.  Returns (engine, tokens, registry, launches,
+    wall seconds)."""
+    from repro_torch.kernels import paged_kv
+    from repro_torch.serve.kvcache import PagedKVConfig
+    from repro_torch.serve.scheduler import (ContinuousBatchingEngine,
+                                             SchedulerConfig)
+    from repro_torch.telemetry import MetricRegistry
+    kv = PagedKVConfig(page_size=SERVE_PAGE, n_pages=n_pages,
+                       n_slots=SERVE_SLOTS,
+                       max_pages_per_seq=SERVE_PAGES_PER_SEQ, kv_bits=kv_bits)
+    reg = MetricRegistry()
+    eng = ContinuousBatchingEngine(cfg, model, SchedulerConfig(
+        kv=kv, impl=impl), registry=reg)
+    torch.cuda.synchronize()
+    paged_kv.gather_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = paged_kv.gather_cuda.launches
+    require(sorted(out) == [r.rid for r in reqs], f"kv{kv_bits} {impl}: "
+            f"{len(out)} of {len(reqs)} requests returned")
+    short = [r.rid for r in reqs if len(out[r.rid]) != r.max_new_tokens]
+    require(not short, f"kv{kv_bits} {impl}: requests {short} did not return "
+            f"exactly max_new_tokens tokens")
+    eng.kv.check_invariants()
+    require(eng.kv.n_active == 0 and eng.kv.alloc.n_free == n_pages,
+            f"kv{kv_bits} {impl}: pages or slots left allocated")
+    require(bool(torch.isfinite(eng.last_logits).all()),
+            f"kv{kv_bits} {impl}: non-finite logits")
+    return eng, out, reg, launches, wall
+
+
+def profile_decode_step(torch, cfg, model, eng):
+    """One paged decode step with all 16 slots active at position 500
+    under torch.profiler: (B7's device ms, launches, total device ms, wall
+    ms, top kernels), and the step's median time by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    dev = model.device
+    table = torch.arange(SERVE_SLOTS * SERVE_PAGES_PER_SEQ, dtype=torch.int32,
+                         device=dev).reshape(SERVE_SLOTS, -1) % SERVE_POOL
+    pos = SERVE_PAGES_PER_SEQ * SERVE_PAGE - 12            # 500 of 512
+    paged = L.PagedContext(table, torch.full((SERVE_SLOTS,), pos,
+                                             dtype=torch.int32, device=dev))
+    token = torch.zeros((SERVE_SLOTS, 1), dtype=torch.int64, device=dev)
+    step = lambda: M.paged_decode_step(cfg, model, token, eng.caches, paged)
+    step_ms = median_ms(torch, step, 5, per=4)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = getattr(ev, "self_cuda_time_total", 0.0)
+        if t:
+            rows.append((t / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    ours = _kernel_share(rows, ("paged_gather_kernel",))
+    b7_ms, b7_n = ours.get("paged_gather_kernel", (0.0, 0))
+    require(b7_n == 2 * cfg.n_layers, f"profiled decode step: paged_gather "
+            f"ran {b7_n} times, expected {2 * cfg.n_layers}")
+    return b7_ms, b7_n, sum(t for t, _, _ in rows), wall, rows, step_ms
+
+
+def logit_drift(torch, cfg, model, prompt):
+    """Teacher-forced on the bf16 contiguous-cache greedy trajectory
+    (``prefill`` + ``decode_step``): the largest |logit difference| of the
+    single-slot paged path at 8 and at 4 bits, and the logits' spread (the
+    form of tests/test_serve_paged.py::test_paged4_logit_drift_bounded)."""
+    import dataclasses
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    dev = model.device
+    P, n_new = len(prompt), DRIFT_STEPS
+    tokens = torch.tensor([prompt], dtype=torch.int64, device=dev)
+    logits, cache = M.prefill(cfg, model, tokens, max_len=P + n_new)
+    toks, rows = [int(logits[0, -1].argmax())], [logits[0, -1]]
+    for i in range(n_new - 1):
+        lg, cache = M.decode_step(cfg, model, torch.tensor(
+            [[toks[-1]]], device=dev), cache, P + i)
+        toks.append(int(lg[0, 0].argmax()))
+        rows.append(lg[0, 0])
+    oracle = torch.stack(rows)
+    n_pages = -(-(P + n_new) // SERVE_PAGE)
+    table = torch.arange(n_pages, dtype=torch.int32, device=dev)[None]
+    cfg16 = dataclasses.replace(cfg, kv_cache_bits=16)
+    drift = {}
+    for bits in (8, 4):
+        caches = M.init_paged_cache(cfg, 1, n_pages, SERVE_PAGE, bits,
+                                    device=dev)
+        lg, dense = M.prefill(cfg16, model, tokens, max_len=P)
+        M.commit_prefill_to_paged(cfg, caches, dense, 0, table[0], P,
+                                  kv_bits=bits)
+        got = [lg[0, -1]]
+        for i in range(n_new - 1):
+            paged = L.PagedContext(table, torch.tensor(
+                [P + i], dtype=torch.int32, device=dev))
+            lg, caches = M.paged_decode_step(cfg, model, torch.tensor(
+                [[toks[i]]], device=dev), caches, paged)
+            got.append(lg[0, 0])
+        drift[bits] = (torch.stack(got) - oracle).abs().max().item()
+    spread = (oracle.max() - oracle.min()).item()
+    require(all(math.isfinite(v) for v in drift.values()),
+            f"non-finite logit drift {drift}")
+    return drift, spread
+
+
+def serve_phase(torch, dev, cfg, run_launches, step_launches,
+                run_steps) -> None:
+    import numpy as np
+    from repro_torch.models import model as M
+    from repro_torch.serve.kvcache import kv_bytes_per_token
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    model = M.init_model(cfg, gen, device=dev)
+    reqs = serve_requests(cfg.vocab_size)
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    print(f"serve: {cfg.arch_id} at full width, {len(reqs)} requests, "
+          f"{sum(len(r.prompt) for r in reqs)} prompt tokens, {n_tok} to "
+          f"generate; page {SERVE_PAGE}, {SERVE_SLOTS} slots, "
+          f"{SERVE_PAGES_PER_SEQ} pages per sequence, {SERVE_POOL} pages")
+    for bits in (8, 4):
+        eng, out, reg, launches, wall = serve_run(torch, cfg, model, reqs,
+                                                  bits, SERVE_POOL, "cuda")
+        steps = eng.decode_steps
+        want = 2 * cfg.n_layers * steps
+        require(launches == want, f"kv{bits}: paged_gather launched "
+                f"{launches} times, expected 2 x {cfg.n_layers} layers x "
+                f"{steps} decode steps = {want}")
+        label = f"serve_kv{bits}"
+        run_launches[label] = step_launches[label] = {
+            "paged_gather": launches}
+        run_steps[label] = steps
+        lat = eng.latency_percentiles()
+        m = reg.metrics()
+        print(f"serve kv{bits} cuda: {steps} decode steps, paged_gather "
+              f"launches {launches} (= 2 x {cfg.n_layers} x {steps}); "
+              f"{m['serve/generated_tokens']} tokens in {wall:.3f} s: "
+              f"{m['serve/tokens_per_s']:.1f} tokens/s; latency p50 "
+              f"{lat['p50_ms']:.1f} ms, p99 {lat['p99_ms']:.1f} ms; "
+              f"KV {kv_bytes_per_token(cfg, bits):.0f} B/token (fp16 "
+              f"{kv_bytes_per_token(cfg, 16):.0f}); admitted "
+              f"{m['serve/sched/admitted']}, evictions "
+              f"{m.get('serve/sched/evictions', 0)}")
+        b7_ms, b7_n, total, pwall, prof, step_ms = profile_decode_step(
+            torch, cfg, model, eng)
+        print(f"profile serve kv{bits} decode step (16 slots at 500 tokens):"
+              f" {step_ms:.3f} ms by CUDA events; under the profiler "
+              f"{total:.3f} ms device time over {pwall:.3f} ms wall (device "
+              f"idle {100 * (1 - total / pwall):.1f}%); paged_gather "
+              f"{b7_ms:.3f} ms in {b7_n} launches, "
+              f"{100 * b7_ms / total:.1f}% of device time; top:")
+        for t, count, key in prof[:8]:
+            print(f"profile   {t:9.3f} ms  x{count:<5d} {key[:90]}")
+        last = eng.last_logits.clone()
+        del eng
+        torch.cuda.empty_cache()
+
+        eng_t, out_t, _, launches_t, wall_t = serve_run(
+            torch, cfg, model, reqs, bits, SERVE_POOL, "torch")
+        require(launches_t == 0, f"kv{bits} torch: paged_gather launched "
+                f"{launches_t} times")
+        same = all(np.array_equal(out[r.rid], out_t[r.rid]) for r in reqs)
+        require(same and eng_t.decode_steps == steps,
+                f"kv{bits}: the plain gather gave other tokens")
+        require(torch.equal(eng_t.last_logits, last), f"kv{bits}: last-step "
+                f"logits of the kernel and plain paths differ (max "
+                f"{(eng_t.last_logits - last).abs().max().item()})")
+        print(f"serve kv{bits} torch: identical tokens ({n_tok}) and "
+              f"bit-identical last-step logits; {wall_t:.3f} s")
+        del eng_t
+        torch.cuda.empty_cache()
+
+        eng_s, out_s, reg_s, launches_s, wall_s = serve_run(
+            torch, cfg, model, reqs, bits, SERVE_TIGHT_POOL, "cuda")
+        ev = reg_s.metrics().get("serve/sched/evictions", 0)
+        require(ev > 0, f"kv{bits} tight pool: no eviction")
+        require(all(np.array_equal(out[r.rid], out_s[r.rid]) for r in reqs),
+                f"kv{bits} tight pool: eviction changed tokens")
+        print(f"serve kv{bits} tight pool ({SERVE_TIGHT_POOL} pages): "
+              f"{ev} evictions, identical tokens; {eng_s.decode_steps} "
+              f"decode steps, {launches_s} launches, {wall_s:.3f} s")
+        del eng_s
+        torch.cuda.empty_cache()
+
+    prompt = [int(t) for t in np.random.RandomState(SEED).randint(
+        0, cfg.vocab_size, DRIFT_PROMPT)]
+    drift, spread = logit_drift(torch, cfg, model, prompt)
+    print(f"serve logit drift, teacher-forced over {DRIFT_STEPS} steps after "
+          f"a {DRIFT_PROMPT}-token prompt, against the bf16 contiguous "
+          f"decode_step: 8-bit {drift[8]:.5f}, 4-bit {drift[4]:.5f} "
+          f"(spread {spread:.3f}; 4-bit {drift[4] / spread:.4f} x spread, "
+          f"8-bit {drift[8] / max(drift[4], 1e-30):.3f} x the 4-bit drift)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -883,6 +1207,8 @@ def main() -> int:
     kernels = check_kernels(torch, dev)
     torch.cuda.empty_cache()
     kernels.update(check_slice3_kernels(torch, dev))
+    torch.cuda.empty_cache()
+    kernels.update(check_gather_kernel(torch, dev))
     torch.cuda.empty_cache()
 
     # ---- 4. train
@@ -1018,8 +1344,12 @@ def main() -> int:
 
     # ---- 5. checkpoint
     checkpoint_roundtrip(torch, dev, cfg, batches)
+    torch.cuda.empty_cache()
 
-    # ---- 6. summary
+    # ---- 6. serve
+    serve_phase(torch, dev, cfg, run_launches, step_launches, run_steps)
+
+    # ---- 7. summary
     rows = []
     meta = [(name, source, replaces, counter,
              {"lars": "lars8", "lamb": "lamb8"}.get(
@@ -1027,6 +1357,8 @@ def main() -> int:
              if "/" in name else "adamw8")
             for name, (source, replaces, counter) in KERNEL_META.items()]
     meta += [(name, *m) for name, m in SLICE3_META.items()]
+    meta += [(f"paged_gather/{b}bit", *GATHER, "paged_gather",
+              f"serve_kv{b}") for b in (8, 4)]
     for name, source, replaces, counter, run in meta:
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": source,

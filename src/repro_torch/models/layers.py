@@ -1,18 +1,26 @@
-"""Transformer building blocks (mirrors ``repro.models.layers`` for the
-dense train forward): norms, rotary embedding, causal attention, MLP.
+"""Transformer building blocks (mirrors ``repro.models.layers`` for dense
+blocks): norms, rotary embedding, causal attention, MLP, and the serving
+caches' attention: prefill into a dense cache, contiguous decode (16-bit or
+block-wise int8 rows) and paged decode over the quantized page pool.
 
 Each function takes the parameters of one layer as tensors and keeps the
 JAX package's casts: norms work in f32 and cast back, attention scores and
 softmax are f32, projections run in the compute dtype.  The JAX package has
-no Pallas kernel in its model, so plain PyTorch ops are its counterpart.
+no Pallas kernel in its model, so plain PyTorch ops are its counterpart;
+the paged decode's gather-dequant is kernel B7 (``kernels/paged_kv.py``).
 Attention is a plain masked softmax over the whole sequence (the JAX
 package's chunked online softmax computes the same function; only the f32
-summation order differs).
+summation order differs).  Caches are dicts of tensors, updated in place:
+the counterpart of the JAX package's donated caches.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import paged_kv
 
 
 def apply_norm(scale, bias, x, norm_type: str, eps: float = 1e-6):
@@ -61,9 +69,137 @@ def causal_attention(q, k, v):
     return out.transpose(1, 2)
 
 
-def apply_attention(wq, wk, wv, wo, x, cfg, *, positions):
-    """x: (B, S, d) in the compute dtype -> (B, S, d).  Train forward (no
-    cache)."""
+# ------------------------------------------------- int8 KV cache (extension)
+# The paper's block-wise quantizer applied to the contiguous KV cache (block
+# = one head row of Dh values, absmax per (position, head)); enabled by
+# cfg.kv_cache_bits == 8.  The k-bit row quantizer lives in
+# kernels/paged_kv.py, shared with the paged serving cache.
+
+def kv_quantize(x, bits: int = 8):
+    """x: (..., Dh) -> (codes uint8 (..., Dh*bits/8), absmax f32 (...,))."""
+    return paged_kv.quantize_rows(x, bits)
+
+
+def kv_dequantize(codes, absmax, dtype, bits: int = 8):
+    return paged_kv.dequantize_rows(codes, absmax, dtype, bits)
+
+
+# ------------------------------------------------ paged KV serving context
+
+@dataclasses.dataclass
+class PagedContext:
+    """Per-decode-step paged-cache context.
+
+    page_table: (n_slots, max_pages_per_seq) int32 — physical page per
+                logical page; -1 = unallocated (gathered, then masked).
+    positions : (n_slots,) int32 — index of the token decoded this step
+                per slot; -1 = inactive slot (its append is dropped and its
+                attention masks every key).
+    impl      : gather-dequant implementation ("cuda" the kernel B7,
+                "torch" its plain version).
+    """
+
+    page_table: torch.Tensor
+    positions: torch.Tensor
+    impl: str = "cuda"
+
+
+# ----------------------------------------------------------------- attention
+
+def _decode_attention(q, k_cache, v_cache, cache_len: int):
+    """Single-position attention over a contiguous cache.
+
+    q: (B, 1, H, D); k/v_cache: (B, eff, KV, D).  Slots [0, min(cache_len,
+    eff)) are valid (the current token's kv is already written)."""
+    B, _, H, D = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    eff = k_cache.shape[1]
+    qh = (q.reshape(B, KV, G, D) * (D ** -0.5)).to(torch.float32)
+    scores = torch.einsum("bkgd,bckd->bkgc", qh, k_cache.to(torch.float32))
+    mask = torch.arange(eff, device=q.device) < min(cache_len, eff)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, D)
+
+
+def _masked_decode_attention(q, k, v, valid):
+    """Single-position attention with a per-slot validity mask.
+
+    q: (B, 1, H, D); k/v: (B, L, KV, D); valid: (B, L) bool.  Masked
+    scores are the f32 minimum (not -inf), the denominator is clamped at
+    1e-30, and an all-False row (inactive slot) gives zeros, not NaN."""
+    B, _, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qh = (q.reshape(B, KV, G, D) * (D ** -0.5)).to(torch.float32)
+    scores = torch.einsum("bkgd,bckd->bkgc", qh, k.to(torch.float32))
+    m = valid[:, None, None, :]
+    scores = torch.where(m, scores, torch.finfo(torch.float32).min)
+    smax = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(m, torch.exp(scores - smax), 0.0)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkgc,bckd->bkgd", p / denom, v.to(torch.float32))
+    return out.reshape(B, 1, H, D)
+
+
+def _paged_decode_attention(q, k, v, cfg, cache, paged: PagedContext):
+    """Paged-KV decode: quantize-on-append the new k/v rows into each
+    slot's current page (in place), then gather-dequant every table page
+    and attend under the per-slot length mask.
+
+    cache: {"k_codes": (n_pages, page, KV, W), "k_absmax": (n_pages, page,
+    KV), "v_codes", "v_absmax"}; q/k/v: (B, 1, {H|KV}, Dh).
+    Returns (out (B, 1, H, Dh), cache)."""
+    n_pages, page = cache["k_codes"].shape[:2]
+    bits = paged_kv.bits_of(cfg.head_dim, cache["k_codes"].shape[-1])
+    pos = paged.positions
+    active = pos >= 0
+    pos_c = pos.clamp_min(0).long()
+    B = pos.shape[0]
+    # destination (physical page, offset) of this step's row per slot;
+    # inactive slots point out of range, so the append drops them
+    ppage = paged.page_table[torch.arange(B, device=pos.device),
+                             pos_c // page].long()
+    ppage = torch.where(active & (ppage >= 0), ppage, n_pages)
+    off = pos_c % page
+    for name, row in (("k", k), ("v", v)):
+        paged_kv.append_rows(cache[f"{name}_codes"], cache[f"{name}_absmax"],
+                             row[:, 0], ppage, off, bits)
+    k_all, v_all = (paged_kv.gather_pages(
+        cache[f"{name}_codes"], cache[f"{name}_absmax"], paged.page_table,
+        bits=bits, dtype=q.dtype, impl=paged.impl) for name in ("k", "v"))
+    idx = torch.arange(k_all.shape[1], device=pos.device)[None, :]
+    valid = active[:, None] & (idx <= pos_c[:, None])
+    return _masked_decode_attention(q, k_all, v_all, valid), cache
+
+
+def _write_prefill_cache(buf, new):
+    """Store S new rows into a cache buffer of physical size eff in place,
+    position p at slot p % eff (full attention: eff >= S unless the caller
+    asked for a shorter cache, which keeps the last eff rows)."""
+    S, eff = new.shape[1], buf.shape[1]
+    new = new.to(buf.dtype)
+    if S >= eff:
+        buf.copy_(torch.roll(new[:, S - eff:], (S - eff) % eff, dims=1))
+    else:
+        buf[:, :S] = new
+
+
+def apply_attention(wq, wk, wv, wo, x, cfg, *, positions, cache=None,
+                    cache_len=None, paged=None):
+    """x: (B, S, d) in the compute dtype.
+
+    cache=None           -> train forward, no state io.
+    cache given, S == 1  -> decode: write kv at slot (cache_len - 1) % eff
+                            (16-bit or int8 rows); with ``paged`` (a
+                            PagedContext) the cache is the shared quantized
+                            page pool and per-slot positions and page
+                            tables drive append + attend.
+    cache given, S > 1   -> prefill: full causal attention + bulk cache
+                            fill.
+    Caches are updated in place.  Returns (out (B, S, d), cache)."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
@@ -72,8 +208,37 @@ def apply_attention(wq, wk, wv, wo, x, cfg, *, positions):
     v = (x @ wv.to(dt)).reshape(B, S, KV, Dh)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = causal_attention(q, k, v)
-    return out.reshape(B, S, H * Dh).to(dt) @ wo.to(dt)
+
+    quant_cache = cache is not None and "k_codes" in cache
+    if paged is not None and cache is not None and S == 1:
+        out, cache = _paged_decode_attention(q, k, v, cfg, cache, paged)
+    elif cache is None or S > 1:
+        out = causal_attention(q, k, v)
+        if quant_cache:
+            for name, rows in (("k", k), ("v", v)):
+                codes, absmax = kv_quantize(rows)
+                _write_prefill_cache(cache[f"{name}_codes"], codes)
+                _write_prefill_cache(cache[f"{name}_absmax"], absmax)
+        elif cache is not None:
+            _write_prefill_cache(cache["k"], k)
+            _write_prefill_cache(cache["v"], v)
+    else:
+        name0 = "k_codes" if quant_cache else "k"
+        idx = (cache_len - 1) % cache[name0].shape[1]
+        if quant_cache:
+            for name, row in (("k", k), ("v", v)):
+                codes, absmax = kv_quantize(row)     # (B,1,KV,D)/(B,1,KV)
+                cache[f"{name}_codes"][:, idx:idx + 1] = codes
+                cache[f"{name}_absmax"][:, idx:idx + 1] = absmax
+            k_cache, v_cache = (kv_dequantize(
+                cache[f"{name}_codes"], cache[f"{name}_absmax"], dt)
+                for name in ("k", "v"))
+        else:
+            cache["k"][:, idx:idx + 1] = k.to(cache["k"].dtype)
+            cache["v"][:, idx:idx + 1] = v.to(cache["v"].dtype)
+            k_cache, v_cache = cache["k"], cache["v"]
+        out = _decode_attention(q, k_cache, v_cache, cache_len)
+    return out.reshape(B, S, H * Dh).to(dt) @ wo.to(dt), cache
 
 
 def apply_mlp(w_in, w_out, x):

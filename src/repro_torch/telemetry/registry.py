@@ -1,0 +1,143 @@
+"""Typed metric registry (mirrors ``repro.telemetry.registry``): counters,
+gauges and histograms, each name registered once under one type, and the
+sinks they emit to.
+
+    reg = MetricRegistry()
+    reg.counter("serve/requests").inc()
+    reg.gauge("serve/tokens_per_s").set(812.5)
+    reg.histogram("serve/latency_ms", n_bins=10).observe_counts(counts)
+    reg.flush(step=7)           # one "metric" event per set metric
+
+Values are host scalars and numpy arrays: nothing here touches the device.
+A sink is any object with ``write(event)`` and ``flush()``; the JSONL sink
+and the event schema's validator (``export.py``) and the rest of the
+telemetry are ROADMAP A11.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from repro_torch.errors import FormatError
+
+SCHEMA = "repro.telemetry.v1"     # the JAX package's event schema version
+
+
+def _scalar(v: Any) -> float:
+    """Host float from a python/numpy/0-d tensor scalar."""
+    return float(v)
+
+
+class Counter:
+    """Monotonically increasing count (requests, tokens, events)."""
+
+    mtype = "counter"
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = 0
+
+    def inc(self, n: int = 1) -> int:
+        if n < 0:
+            raise ValueError(f"counter {self.name} cannot decrease "
+                             f"(got {n})")
+        self.value += int(n)
+        return self.value
+
+
+class Gauge:
+    """Last-value metric (tokens/s, occupancy, bytes per token)."""
+
+    mtype = "gauge"
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value: Optional[float] = None
+
+    def set(self, v: Any) -> float:
+        self.value = _scalar(v)
+        return self.value
+
+
+class Histogram:
+    """Binned counts.  The histograms arrive pre-binned, so the API takes
+    counts instead of streaming observations."""
+
+    mtype = "histogram"
+
+    def __init__(self, name: str, n_bins: int):
+        self.name = name
+        self.n_bins = int(n_bins)
+        self.value = np.zeros((self.n_bins,), np.int64)
+
+    def observe_counts(self, counts: Any) -> np.ndarray:
+        c = np.asarray(counts, np.int64).reshape(-1)
+        if c.shape[0] != self.n_bins:
+            raise FormatError(f"histogram {self.name}: got {c.shape[0]} "
+                              f"bins, expected {self.n_bins}")
+        self.value = c
+        return self.value
+
+
+class MetricRegistry:
+    """Named, typed metrics plus the sinks they emit to."""
+
+    def __init__(self):
+        self._metrics: Dict[str, Any] = {}
+        self._sinks: list = []
+
+    def _get(self, name: str, cls, *args):
+        m = self._metrics.get(name)
+        if m is None:
+            m = cls(name, *args)
+            self._metrics[name] = m
+        elif not isinstance(m, cls):
+            raise TypeError(f"metric {name!r} is a {m.mtype}, not a "
+                            f"{cls.mtype}")
+        return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
+    def histogram(self, name: str, n_bins: int) -> Histogram:
+        h = self._get(name, Histogram, n_bins)
+        if h.n_bins != int(n_bins):
+            raise TypeError(f"histogram {name!r} has {h.n_bins} bins, "
+                            f"not {n_bins}")
+        return h
+
+    @staticmethod
+    def _value(m):
+        v = m.value
+        return v.tolist() if isinstance(v, np.ndarray) else v
+
+    def metrics(self) -> dict:
+        """Snapshot {name: current value} (histograms as lists)."""
+        return {name: self._value(m) for name, m in self._metrics.items()}
+
+    def get(self, name: str):
+        """Current value of ``name`` (None if never registered)."""
+        m = self._metrics.get(name)
+        return None if m is None else self._value(m)
+
+    def add_sink(self, sink) -> None:
+        self._sinks.append(sink)
+
+    def flush(self, step: int = -1) -> None:
+        """Write one "metric" event per set metric to every sink, then
+        flush the sinks."""
+        for m in self._metrics.values():
+            if m.value is None:
+                continue
+            event = {"schema": SCHEMA, "kind": "metric", "step": int(step),
+                     "name": m.name, "type": m.mtype, "value": self._value(m)}
+            if isinstance(m, Histogram):
+                event["n_bins"] = m.n_bins
+            for s in self._sinks:
+                s.write(event)
+        for s in self._sinks:
+            s.flush()

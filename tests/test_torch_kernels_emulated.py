@@ -21,6 +21,7 @@ from repro_torch.kernels import blockwise_dequant as bdq
 from repro_torch.kernels import blockwise_quant as bq
 from repro_torch.kernels import build
 from repro_torch.kernels import fused_update as fu
+from repro_torch.kernels import paged_kv
 
 CUDA_RUNTIME_H = r"""
 #pragma once
@@ -50,6 +51,7 @@ struct float3 { float x, y, z; };
 struct float2 { float x, y; };
 struct uchar4 { unsigned char x, y, z, w; };
 struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float3 make_float3(float a, float b, float c) { return {a, b, c}; }
 inline float4 make_float4(float a, float b, float c, float d) {
@@ -117,6 +119,8 @@ inline __nv_bfloat16 emu_bf16(float f) {  // round to nearest even
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {emu_bf16(a), emu_bf16(b)};
 }
+inline __nv_bfloat16 __float2bfloat16_rn(float a) { return emu_bf16(a); }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
 """
 
 LAUNCH = re.compile(r"<<<grid, block, (\w+), stream>>>\(")
@@ -175,6 +179,8 @@ def libs(tmp_path_factory):
         + [P]
     libs["newton_schulz"].ns_apply.argtypes = [P] * 3 + [ctypes.c_float] \
         + [ctypes.c_int] * 2 + [P]
+    libs["paged_gather"].paged_gather.argtypes = [P] * 5 + [
+        ctypes.c_int] * 7 + [P]
     return libs
 
 
@@ -542,3 +548,43 @@ def test_ns_kernels_reject_bad_shapes(libs):
     assert libs["newton_schulz"].ns_gram(*_ptrs(x, a), 8, 100, None) != 0
     assert libs["newton_schulz"].ns_apply(*_ptrs(x, a, x), 1.0, 8, 128,
                                           None) != 0    # out aliases x
+
+
+# (n_pages, page, KV, Dh, B, P): Dh 64 takes the 16-byte path (W = 64 or
+# 32 bytes), Dh 8 and 12 the byte path (W = 8/4 and 12/6 bytes)
+GATHER_SHAPES = [(6, 4, 2, 64, 2, 3), (5, 2, 3, 8, 3, 4), (4, 3, 1, 12, 2, 2)]
+
+
+@pytest.mark.parametrize("shape", GATHER_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_paged_gather_emulated(libs, bits, dtype, shape):
+    """B7 bit for bit against its plain version: a scrambled table with
+    -1 entries (read as page 0) and an all-zero row."""
+    n_pages, page, KV, Dh, B, P_ = shape
+    g = torch.Generator().manual_seed(11)
+    rows = torch.randn(n_pages, page, KV, Dh, generator=g) * torch.exp(
+        torch.randn(n_pages, page, KV, 1, generator=g) * 2)
+    rows[1, 0, 0] = 0.0
+    codes, absmax = paged_kv.quantize_rows(rows, bits)
+    perm = torch.randperm(n_pages, generator=g)
+    table = perm[torch.arange(B * P_) % n_pages].reshape(B, P_).int()
+    table[0, -1] = -1
+    table[-1, 0] = -1
+    out = torch.full((B, P_ * page, KV, Dh), float("nan"), dtype=dtype)
+    rc = libs["paged_gather"].paged_gather(
+        *_ptrs(codes, absmax, table, paged_kv.kv_qmap(bits), out),
+        int(dtype == torch.bfloat16), n_pages, page * KV, codes.shape[-1],
+        bits, B, P_, None)
+    assert rc == 0
+    want = paged_kv._gather_torch(codes, absmax, table, bits=bits,
+                                  dtype=dtype)
+    assert torch.equal(out, want)
+
+
+def test_paged_gather_rejects_bad_bits(libs):
+    z = torch.zeros(1, dtype=torch.uint8)
+    rc = libs["paged_gather"].paged_gather(*_ptrs(z, z, z, z, z), 0, 1, 1, 1,
+                                           5, 1, 1, None)
+    assert rc != 0

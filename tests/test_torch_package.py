@@ -38,14 +38,31 @@ def test_import_rule_catches_reference_imports(tmp_path):
     assert found == ["repro.core", "jax.numpy"]
 
 
+SERVING_MODULES = ("kernels/paged_kv.py", "telemetry/registry.py",
+                   "serve/kvcache.py", "serve/engine.py",
+                   "serve/scheduler.py", "launch/serve.py",
+                   "models/layers.py", "models/model.py")
+
+
+@pytest.mark.parametrize("rel", SERVING_MODULES)
+def test_import_rule_covers_serving_modules(rel):
+    """The fourth slice's modules are among the files the import rule
+    checks (and so import neither JAX nor the JAX package)."""
+    assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
+
+
 def _entry_points():
     from repro_torch import convert
     from repro_torch.configs import base
     from repro_torch.core import optim
+    from repro_torch.launch import serve as serve_launch
     from repro_torch.models import model
     from repro_torch.train import loop
     cfg = base.reduced(base.get_config("paper-lm-209m"))
     return {
+        "init_cache": lambda: model.init_cache(cfg, 1, 8),
+        "init_paged_cache": lambda: model.init_paged_cache(cfg, 2, 4, 4),
+        "serve_launcher": lambda: serve_launch.main(["--reduce"]),
         "init_model": lambda: model.init_model(cfg),
         "Model": lambda: model.Model(cfg),
         "make_optimizer": lambda: optim.make_optimizer("adamw8"),
@@ -67,7 +84,8 @@ def _entry_points():
                                   "make_optimizer_lamb8",
                                   "make_optimizer_adafactor32", "Adafactor",
                                   "make_optimizer_muon8",
-                                  "make_optimizer_adam8_4bit"])
+                                  "make_optimizer_adam8_4bit", "init_cache",
+                                  "init_paged_cache", "serve_launcher"])
 def test_entry_point_without_device_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -82,3 +100,9 @@ def test_wrapper_raises_on_other_devices():
     q = torch.zeros(256, device="meta")
     with pytest.raises(ValueError, match="no quantize kernel"):
         ops.quantize_blockwise(x, q)
+    from repro_torch.kernels import paged_kv
+    codes = torch.zeros((2, 2, 1, 8), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="no paged gather kernel"):
+        paged_kv.gather_pages(codes, torch.zeros((2, 2, 1), device="meta"),
+                              torch.zeros((1, 2), dtype=torch.int32,
+                                          device="meta"), bits=8)
