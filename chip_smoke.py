@@ -8,8 +8,10 @@ and the rest of the element-wise 8-bit family, momentum8, lars8, lamb8,
 adagrad8 and stochastic-rounding adamw8, the packed 4/5/6-bit states
 (``state_bits``) and Muon (muon8, muon32) — trains paper-lm-209m (10
 layers, d_model 1024, vocab 50264, bf16 compute, f32 masters) for a few
-steps on synthetic data, through the port's hand-written CUDA kernels.
-Phases, one line or more each:
+steps on synthetic data, through the port's hand-written CUDA kernels;
+the paper LM is served from a paged quantized KV cache; and the train
+launcher runs with the numerics sentinel, the qhealth probes and the
+flight recorder.  Phases, one line or more each:
 
 1. device  — require CUDA (exit 2 without it).
 2. build   — compile every kernel from ``src/repro_torch/kernels/csrc``
@@ -78,7 +80,27 @@ Phases, one line or more each:
    ``decode_step``.  (The kernels phase also holds B7 against its plain
    version at the serve path's shapes, 8 and 4 bits, bf16 and f32 out, a
    scrambled table with -1 entries: 0 mismatches.)
-7. summary — the kernels JSON line, the card's name and power limit, and
+7. telemetry — the train launcher (``repro_torch.launch.train.main``) at
+   full-width paper-lm-209m (the launcher's f32 compute), adamw8, 8 steps
+   of seq 512 x batch 8 with ``--sentinel``, qhealth probes every 4 steps
+   and the flight recorder (a host copy of the state after every healthy
+   step), under build/ (removed after).  With the counters zeroed just
+   before it: the fused update must launch 8 x 11 quantized leaves times,
+   every launch with the sentinel output (B3(e)), and B1/B2 once per leaf
+   and probe (the round-trip sample); every step's sent_* nonfinite and
+   overflow counts must be 0 and its edge-hit count above 0; the probes
+   must give 2 x 11 events at steps 3 and 7; the JSONL must pass the
+   port's validator and the inspector must score the run clean.  Then the
+   same 8 steps without the sentinel (ms/step on and off), and at lr 1e18:
+   exit 2 with a flight dump of the step before the trigger, which
+   restores into a fresh state, replays the trigger step to the recorded
+   loss (or both nonfinite) and scores 1 under ``inspect --flight``.  Then
+   5 steps with the sentinel of stochastic adamw8, momentum8, lamb8 and
+   adam8 at (4, 8) (SENTINEL_RUNS: the launches of their JSON rows).  The
+   kernels phase also holds B3(e) at the largest leaf for those five
+   variants against ``health_rows`` and the sentinel-off kernel, on clean
+   inputs and with NaN / +-inf / 1e31 planted in g and one block's state.
+8. summary — the kernels JSON line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script then exits non-zero without the last line.
@@ -87,6 +109,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -193,6 +216,20 @@ SERVE_SLOTS, SERVE_PAGES_PER_SEQ, SERVE_PAGE = 16, 32, 16
 SERVE_POOL, SERVE_TIGHT_POOL = 512, 96
 SERVE_STREAMS, SERVE_PROMPT_LENS, SERVE_MAX_NEW = 48, "64,128,256,384", 128
 DRIFT_PROMPT, DRIFT_STEPS = 128, 32
+
+# fifth slice: the fused update's sentinel output (B3(e)) — variant ->
+# (algo, bits_m, bits_r, stochastic); each has a train run with the
+# sentinel on whose launches its JSON row reports: "adamw8" is the
+# telemetry launcher's run, the others SENTINEL_RUNS (optimizer, kwargs)
+SENTINEL_VARIANTS = {"adamw8": ("adamw", 8, 8, False),
+                     "adamw8_sr": ("adamw", 8, 8, True),
+                     "momentum8": ("momentum", 8, 8, False),
+                     "lamb8": ("lamb", 8, 8, False),
+                     "adam8_4_8": ("adam", 4, 8, False)}
+SENTINEL_RUNS = {"adamw8_sr": ("adamw8", dict(stochastic_rounding=True)),
+                 "momentum8": ("momentum8", {}), "lamb8": ("lamb8", {}),
+                 "adam8_4_8": ("adam8", dict(state_bits=(4, 8)))}
+TEL_STEPS, TEL_EVERY = 8, 4      # the telemetry launcher's steps and probes
 
 # fused-update variant -> (algo, stochastic); the optimizer name of its
 # train run is the variant without "_sr" plus stochastic rounding
@@ -694,6 +731,148 @@ def check_gather_kernel(torch, dev) -> dict:
     return out
 
 
+def _poison(torch, g, am, ar):
+    """NaN, +inf and -inf in block 0 of g (a NaN absmax, so x / scale
+    reaches +inf: the capped encode), 1e31 in block 1 of g, and block 2's
+    state absmax inf (its dequantized state inf and NaN)."""
+    g, am = g.clone(), am.clone()
+    g[0, 3], g[0, 7], g[0, 11] = float("nan"), float("inf"), -float("inf")
+    g[1, 5] = 1e31
+    am[2] = float("inf")
+    if ar is not None:
+        ar = ar.clone()
+        ar[2] = float("inf")
+    return g, am, ar
+
+
+def check_sentinel_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
+                           bsz: int = 2048) -> dict:
+    """B3(e), the fused update with the sentinel output, at the main path's
+    largest leaf, for each of SENTINEL_VARIANTS on clean inputs and on
+    inputs with NaN / +-inf / 1e31 planted in g and in one block's state:
+    the health rows equal ``health_rows`` of the plain version exactly, p,
+    codes and absmax equal the sentinel-off kernel's bit for bit (and the
+    plain version's, NaN where it has NaN).  Timed on clean inputs against
+    the sentinel-off kernel in turns (off, on, on, off)."""
+    from repro_torch.core import qmap
+    from repro_torch.core.lowbit import pack_codes
+    from repro_torch.kernels import fused_update as fu
+
+    n = nb * bsz
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    qm = lambda bits, signed: torch.as_tensor(
+        qmap.get_qmap("dynamic", signed, bits=bits), device=dev)
+    p = torch.randn(nb, bsz, generator=gen, device=dev) * 0.02
+    g = torch.randn(nb, bsz, generator=gen, device=dev) * 1e-3
+    am = torch.rand(nb, generator=gen, device=dev) * 1e-3 + 1e-5
+    ar = torch.rand(nb, generator=gen, device=dev) * 1e-6 + 1e-9
+    ts = torch.rand(nb, generator=gen, device=dev) * 0.5 + 0.75
+    hyper = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=WEIGHT_DECAY, step=7.0, gnorm_scale=1.0)
+    s = fu.scalars(device=dev, **hyper)
+    bits_of = lambda t: t.view(torch.int32) if t.dtype == torch.float32 \
+        else t
+    out = {}
+
+    def differ(a, b) -> int:
+        """Values of a that differ from b (NaN matches NaN)."""
+        if not a.is_floating_point():
+            return int((a != b).sum())
+        nan = a.isnan()
+        return int((nan != b.isnan()).sum()) + int((a[~nan] != b[~nan])
+                                                   .sum())
+
+    for variant, (algo, bits_m, bits_r, sr) in SENTINEL_VARIANTS.items():
+        spec = fu.ALGO_SPECS[algo]
+        two = spec.n_states == 2
+        q1, q2 = qm(bits_m, spec.state1_signed), qm(bits_r, False)
+        cm = pack_codes(torch.randint(0, 1 << bits_m, (nb, bsz),
+                                      generator=gen, device=dev), bits_m)
+        cr = (pack_codes(torch.randint(0, 1 << bits_r, (nb, bsz),
+                                       generator=gen, device=dev), bits_r)
+              if two else None)
+        ts_v = ts if spec.needs_norms else None
+        kw = dict(hyper, algo=algo, stochastic=sr, seed=SEED, bits_m=bits_m,
+                  bits_r=bits_r, tensor_scale_blocks=ts_v)
+        uniforms = (fu.block_uniforms(nb, bsz, two=two, seed=SEED,
+                                      device=dev) if sr else (None, None))
+        sums = {}
+        for poisoned in (False, True):
+            g_, am_, ar_ = _poison(torch, g, am, ar if two else None) \
+                if poisoned else (g, am, ar if two else None)
+            want = fu.fused_update_plain(p, g_, cm, am_, cr, ar_, q1, q2, s,
+                                         algo=algo, tensor_scale=ts_v,
+                                         uniforms=uniforms, bits_m=bits_m,
+                                         bits_r=bits_r, sentinel=True)
+            on = [None if t is None else t.clone()
+                  for t in (p, cm, am_, cr, ar_)]
+            off = [None if t is None else t.clone() for t in on]
+            health = fu.fused_update_cuda(on[0], g_, *on[1:], q1, q2,
+                                          sentinel=True, **kw).health
+            fu.fused_update_cuda(off[0], g_, *off[1:], q1, q2, **kw)
+            h_bad = int((health != want.health).sum())
+            n_off = sum(int((bits_of(a) != bits_of(b)).sum())
+                        for a, b in zip(on, off) if a is not None)
+            n_plain = sum(differ(a, b) for a, b in zip(on, want[:5])
+                          if a is not None)
+            tag = "poisoned" if poisoned else "clean"
+            require(h_bad == 0, f"fused_update/sentinel_{variant} ({tag}): "
+                    f"{h_bad} health counts differ from health_rows")
+            require(n_off == 0, f"fused_update/sentinel_{variant} ({tag}): "
+                    f"{n_off} values of p, codes or absmax differ from the "
+                    f"sentinel-off kernel's")
+            require(n_plain == 0, f"fused_update/sentinel_{variant} ({tag}):"
+                    f" {n_plain} values of p, codes or absmax differ from "
+                    f"the plain version's")
+            sums[tag] = dict(zip(fu.HEALTH_SLOTS,
+                                 (int(v) for v in health.sum(dim=0))))
+            del want, on, off, health
+        require(all(sums["clean"][k] == 0 for k in fu.HEALTH_SLOTS
+                    if not k.startswith("edge_hits")),
+                f"fused_update/sentinel_{variant}: clean inputs counted "
+                f"{sums['clean']}")
+        require(sums["poisoned"]["nonfinite_grad"] == 3 and
+                sums["poisoned"]["nonfinite_absmax_m"] >= 1,
+                f"fused_update/sentinel_{variant}: poisoned inputs counted "
+                f"{sums['poisoned']}")
+        st_on = [None if t is None else t.clone() for t in (p, cm, am, cr,
+                                                            ar if two
+                                                            else None)]
+        st_off = [None if t is None else t.clone() for t in st_on]
+        run_on = lambda: fu.fused_update_cuda(st_on[0], g, *st_on[1:], q1,
+                                              q2, sentinel=True, **kw)
+        run_off = lambda: fu.fused_update_cuda(st_off[0], g, *st_off[1:],
+                                               q1, q2, **kw)
+        times = [median_ms(torch, fn, 20)
+                 for fn in (run_off, run_on, run_on, run_off)]
+        ms_off, ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        plain = median_ms(torch, lambda: fu.fused_update_plain(
+            p, g, cm, am, cr, ar if two else None, q1, q2, s, algo=algo,
+            tensor_scale=ts_v, uniforms=uniforms, bits_m=bits_m,
+            bits_r=bits_r, sentinel=True), 3, 2, 1)
+        # B3's bytes (p read and written, g read, codes read and written,
+        # absmax and the trust ratio) plus the (nb, 8) f32 health rows
+        per_elem = 12 + 2 * (bits_m + (bits_r if two else 0)) / 8
+        ops_ = (56 if two else 30) + (40 if sr else 0) + 6
+        b, by = bound_ms(n * per_elem + nb * ((16 if two else 8) + 32 +
+                                              (4 if spec.needs_norms else 0))
+                         + 2048, n * ops_)
+        out[f"fused_update/sentinel_{variant}"] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=None, off_ms=ms_off)
+        print(f"kernel fused_update sentinel {variant} ({nb}x{bsz}, bits "
+              f"{bits_m}/{bits_r if two else '-'}): health rows exact (0 "
+              f"mismatches) on clean and poisoned inputs, p/codes/absmax "
+              f"bit-identical to the sentinel-off kernel; poisoned counts "
+              f"{sums['poisoned']}; {ms:.4f} ms vs sentinel-off "
+              f"{ms_off:.4f} ms ({ms / ms_off:.3f}x; turns "
+              + ", ".join(f"{t:.4f}" for t in times) + f"), bound {b:.4f} "
+              f"ms ({by}), plain {plain:.3f} ms")
+        del st_on, st_off, cm, cr, uniforms
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ phase 4
 def train(torch, dev, cfg, name: str, steps: int, batches, label=None,
           **opt_kw) -> dict:
@@ -1169,6 +1348,211 @@ def serve_phase(torch, dev, cfg, run_launches, step_launches,
           f"8-bit {drift[8] / max(drift[4], 1e-30):.3f} x the 4-bit drift)")
 
 
+# ------------------------------------------------------------------ phase 7
+def _metric_values(events) -> dict:
+    """{(step, name): value} of a run's "metric" events."""
+    return {(e["step"], e["name"]): e["value"] for e in events
+            if e["kind"] == "metric"}
+
+
+def _phase_walls(events, phase) -> list:
+    return [e["wall_s"] for e in events
+            if e["kind"] == "phase" and e["phase"] == phase]
+
+
+def telemetry_phase(torch, dev, cfg, batches, n_quant, run_launches,
+                    step_launches, run_steps) -> None:
+    """The fifth slice's path: the train launcher with the observability
+    stack, ``repro_torch.launch.train.main`` at full-width paper-lm-209m
+    (its own overrides: f32 compute), adamw8, TEL_STEPS steps, qhealth
+    probes every TEL_EVERY steps, the flight recorder; with the sentinel
+    (kernel B3(e) on every quantized leaf of every step), then without it
+    (ms/step on and off), then at lr 1e18 (exit 2, a dump that restores and
+    replays the trigger step).  Then 5 sentinel steps of each other
+    SENTINEL_RUNS optimizer (the launches of their JSON rows).  Everything
+    is written under build/ and removed after."""
+    import io
+    from repro_torch import telemetry as tel
+    from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launcher
+    from repro_torch.telemetry import inspect as insp
+    from repro_torch.train import loop as L
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    base = Path(tempfile.mkdtemp(dir=ROOT / "build",
+                                 prefix="chip_smoke_telemetry_"))
+    common = ["--arch", "paper-lm-209m", "--seq-len", str(SEQ_LEN),
+              "--batch", str(BATCH), "--optimizer", "adamw8", "--steps",
+              str(TEL_STEPS), "--telemetry-every", str(TEL_EVERY),
+              "--device", "cuda"]
+
+    def launch(tag, *extra):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = launcher.main([*common, "--telemetry-dir", str(base / tag),
+                            "--flight-dir", str(base / f"{tag}_flight"),
+                            *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launch_counts(),
+                      fused_update_sentinel=fu.fused_update_cuda
+                      .sentinel_launches)
+        events, errors = tel.validate_jsonl(
+            str(base / tag / "telemetry.jsonl"))
+        require(errors == [], f"telemetry {tag}: the port's validator "
+                f"rejects its JSONL: {errors[:3]}")
+        torch.cuda.empty_cache()
+        return rc, counts, events, wall
+
+    def inspect(*argv):
+        buf = io.StringIO()
+        code = insp.main(list(argv), out=buf)
+        for line in buf.getvalue().splitlines()[:40]:
+            print(f"inspect   {line}")
+        return code
+
+    try:
+        rc, counts, events, wall = launch("sentinel_on", "--sentinel")
+        require(rc == 0, f"telemetry: the launcher exited {rc}")
+        want = TEL_STEPS * n_quant
+        require(counts["fused_update"] == want and
+                counts["fused_update_sentinel"] == want,
+                f"telemetry: fused_update launched {counts['fused_update']} "
+                f"times ({counts['fused_update_sentinel']} with the "
+                f"sentinel), expected {TEL_STEPS} steps x {n_quant} leaves "
+                f"= {want}, all through B3(e)")
+        probes = TEL_STEPS // TEL_EVERY
+        require(counts["blockwise_quant"] == probes * n_quant and
+                counts["blockwise_dequant"] == probes * n_quant,
+                f"telemetry: probe round trips launched {counts}, expected "
+                f"{probes} probes x {n_quant} leaves of B1 and B2")
+        m = _metric_values(events)
+        for i in range(TEL_STEPS):
+            for slot in fu.HEALTH_SLOTS:
+                v = m.get((i, f"train/sent_{slot}"))
+                require(v is not None, f"telemetry: no sent_{slot} at {i}")
+                if not slot.startswith("edge_hits"):
+                    require(v == 0, f"telemetry: step {i}: sent_{slot} = {v}"
+                            f" on a healthy run")
+            require(m[(i, "train/sent_edge_hits_m")] > 0,
+                    f"telemetry: step {i}: no edge hit counted")
+        q = [e for e in events if e["kind"] == "qhealth"]
+        by_step = {}
+        for e in q:
+            by_step.setdefault(e["step"], set()).add((e["segment"],
+                                                      e["slot"]))
+        want_steps = list(range(TEL_EVERY - 1, TEL_STEPS, TEL_EVERY))
+        got_q = [(k_, len(v)) for k_, v in sorted(by_step.items())]
+        require(sorted(by_step) == want_steps and
+                all(len(v) == 2 * n_quant for v in by_step.values()),
+                f"telemetry: qhealth events (step, count) {got_q}, expected "
+                f"{2 * n_quant} at steps {want_steps}")
+        code = inspect(str(base / "sentinel_on"))
+        require(code == insp.EXIT_CLEAN, f"telemetry: the inspector scores "
+                f"the healthy sentinel run {code}, not clean")
+        ms_on = m[(TEL_STEPS - 1, "train/steady_ms")]
+        compile_on = m[(TEL_STEPS - 1, "train/compile_s")]
+        probe_s = _phase_walls(events, "qhealth_probe")
+        snap_s = _phase_walls(events, "flight_snapshot")
+        edge = [m[(i, "train/sent_edge_hits_m")] for i in range(TEL_STEPS)]
+        rms = [e["rms_error"] for e in q if "rms_error" in e]
+        sat = [e["edge_code_fraction"] for e in q]
+        run_launches["telemetry_adamw8"] = step_launches[
+            "telemetry_adamw8"] = counts
+        run_steps["telemetry_adamw8"] = TEL_STEPS
+        print(f"telemetry adamw8 --sentinel: exit 0, {len(events)} events "
+              f"(valid), launches {counts}; sent_* nonfinite/overflow 0 on "
+              f"every step, sent_edge_hits_m {edge}; {len(q)} qhealth "
+              f"events at steps {want_steps}, edge_code_fraction "
+              f"{min(sat):.2e}..{max(sat):.2e}, rms_error "
+              f"{min(rms):.4f}..{max(rms):.4f}; inspector: clean; "
+              f"{ms_on:.1f} ms/step (steps 1..{TEL_STEPS - 1}), first step "
+              f"{compile_on:.2f} s; qhealth probe "
+              + ", ".join(f"{t:.3f}" for t in probe_s) + " s; flight "
+              f"snapshot {statistics.median(snap_s):.3f} s (median of "
+              f"{len(snap_s)}); run {wall:.1f} s")
+
+        rc, counts_off, events_off, wall_off = launch("sentinel_off")
+        require(rc == 0, f"telemetry (sentinel off): exited {rc}")
+        require(counts_off["fused_update"] == want and
+                counts_off["fused_update_sentinel"] == 0,
+                f"telemetry (sentinel off): launches {counts_off}")
+        m_off = _metric_values(events_off)
+        ms_off = m_off[(TEL_STEPS - 1, "train/steady_ms")]
+        print(f"telemetry adamw8 without --sentinel: exit 0, "
+              f"{ms_off:.1f} ms/step; sentinel on/off {ms_on:.1f} / "
+              f"{ms_off:.1f} ms/step = {ms_on / ms_off:.3f}x; run "
+              f"{wall_off:.1f} s")
+
+        rc, counts_d, events_d, _ = launch("diverge", "--sentinel", "--lr",
+                                           "1e18")
+        require(rc == 2, f"telemetry (lr 1e18): exited {rc}, expected 2")
+        dump = base / "diverge_flight"
+        manifest = tel.load_dump(str(dump))
+        k = manifest["trigger_step"]
+        require(manifest["snapshot_step"] == k - 1,
+                f"telemetry (lr 1e18): snapshot step "
+                f"{manifest['snapshot_step']}, trigger step {k}")
+        dump_bytes = sum(f.stat().st_size for f in dump.rglob("*")
+                         if f.is_file())
+        args = launcher.build_parser().parse_args(
+            [*common, "--sentinel", "--lr", "1e18"])
+        cfg_d, pipe, opt, hyper = launcher.setup(args, dev)
+        state, model = L.init_train_state(
+            cfg_d, opt, torch.Generator(device=dev).manual_seed(SEED + 11),
+            device=dev)
+        t0 = time.perf_counter()
+        snap, state = tel.restore_state(str(dump), state)
+        restore_s = time.perf_counter() - t0
+        require(snap == k - 1, f"telemetry (lr 1e18): restored step {snap}")
+        _, mr = L.make_train_step(cfg_d, model, opt, hyper)(
+            state, pipe.batch_at(k))
+        replay = float(mr["loss"])
+        recorded = [r for r in manifest["ring"] if r["step"] == k][0]["loss"]
+        require(replay == recorded or not (math.isfinite(replay) or
+                                           math.isfinite(recorded)),
+                f"telemetry (lr 1e18): replayed loss {replay}, recorded "
+                f"{recorded}")
+        code = inspect("--flight", str(dump))
+        require(code == insp.EXIT_ANOMALIES, f"telemetry (lr 1e18): the "
+                f"inspector scores the dump {code}, not 1")
+        reasons = sorted({a["reason"] for a in manifest["anomalies"]})
+        print(f"telemetry adamw8 --lr 1e18: exit 2 at step {k} ({reasons}),"
+              f" dump of the step-{k - 1} state {dump_bytes / 1e9:.3f} GB, "
+              f"restored into a fresh state in {restore_s:.1f} s; replayed "
+              f"step {k}: loss {replay} (recorded {recorded}); inspector "
+              f"--flight: 1")
+        del state, model, opt, mr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+    for variant, (name, kw) in SENTINEL_RUNS.items():
+        ops.reset_launch_counts()
+        run = train(torch, dev, cfg, name, FAMILY_STEPS, batches,
+                    label=f"{variant} --sentinel", sentinel=True, **kw)
+        torch.cuda.synchronize()
+        counts = dict(ops.launch_counts(), fused_update_sentinel=fu
+                      .fused_update_cuda.sentinel_launches)
+        want = FAMILY_STEPS * n_quant
+        require(counts["fused_update_sentinel"] == want,
+                f"{variant} --sentinel: launches {counts}, expected {want} "
+                f"through B3(e)")
+        health = {k_: float(v) for k_, v in run["metrics"].items()
+                  if k_.startswith("sent_")}
+        require(all(v == 0 for k_, v in health.items()
+                    if "edge_hits" not in k_),
+                f"{variant} --sentinel: health {health} on a healthy run")
+        label = f"sentinel_{variant}"
+        run_launches[label] = step_launches[label] = counts
+        run_steps[label] = FAMILY_STEPS
+        print(f"train {variant} --sentinel: launches {counts}; last step's "
+              f"health {health}")
+        del run
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1199,9 +1583,19 @@ def main() -> int:
           f"into {build.build_dir().relative_to(ROOT)}")
     for name in build.SOURCES:
         log = (build.build_dir() / f"{name}.log")
+        entry, spill = "?", ""
         for line in log.read_text().splitlines() if log.exists() else ():
-            if "registers" in line:
-                print(f"build: {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            elif "spill" in line:
+                spill = line.split(":", 1)[-1].strip()
+            elif "registers" in line:
+                # kernel<template arguments> from the mangled name
+                hit = re.search(r"\d([a-z_]+_kernel)I(.+?)EEv", entry)
+                short = (f"{hit.group(1)}<" + ",".join(re.findall(
+                    r"L[ib](\d+)E", hit.group(2))) + ">") if hit else entry
+                print(f"build: {name}: {short}: "
+                      f"{line.split(':', 1)[-1].strip()}; {spill}")
 
     # ---- 3. kernels vs plain versions
     kernels = check_kernels(torch, dev)
@@ -1209,6 +1603,8 @@ def main() -> int:
     kernels.update(check_slice3_kernels(torch, dev))
     torch.cuda.empty_cache()
     kernels.update(check_gather_kernel(torch, dev))
+    torch.cuda.empty_cache()
+    kernels.update(check_sentinel_kernels(torch, dev))
     torch.cuda.empty_cache()
 
     # ---- 4. train
@@ -1349,7 +1745,11 @@ def main() -> int:
     # ---- 6. serve
     serve_phase(torch, dev, cfg, run_launches, step_launches, run_steps)
 
-    # ---- 7. summary
+    # ---- 7. telemetry: the train launcher with the sentinel (B3(e))
+    telemetry_phase(torch, dev, cfg, batches, n_quant, run_launches,
+                    step_launches, run_steps)
+
+    # ---- 8. summary
     rows = []
     meta = [(name, source, replaces, counter,
              {"lars": "lars8", "lamb": "lamb8"}.get(
@@ -1359,6 +1759,9 @@ def main() -> int:
     meta += [(name, *m) for name, m in SLICE3_META.items()]
     meta += [(f"paged_gather/{b}bit", *GATHER, "paged_gather",
               f"serve_kv{b}") for b in (8, 4)]
+    meta += [(f"fused_update/sentinel_{v}", *FUSED, "fused_update_sentinel",
+              "telemetry_adamw8" if v == "adamw8" else f"sentinel_{v}")
+             for v in SENTINEL_VARIANTS]
     for name, source, replaces, counter, run in meta:
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -1371,6 +1774,8 @@ def main() -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k.get("library_ms")})
+        if "off_ms" in k:                 # B3(e): the sentinel-off kernel
+            rows[-1]["sentinel_off_ms"] = k["off_ms"]
         require(rows[-1]["launches"] > 0, f"{name}: no launch in the {run} "
                 f"run")
     print(f"total {time.perf_counter() - t_start:.1f} s")

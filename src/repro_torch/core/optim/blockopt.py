@@ -46,10 +46,16 @@ through three hooks, as in the JAX package: ``_leaf_class`` ("ew" or
 algorithm the other leaves run, "adamw" for muon).  The base engine is
 element-wise only and rejects matrix-class algorithms.
 
+The numerics sentinel (``sentinel=True``): every per-leaf update also
+returns its leaf's summed health vector ((N_HEALTH,) f32,
+``kernels/fused_update.HEALTH_SLOTS``) — from the fused update's own counts
+for quantized leaves, the nonfinite raw-grad and new-parameter counts alone
+for 32-bit leaves — and ``apply`` returns ``(params, state, health)`` with
+their sum.  Params and state are bit-identical either way.
+
 Not ported yet, and rejected with :class:`ConfigError` naming the ROADMAP
 item: the pooled single dispatch (``pooled=True`` with quantized leaves,
-A9 — ``make_optimizer`` defaults to ``pooled=False``), the sentinel (A11)
-and bf16 masters.
+A9 — ``make_optimizer`` defaults to ``pooled=False``) and bf16 masters.
 """
 from __future__ import annotations
 
@@ -88,9 +94,6 @@ def _check_ported(cfg: OptimConfig) -> None:
         raise ConfigError("pooled=True (the pooled single dispatch) is not "
                           "ported yet (ROADMAP A9); pass pooled=False — "
                           "per-leaf and pooled updates are bit-identical")
-    if cfg.sentinel:
-        raise ConfigError("the numerics sentinel is not ported yet "
-                          "(ROADMAP A11)")
     if cfg.master_dtype != "float32":
         raise ConfigError(f"master_dtype={cfg.master_dtype!r}: the port keeps"
                           f" f32 masters")
@@ -244,7 +247,9 @@ class Block8bitOptimizer:
 
     # ---------------------------------------------------------------- update
     def _apply_quant8(self, leaf: Quant8Leaf, g: torch.Tensor, lr, step_f,
-                      seed: int, gnorm_scale) -> None:
+                      seed: int, gnorm_scale) -> Optional[torch.Tensor]:
+        """Update one quantized leaf in place; returns its summed health
+        vector under ``cfg.sentinel`` (else None)."""
         cfg = self.cfg
         gb = flatten_to_blocks(g, cfg.block_size, cfg.shard_multiple)
         mb = flatten_to_blocks(leaf.master, cfg.block_size, cfg.shard_multiple)
@@ -254,7 +259,8 @@ class Block8bitOptimizer:
             beta2=cfg.beta2, eps=cfg.eps, weight_decay=cfg.weight_decay,
             step=step_f, trust_coeff=cfg.trust_coeff,
             gnorm_scale=gnorm_scale, blockwise=cfg.blockwise_norm,
-            stochastic=cfg.stochastic_rounding, seed=seed, impl=self._impl)
+            stochastic=cfg.stochastic_rounding, seed=seed, impl=self._impl,
+            sentinel=cfg.sentinel)
         # mb is a view of the master unless padding forced a copy; the
         # "cuda" backend writes its result into mb.
         if not (res.p is mb and mb.data_ptr() == leaf.master.data_ptr()):
@@ -262,21 +268,32 @@ class Block8bitOptimizer:
                                               torch.float32))
         leaf.codes_m, leaf.absmax_m = res.codes_m, res.absmax_m
         leaf.codes_r, leaf.absmax_r = res.codes_r, res.absmax_r
+        return res.health.sum(dim=0) if cfg.sentinel else None
 
     def _apply_full32(self, leaf: Full32Leaf, g: torch.Tensor, lr, step_f,
-                      gnorm_scale) -> None:
-        g = g.to(torch.float32) * gnorm_scale
+                      gnorm_scale) -> Optional[torch.Tensor]:
+        """Update one 32-bit leaf in place; under ``cfg.sentinel`` returns
+        a health vector with only its nonfinite grad and update slots set
+        (a 32-bit leaf has no codes or absmax), the grad counted raw,
+        before gnorm_scale (inf * 0 would hide a nonfinite element)."""
+        graw = g.to(torch.float32)
+        g = graw * gnorm_scale
         m2, r2, p2 = self._math32(g, leaf.master, leaf.m, leaf.r, lr, step_f)
         leaf.master.copy_(p2)
         leaf.m.copy_(m2)
         if leaf.r is not None:
             leaf.r.copy_(r2)
+        if not self.cfg.sentinel:
+            return None
+        return _nonfinite_health(graw, p2)
 
     @torch.no_grad()
     def apply(self, grads: Mapping[str, torch.Tensor], state: OptState, *,
-              lr=None) -> tuple[dict, OptState]:
+              lr=None) -> tuple:
         """One optimizer step, in place.  Returns (params view, new state);
-        the new state holds the same (updated) leaf objects.
+        the new state holds the same (updated) leaf objects.  Under
+        ``cfg.sentinel`` returns (params view, new state, health): the
+        (N_HEALTH,) f32 sum of every leaf's health vector.
 
         ``grads``: path string -> gradient of the parameter's shape.
         ``lr`` overrides cfg.lr (schedules): a float or a 0-d tensor."""
@@ -293,16 +310,21 @@ class Block8bitOptimizer:
         step_f = torch.tensor(float(state.step + 1), dtype=torch.float32)
         gnorm_scale, new_vec = self.percentile_clip(grads, state)
         base_seed = kfu.to_i32(state.step * 1000003)
+        health_parts = []
         for i, path in enumerate(leaf_order(state.leaves)):
             leaf, g = state.leaves[path], grads[path]
             if isinstance(leaf, Quant8Leaf):
                 seed = kfu.to_i32(base_seed + i * 7919)
-                self._apply_quant8(leaf, g, lr_host, step_f, seed,
-                                   gnorm_scale)
+                h8 = self._apply_quant8(leaf, g, lr_host, step_f, seed,
+                                        gnorm_scale)
             else:
-                self._apply_full32(leaf, g, lr_dev, step_f, gnorm_scale)
+                h8 = self._apply_full32(leaf, g, lr_dev, step_f, gnorm_scale)
+            health_parts.append(h8)
         new_state = OptState(step=state.step + 1, leaves=state.leaves,
                              gnorm_vec=new_vec)
+        if cfg.sentinel:
+            return (self.params_view(new_state), new_state,
+                    _sum_health(health_parts, self.device))
         return self.params_view(new_state), new_state
 
     def params_view(self, state: OptState,
@@ -332,3 +354,22 @@ class Block8bitOptimizer:
             master += leaf.master.numel() * leaf.master.element_size()
         return {"state_bytes": int(stats), "master_bytes": int(master),
                 "n_params": int(n_params)}
+
+
+def _nonfinite_health(graw: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """(N_HEALTH,) f32 with the nonfinite counts of ``graw`` and ``p2`` in
+    the grad and update slots, zero elsewhere."""
+    nf = lambda x: (~torch.isfinite(x)).sum().to(torch.float32)
+    h8 = torch.zeros(kfu.N_HEALTH, dtype=torch.float32, device=p2.device)
+    h8[0] = nf(graw)
+    h8[1] = nf(p2)
+    return h8
+
+
+def _sum_health(parts, device) -> torch.Tensor:
+    """Sum per-leaf (N_HEALTH,) health vectors.  Counts are integer-valued
+    f32, so the sum is exact in any order."""
+    total = torch.zeros(kfu.N_HEALTH, dtype=torch.float32, device=device)
+    for h in parts:
+        total = total + h
+    return total

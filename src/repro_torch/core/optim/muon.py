@@ -83,24 +83,27 @@ class MuonOptimizer(Block8bitOptimizer):
 
     # ------------------------------------------------------------- updates
     def _apply_quant8(self, leaf: Quant8Leaf, g: torch.Tensor, lr, step_f,
-                      seed: int, gnorm_scale) -> None:
+                      seed: int, gnorm_scale):
         if leaf.codes_r is None and len(leaf.shape) == 2:
             return self._apply_muon_leaf(leaf, g, lr, seed, gnorm_scale)
         return super()._apply_quant8(leaf, g, lr, step_f, seed, gnorm_scale)
 
     def _apply_muon_leaf(self, leaf: Quant8Leaf, g: torch.Tensor, lr,
-                         seed: int, gnorm_scale) -> None:
+                         seed: int, gnorm_scale):
         """One Muon step for a quantized matrix leaf: p and g stay in the
-        param's (matrix) shape, the momentum in the flat block domain."""
+        param's (matrix) shape, the momentum in the flat block domain.
+        Under ``cfg.sentinel`` returns the leaf's summed health vector, as
+        every per-leaf update does (else None)."""
         cfg = self.cfg
         res = kops.fused_update(
             "muon", leaf.master, g, leaf.codes_m, leaf.absmax_m,
             qmap_m=self._qmap1, lr=lr, beta1=cfg.beta1,
             weight_decay=cfg.weight_decay, gnorm_scale=gnorm_scale,
             stochastic=cfg.stochastic_rounding, seed=seed,
-            ns_steps=cfg.ns_steps, impl=self._impl)
+            ns_steps=cfg.ns_steps, impl=self._impl, sentinel=cfg.sentinel)
         leaf.master.copy_(res.p)
         leaf.codes_m, leaf.absmax_m = res.codes_m, res.absmax_m
+        return res.health.sum(dim=0) if cfg.sentinel else None
 
     def _math32(self, g, p, m, r, lr, step_f):
         """f32 Muon math for one-state 2-D leaves (the same ``muon_math``

@@ -119,11 +119,14 @@ def block_requantize(x: torch.Tensor, bounds_row: torch.Tensor,
     With ``random_u`` (uniforms in [0, 1) of x's shape) the encode is
     stochastic: the nearest code moves to its neighbour on the far side of
     x with probability proportional to proximity (paper App H), never past
-    ``max_code``; ``qmap_row`` gives the levels."""
+    ``max_code``; ``qmap_row`` gives the levels.  Codes are capped at
+    ``max_code``: x / scale is +inf only in a row that also holds a NaN
+    (absmax NaN, scale 1), and the +inf midpoint padding would send it past
+    the codebook (the JAX package's searchsorted oracle gives max_code)."""
     absmax = x.abs().amax(dim=-1, keepdim=True)
     scale = torch.where(absmax > 0, absmax, torch.ones_like(absmax))
     x_norm = x / scale
-    codes = encode(x_norm, bounds_row)
+    codes = encode(x_norm, bounds_row).clamp(max=max_code)
     if random_u is not None:
         q_near = decode(codes, qmap_row)
         direction = torch.where(x_norm > q_near, 1, -1)

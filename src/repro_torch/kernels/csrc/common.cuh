@@ -181,14 +181,18 @@ __device__ __forceinline__ float hash_uniform(uint32_t idx, uint32_t seed) {
 // The code of one value of a block being requantized: nearest code of
 // x / scale; with a uniform u, moved to the neighbour on the far side of
 // x / scale with probability |x - q_near| / |q_other - q_near| (never past
-// max_code).  NaN gets code 0 and stays there.
+// max_code).  NaN gets code 0 and stays there.  x / scale is +inf only
+// when the block also holds a NaN (absmax NaN, scale 1): encode counts
+// every +inf midpoint padding it, so the code is capped at max_code, the
+// code the JAX package's searchsorted oracle gives.
 __device__ __forceinline__ uint32_t requant_code(float x, float scale,
                                                  const float* lut,
                                                  const float* bounds,
                                                  bool stochastic, float u,
                                                  uint32_t max_code) {
   const float xn = __fdiv_rn(x, scale);
-  const uint32_t code = encode(xn, bounds);
+  uint32_t code = encode(xn, bounds);
+  code = code > max_code ? max_code : code;
   if (!stochastic) return code;
   const float q_near = lut[code];
   int other = static_cast<int>(code) + (xn > q_near ? 1 : -1);
@@ -198,6 +202,42 @@ __device__ __forceinline__ uint32_t requant_code(float x, float scale,
   const float p_other =
       span > 0.f ? __fdiv_rn(fabsf(__fsub_rn(xn, q_near)), span) : 0.f;
   return u < p_other ? static_cast<uint32_t>(other) : code;
+}
+
+// |x| <= FLT_MAX: false for NaN and +-inf (no isfinite needed).
+__device__ __forceinline__ bool is_finite(float x) {
+  return fabsf(x) <= 3.40282347e38f;
+}
+
+// Sum over the CTA of two words of integer counts at once: each warp adds
+// by the xor-shuffle tree, lane 0 stores the warp's sums in shared memory,
+// and warp 0 adds the warp sums by the same tree.  Integer adds, so the
+// totals are exact in any order; a word may pack two 16-bit counts as long
+// as each total stays below 2^16.  Only thread 0 holds the totals on
+// return.  red holds 2 x 32 ints.  Contains a barrier: every thread of the
+// CTA must call it.
+__device__ __forceinline__ void block_sum2(int (&v)[2], int* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+    v[1] += __shfl_xor_sync(0xffffffffu, v[1], o);
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) {
+    red[warp] = v[0];
+    red[32 + warp] = v[1];
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int nwarps = blockDim.x >> 5;
+    v[0] = lane < nwarps ? red[lane] : 0;
+    v[1] = lane < nwarps ? red[32 + lane] : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], o);
+      v[1] += __shfl_xor_sync(0xffffffffu, v[1], o);
+    }
+  }
 }
 
 __device__ __forceinline__ float absmax4(float m, float4 v) {

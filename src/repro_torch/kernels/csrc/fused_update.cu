@@ -2,13 +2,13 @@
 // registers, write the parameter, requantize the state(s) per block.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_update.py::
-// _make_update_kernel (pallas_call in fused_update_pallas) with no
-// sentinel output, for the six element-wise algorithms: adam and adamw
-// (one update), lamb, momentum, lars and adagrad, with deterministic or
-// stochastic rounding.  Two kernels: fused_update_kernel for 8-bit states
-// (bits_m = bits_r = 8, the main path) and fused_update_packed_kernel for
-// bit-packed 4/5/6-bit states (either slot may also be 8), whose widths are
-// runtime arguments.  The sentinel output is a later slice (ROADMAP B3(e)).
+// _make_update_kernel (pallas_call in fused_update_pallas), for the six
+// element-wise algorithms: adam and adamw (one update), lamb, momentum,
+// lars and adagrad, with deterministic or stochastic rounding, with or
+// without the numerics sentinel's output.  Two kernels: fused_update_kernel
+// for 8-bit states (bits_m = bits_r = 8, the main path) and
+// fused_update_packed_kernel for bit-packed 4/5/6-bit states (either slot
+// may also be 8), whose widths are runtime arguments.
 //
 // Bound on an H100: memory.  Per element it reads p and g (f32) and one
 // code per state, and writes p and the codes: 14 B/element for the
@@ -37,6 +37,23 @@
 // the reference's for equal inputs.  block_seeds / block_offsets may be
 // null: then every block uses `seed` and its own row index.
 //
+// The sentinel (ROADMAP B3(e), template flag SENT; the reference's
+// sentinel=True, fused_update.py:308-380): each block also writes its 8
+// health counts, fused_update.py::HEALTH_SLOTS order — nonfinite raw
+// gradient elements (as loaded, before gnorm_scale: inf * 0 would hide
+// one), nonfinite new parameters, nonfinite new absmax per state, new codes
+// at a codebook edge (0 or 2^bits - 1, before packing) per state, and new
+// absmax past ABSMAX_OVERFLOW_THRESHOLD (1e30) per state — counted on
+// values the thread already holds in registers or shared memory, in the
+// same single pass.  Each thread keeps four integer counters packed two to
+// a word (16 bits each: a block holds at most 8192 elements); after the
+// encode loop one CTA reduction of the two words (rq::block_sum2) sums them
+// exactly, and thread 0 adds the absmax slots and stores the block's row:
+// the only extra traffic is the (n_blocks, 8) f32 store, 32 B per block
+// (0.2% of the 8-bit update's bytes at B = 2048).  SENT = false compiles
+// to the kernel without it.  The plain version is
+// fused_update.py::health_rows.
+//
 // In place: p, the code arrays and the absmax vectors are overwritten.
 // Each thread reads its own elements before it writes them, and every
 // thread reads a block's old absmax before the barrier inside the
@@ -48,19 +65,41 @@
 
 namespace {
 
-template <int ALGO, int VPT, bool STOCH>
+// Sentinel counts of a thread, two 16-bit counts to a word:
+// n[0] = nonfinite g | nonfinite new p << 16, n[1] = edge m | edge r << 16.
+constexpr int kHigh = 1 << 16;
+
+// Thread 0's store of a block's health row (HEALTH_SLOTS order): the
+// CTA-summed counts n and the absmax slots of the new absmax mx.x (m) and
+// mx.y (r; two-state only).
+template <bool TWO>
+__device__ __forceinline__ void store_health(float* health, size_t row,
+                                             const int (&n)[2], float2 mx) {
+  const float nf_m = rq::is_finite(mx.x) ? 0.f : 1.f;
+  const float nf_r = TWO && !rq::is_finite(mx.y) ? 1.f : 0.f;
+  const float ov_m = rq::is_finite(mx.x) && mx.x > 1e30f ? 1.f : 0.f;
+  const float ov_r = TWO && rq::is_finite(mx.y) && mx.y > 1e30f ? 1.f : 0.f;
+  float4* h = reinterpret_cast<float4*>(health + row * 8);
+  h[0] = make_float4(static_cast<float>(n[0] & 0xFFFF),
+                     static_cast<float>(n[0] >> 16), nf_m, nf_r);
+  h[1] = make_float4(static_cast<float>(n[1] & 0xFFFF),
+                     static_cast<float>(n[1] >> 16), ov_m, ov_r);
+}
+
+template <int ALGO, int VPT, bool STOCH, bool SENT>
 __global__ void __launch_bounds__(rq::kThreads)
 fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
                     float* absmax_m, uint8_t* codes_r, float* absmax_r,
                     const float* qmap_m, const float* qmap_r,
                     const float* tensor_scale, const int* block_seeds,
-                    const int* block_offsets, int seed, int block_size,
-                    rq::Scalars s) {
+                    const int* block_offsets, float* health, int seed,
+                    int block_size, rq::Scalars s) {
   constexpr bool kTwo = rq::AlgoTraits<ALGO>::kTwoStates;
   __shared__ float lut_m[rq::kCodebookSize], bounds_m[rq::kCodebookSize];
   __shared__ float lut_r[kTwo ? rq::kCodebookSize : 1];
   __shared__ float bounds_r[kTwo ? rq::kCodebookSize : 1];
   __shared__ float red[66];
+  __shared__ int hred[SENT ? 64 : 1];
   rq::load_codebook(qmap_m, lut_m, bounds_m);
   if (kTwo) rq::load_codebook(qmap_r, lut_r, bounds_r);
 
@@ -77,6 +116,7 @@ fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
 
   float4 m2[VPT], r2[VPT];
   float mx_m = 0.f, mx_r = 0.f;
+  int cnt[2] = {0, 0};          // sentinel counts (see kHigh)
 #pragma unroll
   for (int k = 0; k < VPT; ++k) {
     const int i = threadIdx.x + k * rq::kThreads;
@@ -98,6 +138,9 @@ fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
         pn[c] = o.p2;
         mn[c] = o.m2;
         rn[c] = o.r2;
+        if (SENT)
+          cnt[0] += (rq::is_finite(ge[c]) ? 0 : 1) +
+                    (rq::is_finite(o.p2) ? 0 : kHigh);
       }
       pr[i] = make_float4(pn[0], pn[1], pn[2], pn[3]);
       m2[k] = make_float4(mn[0], mn[1], mn[2], mn[3]);
@@ -128,19 +171,23 @@ fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
         const float u1 = STOCH ? rq::hash_uniform(idx, bseed + rq::kState1Salt) : 0.f;
         om[c] = static_cast<uint8_t>(
             rq::requant_code(xm[c], scale_m, lut_m, bounds_m, STOCH, u1, 255u));
+        if (SENT) cnt[1] += om[c] == 0 || om[c] == 255 ? 1 : 0;
         if (kTwo) {
           const float u2 = STOCH ? rq::hash_uniform(idx, bseed + rq::kState2Salt) : 0.f;
           orr[c] = static_cast<uint8_t>(
               rq::requant_code(xr[c], scale_r, lut_r, bounds_r, STOCH, u2, 255u));
+          if (SENT) cnt[1] += orr[c] == 0 || orr[c] == 255 ? kHigh : 0;
         }
       }
       cmr[i] = make_uchar4(om[0], om[1], om[2], om[3]);
       if (kTwo) crr[i] = make_uchar4(orr[0], orr[1], orr[2], orr[3]);
     }
   }
+  if (SENT) rq::block_sum2(cnt, hred);
   if (threadIdx.x == 0) {
     absmax_m[row] = mx.x;
     if (kTwo) absmax_r[row] = mx.y;
+    if (SENT) store_health<kTwo>(health, row, cnt, mx);
   }
 }
 
@@ -164,21 +211,22 @@ fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
 // output bytes, each from the codes that overlap it (rq::pack_byte).
 // Shared memory per CTA, dynamic: per state 5 B per element plus the
 // staged row — 23.5 KB for two states at B = 2048.
-template <int ALGO, bool STOCH>
+template <int ALGO, bool STOCH, bool SENT>
 __global__ void __launch_bounds__(rq::kThreads)
 fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
                            float* absmax_m, uint8_t* codes_r,
                            float* absmax_r, const float* qmap_m,
                            const float* qmap_r, const float* tensor_scale,
                            const int* block_seeds, const int* block_offsets,
-                           int seed, int block_size, int bits_m, int bits_r,
-                           rq::Scalars s) {
+                           float* health, int seed, int block_size,
+                           int bits_m, int bits_r, rq::Scalars s) {
   constexpr bool kTwo = rq::AlgoTraits<ALGO>::kTwoStates;
   constexpr int kStates = kTwo ? 2 : 1;
   __shared__ float lut_m[rq::kCodebookSize], bounds_m[rq::kCodebookSize];
   __shared__ float lut_r[kTwo ? rq::kCodebookSize : 1];
   __shared__ float bounds_r[kTwo ? rq::kCodebookSize : 1];
   __shared__ float red[66];
+  __shared__ int hred[SENT ? 64 : 1];
   RQ_DYNAMIC_SHARED(float4, dyn);
 
   const size_t row = blockIdx.x;
@@ -211,6 +259,7 @@ fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
   const float ts = rq::AlgoTraits<ALGO>::kNeedsNorms ? tensor_scale[row] : 1.f;
 
   float mx_m = 0.f, mx_r = 0.f;
+  int cnt[2] = {0, 0};          // sentinel counts (see kHigh)
   for (int i = threadIdx.x; i < nvec; i += rq::kThreads) {
     const float4 pv = pr[i], gv = gr[i];
     const float pe[4] = {pv.x, pv.y, pv.z, pv.w};
@@ -230,6 +279,9 @@ fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
       pn[c] = o.p2;
       mn[c] = o.m2;
       rn[c] = o.r2;
+      if (SENT)
+        cnt[0] += (rq::is_finite(ge[c]) ? 0 : 1) +
+                  (rq::is_finite(o.p2) ? 0 : kHigh);
     }
     pr[i] = make_float4(pn[0], pn[1], pn[2], pn[3]);
     const float4 vm = make_float4(mn[0], mn[1], mn[2], mn[3]);
@@ -259,16 +311,21 @@ fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
       const uint32_t idx = boff * static_cast<uint32_t>(block_size) +
                            static_cast<uint32_t>(4 * i + c);
       const float u1 = STOCH ? rq::hash_uniform(idx, bseed + rq::kState1Salt) : 0.f;
-      new_m[4 * i + c] = static_cast<uint8_t>(rq::requant_code(
-          xm[c], scale_m, lut_m, bounds_m, STOCH, u1, max_m));
+      const uint32_t cm = rq::requant_code(xm[c], scale_m, lut_m, bounds_m,
+                                           STOCH, u1, max_m);
+      new_m[4 * i + c] = static_cast<uint8_t>(cm);
+      if (SENT) cnt[1] += cm == 0 || cm == max_m ? 1 : 0;
       if (kTwo) {
         const float u2 = STOCH ? rq::hash_uniform(idx, bseed + rq::kState2Salt) : 0.f;
-        new_r[4 * i + c] = static_cast<uint8_t>(rq::requant_code(
-            xr[c], scale_r, lut_r, bounds_r, STOCH, u2, max_r));
+        const uint32_t cr = rq::requant_code(xr[c], scale_r, lut_r, bounds_r,
+                                             STOCH, u2, max_r);
+        new_r[4 * i + c] = static_cast<uint8_t>(cr);
+        if (SENT) cnt[1] += cr == 0 || cr == max_r ? kHigh : 0;
       }
     }
   }
-  __syncthreads();
+  if (SENT) rq::block_sum2(cnt, hred);   // its barrier publishes new_m/r
+  else __syncthreads();
   uint8_t* dst_m = codes_m + row * wm;
   for (int k = threadIdx.x; k < wm; k += rq::kThreads)
     dst_m[k] = rq::pack_byte(new_m, k, bits_m);
@@ -280,6 +337,7 @@ fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
   if (threadIdx.x == 0) {
     absmax_m[row] = mx.x;
     if (kTwo) absmax_r[row] = mx.y;
+    if (SENT) store_health<kTwo>(health, row, cnt, mx);
   }
 }
 
@@ -295,35 +353,40 @@ struct Args {
   const float* tensor_scale;
   const int* block_seeds;
   const int* block_offsets;
+  float* health;  // (n_blocks, 8) sentinel output, or null
   int seed, n_blocks, block_size, bits_m, bits_r;
   rq::Scalars s;
 };
 
-template <int ALGO, int VPT, bool STOCH>
+template <int ALGO, int VPT, bool STOCH, bool SENT>
 int launch(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.n_blocks), block(rq::kThreads);
-  fused_update_kernel<ALGO, VPT, STOCH><<<grid, block, 0, stream>>>(
+  fused_update_kernel<ALGO, VPT, STOCH, SENT><<<grid, block, 0, stream>>>(
       a.p, a.g, a.codes_m, a.absmax_m, a.codes_r, a.absmax_r, a.qmap_m,
-      a.qmap_r, a.tensor_scale, a.block_seeds, a.block_offsets, a.seed,
-      a.block_size, a.s);
+      a.qmap_r, a.tensor_scale, a.block_seeds, a.block_offsets, a.health,
+      a.seed, a.block_size, a.s);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int ALGO, bool STOCH>
+template <int ALGO, bool STOCH, bool SENT>
 int launch_vpt(const Args& a, cudaStream_t stream) {
   switch (rq_vectors_per_thread(a.block_size)) {
-    case 1: return launch<ALGO, 1, STOCH>(a, stream);
-    case 2: return launch<ALGO, 2, STOCH>(a, stream);
-    case 4: return launch<ALGO, 4, STOCH>(a, stream);
-    case 8: return launch<ALGO, 8, STOCH>(a, stream);
+    case 1: return launch<ALGO, 1, STOCH, SENT>(a, stream);
+    case 2: return launch<ALGO, 2, STOCH, SENT>(a, stream);
+    case 4: return launch<ALGO, 4, STOCH, SENT>(a, stream);
+    case 8: return launch<ALGO, 8, STOCH, SENT>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <int ALGO>
 int launch_algo(const Args& a, bool stochastic, cudaStream_t stream) {
-  return stochastic ? launch_vpt<ALGO, true>(a, stream)
-                    : launch_vpt<ALGO, false>(a, stream);
+  const bool sent = a.health != nullptr;
+  if (stochastic)
+    return sent ? launch_vpt<ALGO, true, true>(a, stream)
+                : launch_vpt<ALGO, true, false>(a, stream);
+  return sent ? launch_vpt<ALGO, false, true>(a, stream)
+              : launch_vpt<ALGO, false, false>(a, stream);
 }
 
 // Dynamic shared memory of fused_update_packed_kernel (see its layout).
@@ -334,31 +397,81 @@ size_t packed_smem_bytes(const Args& a, bool two) {
   return (states * a.block_size * 5 + rows + 15) / 16 * 16;
 }
 
-template <int ALGO, bool STOCH>
+template <int ALGO, bool STOCH, bool SENT>
 int launch_packed(const Args& a, cudaStream_t stream) {
   const size_t smem =
       packed_smem_bytes(a, rq::AlgoTraits<ALGO>::kTwoStates);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_update_packed_kernel<ALGO, STOCH>,
+        fused_update_packed_kernel<ALGO, STOCH, SENT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(a.n_blocks), block(rq::kThreads);
-  fused_update_packed_kernel<ALGO, STOCH><<<grid, block, smem, stream>>>(
+  fused_update_packed_kernel<ALGO, STOCH, SENT><<<grid, block, smem, stream>>>(
       a.p, a.g, a.codes_m, a.absmax_m, a.codes_r, a.absmax_r, a.qmap_m,
-      a.qmap_r, a.tensor_scale, a.block_seeds, a.block_offsets, a.seed,
-      a.block_size, a.bits_m, a.bits_r, a.s);
+      a.qmap_r, a.tensor_scale, a.block_seeds, a.block_offsets, a.health,
+      a.seed, a.block_size, a.bits_m, a.bits_r, a.s);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int ALGO>
 int launch_packed_algo(const Args& a, bool stochastic, cudaStream_t stream) {
-  return stochastic ? launch_packed<ALGO, true>(a, stream)
-                    : launch_packed<ALGO, false>(a, stream);
+  const bool sent = a.health != nullptr;
+  if (stochastic)
+    return sent ? launch_packed<ALGO, true, true>(a, stream)
+                : launch_packed<ALGO, true, false>(a, stream);
+  return sent ? launch_packed<ALGO, false, true>(a, stream)
+              : launch_packed<ALGO, false, false>(a, stream);
 }
 
 bool valid_bits(int b) { return b == 4 || b == 5 || b == 6 || b == 8; }
+
+int run(int algo, const Args& a, int stochastic, cudaStream_t stream) {
+  if (a.n_blocks == 0) return 0;
+  const bool two = algo == rq::kAdam || algo == rq::kLamb;
+  const bool norms = algo == rq::kLamb || algo == rq::kLars;
+  if ((two && (!a.codes_r || !a.absmax_r || !a.qmap_r)) ||
+      (norms && !a.tensor_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool sr = stochastic != 0;
+  switch (algo) {
+    case rq::kAdam: return launch_algo<rq::kAdam>(a, sr, stream);
+    case rq::kLamb: return launch_algo<rq::kLamb>(a, sr, stream);
+    case rq::kMomentum: return launch_algo<rq::kMomentum>(a, sr, stream);
+    case rq::kLars: return launch_algo<rq::kLars>(a, sr, stream);
+    case rq::kAdagrad: return launch_algo<rq::kAdagrad>(a, sr, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int run_packed(int algo, const Args& a, int stochastic, cudaStream_t stream) {
+  if (a.n_blocks == 0) return 0;
+  const bool two = algo == rq::kAdam || algo == rq::kLamb;
+  const bool norms = algo == rq::kLamb || algo == rq::kLars;
+  if ((two && (!a.codes_r || !a.absmax_r || !a.qmap_r ||
+               !valid_bits(a.bits_r))) ||
+      (norms && !a.tensor_scale) || !valid_bits(a.bits_m) ||
+      a.block_size % 8 || a.block_size <= 0 || a.block_size > rq::kMaxBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool sr = stochastic != 0;
+  switch (algo) {
+    case rq::kAdam: return launch_packed_algo<rq::kAdam>(a, sr, stream);
+    case rq::kLamb: return launch_packed_algo<rq::kLamb>(a, sr, stream);
+    case rq::kMomentum: return launch_packed_algo<rq::kMomentum>(a, sr, stream);
+    case rq::kLars: return launch_packed_algo<rq::kLars>(a, sr, stream);
+    case rq::kAdagrad: return launch_packed_algo<rq::kAdagrad>(a, sr, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+rq::Scalars scalars(float lr, float beta1, float one_minus_beta1,
+                    float beta2, float one_minus_beta2, float eps,
+                    float weight_decay, float c1, float c2,
+                    float gnorm_scale) {
+  return rq::Scalars{lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
+                     eps, weight_decay, c1, c2, gnorm_scale};
+}
 
 }  // namespace
 
@@ -373,26 +486,32 @@ extern "C" int fused_update(
     int block_size, float lr, float beta1, float one_minus_beta1, float beta2,
     float one_minus_beta2, float eps, float weight_decay, float c1, float c2,
     float gnorm_scale, cudaStream_t stream) {
-  if (n_blocks == 0) return 0;
   const Args a{p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r,
-               tensor_scale, block_seeds, block_offsets, seed, n_blocks,
-               block_size, 8, 8,
-               rq::Scalars{lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
-                           eps, weight_decay, c1, c2, gnorm_scale}};
-  const bool two = algo == rq::kAdam || algo == rq::kLamb;
-  const bool norms = algo == rq::kLamb || algo == rq::kLars;
-  if ((two && (!codes_r || !absmax_r || !qmap_r)) ||
-      (norms && !tensor_scale))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool sr = stochastic != 0;
-  switch (algo) {
-    case rq::kAdam: return launch_algo<rq::kAdam>(a, sr, stream);
-    case rq::kLamb: return launch_algo<rq::kLamb>(a, sr, stream);
-    case rq::kMomentum: return launch_algo<rq::kMomentum>(a, sr, stream);
-    case rq::kLars: return launch_algo<rq::kLars>(a, sr, stream);
-    case rq::kAdagrad: return launch_algo<rq::kAdagrad>(a, sr, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+               tensor_scale, block_seeds, block_offsets, nullptr, seed,
+               n_blocks, block_size, 8, 8,
+               scalars(lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
+                       eps, weight_decay, c1, c2, gnorm_scale)};
+  return run(algo, a, stochastic, stream);
+}
+
+// With the sentinel: as fused_update, plus health, the (n_blocks, 8) f32
+// output of per-block health counts (16-byte aligned, not null).
+extern "C" int fused_update_sentinel(
+    int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
+    uint8_t* codes_r, float* absmax_r, const float* qmap_m,
+    const float* qmap_r, const float* tensor_scale, const int* block_seeds,
+    const int* block_offsets, float* health, int stochastic, int seed,
+    int n_blocks, int block_size, float lr, float beta1,
+    float one_minus_beta1, float beta2, float one_minus_beta2, float eps,
+    float weight_decay, float c1, float c2, float gnorm_scale,
+    cudaStream_t stream) {
+  if (!health) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r,
+               tensor_scale, block_seeds, block_offsets, health, seed,
+               n_blocks, block_size, 8, 8,
+               scalars(lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
+                       eps, weight_decay, c1, c2, gnorm_scale)};
+  return run(algo, a, stochastic, stream);
 }
 
 // The packed variant: as fused_update, with codes_m / codes_r stored as
@@ -408,25 +527,29 @@ extern "C" int fused_update_packed(
     float one_minus_beta1, float beta2, float one_minus_beta2, float eps,
     float weight_decay, float c1, float c2, float gnorm_scale,
     cudaStream_t stream) {
-  if (n_blocks == 0) return 0;
   const Args a{p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r,
-               tensor_scale, block_seeds, block_offsets, seed, n_blocks,
-               block_size, bits_m, bits_r,
-               rq::Scalars{lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
-                           eps, weight_decay, c1, c2, gnorm_scale}};
-  const bool two = algo == rq::kAdam || algo == rq::kLamb;
-  const bool norms = algo == rq::kLamb || algo == rq::kLars;
-  if ((two && (!codes_r || !absmax_r || !qmap_r || !valid_bits(bits_r))) ||
-      (norms && !tensor_scale) || !valid_bits(bits_m) || block_size % 8 ||
-      block_size <= 0 || block_size > rq::kMaxBlock)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool sr = stochastic != 0;
-  switch (algo) {
-    case rq::kAdam: return launch_packed_algo<rq::kAdam>(a, sr, stream);
-    case rq::kLamb: return launch_packed_algo<rq::kLamb>(a, sr, stream);
-    case rq::kMomentum: return launch_packed_algo<rq::kMomentum>(a, sr, stream);
-    case rq::kLars: return launch_packed_algo<rq::kLars>(a, sr, stream);
-    case rq::kAdagrad: return launch_packed_algo<rq::kAdagrad>(a, sr, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+               tensor_scale, block_seeds, block_offsets, nullptr, seed,
+               n_blocks, block_size, bits_m, bits_r,
+               scalars(lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
+                       eps, weight_decay, c1, c2, gnorm_scale)};
+  return run_packed(algo, a, stochastic, stream);
+}
+
+// The packed variant with the sentinel (health as in fused_update_sentinel).
+extern "C" int fused_update_packed_sentinel(
+    int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
+    uint8_t* codes_r, float* absmax_r, const float* qmap_m,
+    const float* qmap_r, const float* tensor_scale, const int* block_seeds,
+    const int* block_offsets, float* health, int stochastic, int seed,
+    int n_blocks, int block_size, int bits_m, int bits_r, float lr,
+    float beta1, float one_minus_beta1, float beta2, float one_minus_beta2,
+    float eps, float weight_decay, float c1, float c2, float gnorm_scale,
+    cudaStream_t stream) {
+  if (!health) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r,
+               tensor_scale, block_seeds, block_offsets, health, seed,
+               n_blocks, block_size, bits_m, bits_r,
+               scalars(lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
+                       eps, weight_decay, c1, c2, gnorm_scale)};
+  return run_packed(algo, a, stochastic, stream);
 }

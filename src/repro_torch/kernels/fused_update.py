@@ -6,9 +6,16 @@ requantize the states with a per-block absmax.  This port covers the six
 element-wise algorithms (adam, adamw, lamb, momentum, lars, adagrad) with
 deterministic or stochastic rounding, at 8-bit states and at bit-packed
 4/5/6-bit states (``bits_m`` / ``bits_r``, ``core/lowbit/packing.py``):
-the CUDA kernels are in ``csrc/fused_update.cu`` (ROADMAP B3(a)-(d); the
-sentinel output is B3(e)).  Muon is a matrix-class algorithm: its spec is
-here, its update is ``ops``'s muon entry over ``newton_schulz.py``.
+the CUDA kernels are in ``csrc/fused_update.cu`` (ROADMAP B3(a)-(e)).
+Muon is a matrix-class algorithm: its spec is here, its update is
+``ops``'s muon entry over ``newton_schulz.py``.
+
+*The numerics sentinel* (``sentinel=True``, B3(e)): the update also emits
+per-block health counts ``(n_blocks, N_HEALTH)`` f32 in
+:data:`HEALTH_SLOTS` order, counted in the same pass on the raw grad, the
+new parameter and the new codes and absmax; :func:`health_rows` is their
+plain version.  Counts are integer-valued f32, so every order of adding
+them gives the same bits.
 
 LAMB and LARS scale their step by a per-tensor trust ratio, a global
 reduction that cannot live in a block-local pass.  They get a *norm
@@ -92,14 +99,75 @@ N_PARTIALS = 8          # [||p||^2, ||g||^2, ||u||^2, 0 x 5] per block
 
 class FusedUpdateResult(NamedTuple):
     """Output of one fused update in the flat block domain; codes_r and
-    absmax_r are None for one-state algorithms.  ``health`` (the sentinel
-    output, ROADMAP B3(e)) is always None in this port."""
+    absmax_r are None for one-state algorithms.  ``health``: the sentinel's
+    (n_blocks, N_HEALTH) f32 counts, present iff the update ran with
+    ``sentinel=True``."""
     p: torch.Tensor
     codes_m: torch.Tensor
     absmax_m: torch.Tensor
     codes_r: Optional[torch.Tensor]
     absmax_r: Optional[torch.Tensor]
     health: Optional[torch.Tensor] = None
+
+
+# ------------------------------------------------------ numerics sentinel
+# Slot layout of the per-block health counts (the JAX package's order).
+HEALTH_SLOTS = (
+    "nonfinite_grad",        # nonfinite entries in the incoming (raw) grad
+    "nonfinite_update",      # nonfinite entries in the updated master
+    "nonfinite_absmax_m",    # nonfinite new per-block absmax, state 1
+    "nonfinite_absmax_r",    # nonfinite new per-block absmax, state 2
+    "edge_hits_m",           # requantized state-1 codes at a codebook edge
+    "edge_hits_r",           # requantized state-2 codes at a codebook edge
+    "absmax_overflow_m",     # new state-1 absmax past the overflow guard
+    "absmax_overflow_r",     # new state-2 absmax past the overflow guard
+)
+N_HEALTH = len(HEALTH_SLOTS)
+
+# f32 max is ~3.4e38; an absmax past 1e30 means squaring/scale math on the
+# dequantized state is about to overflow — flag before the inf appears.
+ABSMAX_OVERFLOW_THRESHOLD = 1e30
+
+
+def health_rows(g, p2, c1n, a1n, c2n, a2n, bits_m: int, bits_r: int):
+    """Per-block health counts ``(n_blocks, N_HEALTH)`` f32, HEALTH_SLOTS
+    order, from one fused update's inputs and outputs: the raw (unscaled)
+    grad blocks ``g``, the updated master blocks ``p2``, and the new
+    *unpacked* codes / absmax of each state slot (None for an absent second
+    state).  The plain version of the kernels' sentinel output.  An absmax
+    vector whose length differs from n_blocks (a per-tensor absmax) folds
+    its counts into row 0."""
+    nb = p2.shape[0]
+    zero = torch.zeros(nb, dtype=torch.float32, device=p2.device)
+    limit = torch.tensor(ABSMAX_OVERFLOW_THRESHOLD, dtype=torch.float32,
+                         device=p2.device)
+
+    def nf2(x):                                   # (nb, B) -> (nb,)
+        return (~torch.isfinite(x.to(torch.float32))).sum(dim=1) \
+            .to(torch.float32)
+
+    def amax_slots(a):
+        if a is None:
+            return zero, zero
+        a = a.to(torch.float32).reshape(-1)
+        nfin = (~torch.isfinite(a)).to(torch.float32)
+        over = (torch.isfinite(a) & (a > limit)).to(torch.float32)
+        if a.shape[0] == nb:
+            return nfin, over
+        fold = lambda v: torch.cat([v.sum().reshape(1), zero[1:]])
+        return fold(nfin), fold(over)
+
+    def edge(c, bits):
+        if c is None:
+            return zero
+        c = c.to(torch.int64)
+        hit = (c == 0) | (c == (1 << bits) - 1)
+        return hit.sum(dim=1).to(torch.float32)
+
+    nf_a1, ov_a1 = amax_slots(a1n)
+    nf_a2, ov_a2 = amax_slots(a2n)
+    return torch.stack([nf2(g), nf2(p2), nf_a1, nf_a2, edge(c1n, bits_m),
+                        edge(c2n, bits_r), ov_a1, ov_a2], dim=1)
 
 
 # --------------------------------------------------------------- update math
@@ -439,15 +507,18 @@ def block_uniforms(nb: int, bsz: int, *, two: bool, seed=0,
 def fused_update_plain(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
                        qmap_r, s, *, algo: str = "adam", tensor_scale=None,
                        uniforms=(None, None), bits_m: int = 8,
-                       bits_r: int = 8) -> FusedUpdateResult:
+                       bits_r: int = 8,
+                       sentinel: bool = False) -> FusedUpdateResult:
     """Plain PyTorch version of the kernels (any device; returns new
     tensors).  ``s`` from :func:`scalars`; ``tensor_scale``: the per-block
     (n_blocks,) trust ratio for lamb/lars; ``uniforms``: (u1, u2) from
     :func:`block_uniforms` for stochastic rounding; ``bits_m`` /
     ``bits_r``: the states' widths (packed codes below 8, unpacked here
-    and re-packed after the update, with 2^bits-entry codebooks)."""
+    and re-packed after the update, with 2^bits-entry codebooks);
+    ``sentinel``: also return :func:`health_rows` of the update."""
     spec = ALGO_SPECS[algo]
     two = spec.n_states == 2
+    g_raw = g
     g = g.to(torch.float32) * s["gnorm_scale"]
     m = common.decode(unpack_codes(codes_m, bits_m), qmap_m) \
         * absmax_m[:, None]
@@ -461,13 +532,15 @@ def fused_update_plain(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
     def requantize(x, qmap, u, bits):
         codes, absmax = common.block_requantize(
             x, common.padded_bounds(qmap), qmap, u, max_code=(1 << bits) - 1)
-        return pack_codes(codes, bits), absmax[:, 0]
+        return codes, absmax[:, 0]
 
     cm, am = requantize(m2, qmap_m, u1, bits_m)
-    if not two:
-        return FusedUpdateResult(p2, cm, am, None, None)
-    cr, ar = requantize(r2, qmap_r, u2, bits_r)
-    return FusedUpdateResult(p2, cm, am, cr, ar)
+    cr, ar = requantize(r2, qmap_r, u2, bits_r) if two else (None, None)
+    health = (health_rows(g_raw, p2, cm, am, cr, ar, bits_m, bits_r)
+              if sentinel else None)
+    return FusedUpdateResult(p2, pack_codes(cm, bits_m), am,
+                             pack_codes(cr, bits_r) if two else None, ar,
+                             health)
 
 
 # ----------------------------------------------------------------- wrapper
@@ -486,10 +559,13 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
                       stochastic: bool = False, seed=0, block_seeds=None,
                       block_offsets=None, segments=None,
                       tensor_scale_blocks=None, bits_m: int = 8,
-                      bits_r: int = 8) -> FusedUpdateResult:
+                      bits_r: int = 8,
+                      sentinel: bool = False) -> FusedUpdateResult:
     """One fused k-bit step of ``algo``, **in place**: ``p``, the code
     tensors and the absmax vectors are overwritten with the new values
-    (saving a copy of each) and returned in the result.
+    (saving a copy of each) and returned in the result.  ``sentinel``
+    adds the per-block health counts (``health``, (n_blocks, N_HEALTH)
+    f32, :func:`health_rows`) to the result, from the same launch.
 
     p, g: (n_blocks, B) f32; codes: (n_blocks, B * bits / 8) uint8, plain
     codes at ``bits`` = 8 and packed b-bit rows (``core/lowbit``) at 4, 5
@@ -547,38 +623,43 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
         res = fused_update_plain(p, g, codes_m, absmax_m, codes_r, absmax_r,
                                  qmap_m, qmap_r, s, algo=algo,
                                  tensor_scale=ts, uniforms=uniforms,
-                                 bits_m=bits_m, bits_r=bits_r)
+                                 bits_m=bits_m, bits_r=bits_r,
+                                 sentinel=sentinel)
         for dst, src in zip((p, codes_m, absmax_m, codes_r, absmax_r),
                             res[:5]):
             if dst is not None:
                 dst.copy_(src)
+        health = res.health
     elif dev.type == "cuda":
+        health = (torch.empty((nb, N_HEALTH), dtype=torch.float32,
+                              device=dev) if sentinel else None)
         opt = lambda t: None if t is None else build.ptr(t)
-        args = (KERNEL_ALGOS[algo], build.ptr(p), build.ptr(g),
+        ptrs = (KERNEL_ALGOS[algo], build.ptr(p), build.ptr(g),
                 build.ptr(codes_m), build.ptr(absmax_m), opt(codes_r),
                 opt(absmax_r), build.ptr(qmap_m),
                 opt(qmap_r if two else None), opt(ts), opt(block_seeds),
-                opt(block_offsets), int(bool(stochastic)), to_i32(seed), nb,
-                bsz)
+                opt(block_offsets)) + ((build.ptr(health),) if sentinel
+                                       else ())
+        ints = (int(bool(stochastic)), to_i32(seed), nb, bsz) + (
+            (bits_m, bits_r) if packed else ())
+        entry = "fused_update" + ("_packed" if packed else "") + (
+            "_sentinel" if sentinel else "")
         lib = _lib("fused_update")
         with torch.cuda.device(dev):
-            if packed:
-                rc = lib.fused_update_packed(*args, bits_m, bits_r,
-                                             *_kernel_scalars(s),
-                                             build.stream(dev))
-            else:
-                rc = lib.fused_update(*args, *_kernel_scalars(s),
-                                      build.stream(dev))
-        build.check(lib, rc, "fused_update")
+            rc = getattr(lib, entry)(*ptrs, *ints, *_kernel_scalars(s),
+                                     build.stream(dev))
+        build.check(lib, rc, entry)
         fused_update_cuda.launches += 1
+        fused_update_cuda.sentinel_launches += int(sentinel)
     else:
         raise ValueError(f"no fused-update kernel for device {dev}")
     return FusedUpdateResult(p, codes_m, absmax_m,
                              codes_r if two else None,
-                             absmax_r if two else None)
+                             absmax_r if two else None, health)
 
 
 fused_update_cuda.launches = 0
+fused_update_cuda.sentinel_launches = 0     # the launches of those with B3(e)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry -> (source, argtypes)
@@ -591,6 +672,12 @@ ARGTYPES = {
     # as fused_update, with bits_m, bits_r after block_size
     "fused_update_packed": ("fused_update", [_I] + [_P] * 11 + [_I] * 6
                             + [_F] * 10 + [_P]),
+    # the sentinel (B3(e)): as fused_update / fused_update_packed, with the
+    # (n_blocks, 8) f32 health output after block_offsets
+    "fused_update_sentinel": ("fused_update", [_I] + [_P] * 12 + [_I] * 4
+                              + [_F] * 10 + [_P]),
+    "fused_update_packed_sentinel": ("fused_update", [_I] + [_P] * 12
+                                     + [_I] * 6 + [_F] * 10 + [_P]),
     # kind, p, g, codes/absmax m and r, qmaps, out, n_blocks, block_size,
     # 10 scalars, stream
     "norm_partials": ("norm_partials", [_I] + [_P] * 9 + [_I] * 2

@@ -27,6 +27,13 @@ oracle whatever ``impl`` asks for, as the JAX package serves it from its
 jnp entry: it is an accuracy ablation with no kernel.  Each dispatch is
 counted under the backend that served it (:func:`fused_update_routes`).
 
+``sentinel=True`` adds the numerics sentinel's per-block health counts to
+the result (``FusedUpdateResult.health``, ``fused_update.HEALTH_SLOTS``):
+the "cuda" backend counts them inside the update kernel (B3(e)); the
+"torch" oracle and the muon entries compute ``fused_update.health_rows``
+after the fact on the raw grad, the new parameter and the new unpacked
+codes, as the JAX package's jnp and muon entries do.
+
 Every kernel wrapper counts its launches; :func:`launch_counts` reads the
 counts and :func:`reset_launch_counts` zeroes them, so a run can show that
 its main path went through the kernels.  :func:`fused_update_count` counts
@@ -66,13 +73,16 @@ KERNELS = {
 
 def launch_counts() -> dict:
     """Kernel launches per wrapper since the last reset (CPU runs of the
-    plain versions do not count)."""
+    plain versions do not count).  The fused update's launches with the
+    sentinel output (B3(e)) are also counted apart, in
+    ``fused_update.fused_update_cuda.sentinel_launches``."""
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _fu.fused_update_cuda.sentinel_launches = 0
 
 
 # ----------------------------------------------------- fused-update registry
@@ -119,7 +129,8 @@ def _muon_entry(impl: str) -> Callable:
     the B5/B6 wrappers; "torch" runs the oracles.  Returns new tensors."""
     def run(p, g, cm, am, cr, ar, qmap_m, qmap_r, *, lr, beta1,
             weight_decay, gnorm_scale, stochastic, seed, bits_m=8,
-            ns_steps=_ns.DEFAULT_NS_STEPS, blockwise=True, **_unused):
+            ns_steps=_ns.DEFAULT_NS_STEPS, blockwise=True, sentinel=False,
+            **_unused):
         del cr, ar, qmap_r, _unused
         if not blockwise:
             raise NotImplementedError(
@@ -151,8 +162,33 @@ def _muon_entry(impl: str) -> Callable:
             cm2, am2 = ref._requantize(blocks, qmap_m, blockwise=True,
                                        random_u=u)
             cm2 = pack_codes(cm2, bits_m)
-        return _fu.FusedUpdateResult(p2, cm2, am2, None, None)
+        health = None
+        if sentinel:
+            # block-domain views of the raw grad and the new param (the
+            # padding is finite zeros, so it counts nothing)
+            view = lambda t: torch.nn.functional.pad(
+                t.to(torch.float32).reshape(-1),
+                (0, nb * bsz - n)).reshape(nb, bsz)
+            health = _fu.health_rows(view(g), view(p2),
+                                     unpack_codes(cm2, bits_m), am2, None,
+                                     None, bits_m, 8)
+        return _fu.FusedUpdateResult(p2, cm2, am2, None, None, health)
     return run
+
+
+def _torch_entry(p, g, cm, am, cr, ar, qmap_m, qmap_r, *, sentinel=False,
+                 bits_m=8, bits_r=8, **hyper) -> _fu.FusedUpdateResult:
+    """The plain oracle (``ref.fused_update_ref``); with ``sentinel`` the
+    health rows are computed after the fact on the raw grad, the new param
+    and the oracle's new codes unpacked."""
+    res = ref.fused_update_ref(p, g, cm, am, cr, ar, qmap_m, qmap_r,
+                               bits_m=bits_m, bits_r=bits_r, **hyper)
+    if not sentinel:
+        return res
+    c2 = None if res.codes_r is None else unpack_codes(res.codes_r, bits_r)
+    return res._replace(health=_fu.health_rows(
+        g, res.p, unpack_codes(res.codes_m, bits_m), res.absmax_m, c2,
+        res.absmax_r, bits_m, bits_r))
 
 
 for _algo, _spec in _fu.ALGO_SPECS.items():
@@ -160,7 +196,7 @@ for _algo, _spec in _fu.ALGO_SPECS.items():
         for _impl in IMPLS:
             register(_algo, _impl, _muon_entry(_impl))
         continue
-    register(_algo, "torch", ref.fused_update_ref)
+    register(_algo, "torch", _torch_entry)
 for _algo in _fu.KERNEL_ALGOS:
     register(_algo, "cuda", _fu.fused_update_cuda)
 
@@ -172,6 +208,7 @@ def fused_update(algo: str, p, g, codes_m, absmax_m, codes_r=None,
                  stochastic: bool = False, seed=0, block_seeds=None,
                  block_offsets=None, segments=None, tensor_scale_blocks=None,
                  ns_steps: int = _ns.DEFAULT_NS_STEPS,
+                 sentinel: bool = False,
                  impl: Optional[str] = None) -> _fu.FusedUpdateResult:
     """One fused k-bit optimizer step in the flat block domain, dispatched
     on the ``(algo, impl)`` registry.  The "cuda" backend of the
@@ -191,7 +228,8 @@ def fused_update(algo: str, p, g, codes_m, absmax_m, codes_r=None,
     ranges for the lamb/lars trust ratios) carry several tensors' identity
     through one call; ``tensor_scale_blocks`` gives the per-block trust
     ratios directly (see :func:`segment_tensor_scales`).  codes_r and
-    absmax_r are None for one-state algorithms."""
+    absmax_r are None for one-state algorithms.  ``sentinel`` fills the
+    result's ``health`` with the per-block health counts."""
     impl = impl or DEFAULT_IMPL
     matrix = algo in _fu.ALGO_SPECS and _fu.ALGO_SPECS[algo].matrix
     if not blockwise and not matrix:
@@ -216,7 +254,7 @@ def fused_update(algo: str, p, g, codes_m, absmax_m, codes_r=None,
                  stochastic=stochastic, seed=seed, block_seeds=block_seeds,
                  block_offsets=block_offsets, segments=segments,
                  tensor_scale_blocks=tensor_scale_blocks, bits_m=bits_m,
-                 bits_r=bits_r)
+                 bits_r=bits_r, sentinel=sentinel)
     if matrix:
         hyper.update(ns_steps=ns_steps, blockwise=blockwise)
     elif impl == "torch":

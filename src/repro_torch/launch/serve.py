@@ -14,7 +14,9 @@ per-request completions plus the tokens/s, p50/p99 latency and KV
 bytes/token summary.  ``--engine static`` runs the fixed-bucket
 ``ServeEngine`` (16-bit contiguous cache) on the same stream.  Runs on the
 card unless ``--device cpu``; ``--reduce`` shrinks the model for a CPU
-smoke run.  Telemetry export (``--out``) is ROADMAP A11.
+smoke run.  ``--out`` writes the engine's metric registry (requests,
+tokens, scheduler counters, tokens/s) as telemetry JSONL in the JAX
+package's schema (``telemetry.JsonlSink``).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs import base as cfgs
 from repro_torch.errors import ConfigError
+from repro_torch import telemetry as tel
 
 
 def build_requests(args, vocab_size):
@@ -49,7 +52,6 @@ def main(argv=None):
     from repro_torch.serve.kvcache import PagedKVConfig, kv_bytes_per_token
     from repro_torch.serve.scheduler import (ContinuousBatchingEngine,
                                              SchedulerConfig)
-    from repro_torch.telemetry import MetricRegistry
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="paper-lm-209m")
@@ -80,11 +82,8 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
-                    help="telemetry JSONL path (not ported yet: A11)")
+                    help="telemetry JSONL path (schema repro.telemetry.v1)")
     args = ap.parse_args(argv)
-    if args.out:
-        raise ConfigError("--out: telemetry export (JsonlSink) is not "
-                          "ported yet (ROADMAP A11)")
 
     dev = device_lib.resolve(args.device)
     cfg = cfgs.get_config(args.arch)
@@ -93,7 +92,9 @@ def main(argv=None):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     model = M.init_model(cfg, gen, device=dev)
     reqs = build_requests(args, cfg.vocab_size)
-    reg = MetricRegistry()
+    reg = tel.MetricRegistry()
+    if args.out:
+        reg.add_sink(tel.JsonlSink(args.out))
 
     if args.engine == "static":
         plens = {len(r.prompt) for r in reqs}
@@ -134,6 +135,8 @@ def main(argv=None):
               f"{np.asarray(toks).tolist()[:12]}"
               f"{'...' if len(toks) > 12 else ''}")
     print(json.dumps(summary))
+    reg.flush(step=0)
+    reg.close()
     return summary
 
 

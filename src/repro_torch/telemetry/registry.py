@@ -8,10 +8,11 @@ sinks they emit to.
     reg.histogram("serve/latency_ms", n_bins=10).observe_counts(counts)
     reg.flush(step=7)           # one "metric" event per set metric
 
-Values are host scalars and numpy arrays: nothing here touches the device.
-A sink is any object with ``write(event)`` and ``flush()``; the JSONL sink
-and the event schema's validator (``export.py``) and the rest of the
-telemetry are ROADMAP A11.
+Values are host scalars and numpy arrays.  A sink is any object with
+``write(event)``, ``flush()`` and ``close()`` (``export.py``).
+``record_scalars(step, mapping)`` is the train loop's adapter: every scalar
+of a step's metrics dict becomes a gauge sample, emitted at once, with one
+device-to-host copy for all the tensors among them.
 """
 from __future__ import annotations
 
@@ -19,14 +20,34 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from repro_torch.errors import FormatError
+import torch
 
-SCHEMA = "repro.telemetry.v1"     # the JAX package's event schema version
+from repro_torch.errors import FormatError
+from repro_torch.telemetry.export import SCHEMA
 
 
 def _scalar(v: Any) -> float:
     """Host float from a python/numpy/0-d tensor scalar."""
     return float(v)
+
+
+def host_scalars(mapping: dict) -> dict:
+    """The scalar entries of ``mapping`` (Python and numpy scalars, 0-d
+    tensors on any device) as host floats, in its order, with one
+    device-to-host copy per device for all the tensors among them;
+    entries with more than one element are dropped."""
+    values, tensors = {}, {}
+    for name, v in mapping.items():
+        if isinstance(v, torch.Tensor):
+            if v.dim() == 0:
+                tensors.setdefault(v.device, {})[name] = v
+        elif np.ndim(v) == 0:
+            values[name] = float(v)
+    for group in tensors.values():
+        host = torch.stack([t.detach().to(torch.float64)
+                            for t in group.values()]).cpu().tolist()
+        values.update(zip(group, host))
+    return {name: values[name] for name in mapping if name in values}
 
 
 class Counter:
@@ -127,17 +148,45 @@ class MetricRegistry:
     def add_sink(self, sink) -> None:
         self._sinks.append(sink)
 
+    def emit_event(self, event: dict) -> None:
+        """Stamp the schema version (and step -1 if absent) and write to
+        every sink."""
+        event = dict(event)
+        event.setdefault("schema", SCHEMA)
+        event.setdefault("step", -1)
+        for s in self._sinks:
+            s.write(event)
+
+    def _metric_event(self, m, step: int) -> dict:
+        ev = {"kind": "metric", "step": int(step), "name": m.name,
+              "type": m.mtype, "value": self._value(m)}
+        if isinstance(m, Histogram):
+            ev["n_bins"] = m.n_bins
+        return ev
+
     def flush(self, step: int = -1) -> None:
         """Write one "metric" event per set metric to every sink, then
         flush the sinks."""
         for m in self._metrics.values():
             if m.value is None:
                 continue
-            event = {"schema": SCHEMA, "kind": "metric", "step": int(step),
-                     "name": m.name, "type": m.mtype, "value": self._value(m)}
-            if isinstance(m, Histogram):
-                event["n_bins"] = m.n_bins
-            for s in self._sinks:
-                s.write(event)
+            self.emit_event(self._metric_event(m, step))
         for s in self._sinks:
             s.flush()
+
+    def record_scalars(self, step: int, mapping: dict,
+                       prefix: str = "") -> None:
+        """Route one step's scalar metrics through gauges and emit each at
+        once.  Values may be Python or numpy scalars or 0-d tensors (copied
+        to the host together, :func:`host_scalars`); anything with more
+        than one element is skipped."""
+        for name, v in host_scalars(mapping).items():
+            g = self.gauge(prefix + name)
+            g.set(v)
+            self.emit_event(self._metric_event(g, step))
+        for s in self._sinks:
+            s.flush()
+
+    def close(self) -> None:
+        for s in self._sinks:
+            s.close()

@@ -9,6 +9,13 @@ accumulation, clipping, optimizer.
 The optimizer's masters are the model's parameters (``Block8bitOptimizer``
 updates them in place), so the step needs no params view: the forward of
 step i+1 reads what ``apply`` wrote in step i.
+
+With the optimizer's numerics sentinel on (``OptimConfig.sentinel``), the
+step's metrics also carry the summed health counts as ``sent_<slot>``
+(``kernels/fused_update.HEALTH_SLOTS``); with percentile clipping on, the
+clip's scale as ``pclip_scale``.  The two phases of the step are wrapped in
+``telemetry.tracing.annotate`` ("forward_backward", "optimizer_update"),
+a no-op unless phase tracing is on.
 """
 from __future__ import annotations
 
@@ -17,8 +24,10 @@ from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import fused_update as kfu
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
+from repro_torch.telemetry import tracing
 
 
 class TrainState(NamedTuple):
@@ -73,11 +82,14 @@ def make_train_step(cfg, model: M.Model, optimizer,
 
     ``batch``: {"tokens": (B, S+1) int array}; inputs are [:, :-1], labels
     [:, 1:].  ``hyper.microbatches`` splits the batch and averages the
-    gradients.  Metrics are 0-d tensors (loss, grad_norm) and floats
-    (opt_fused_dispatches, state_bytes_per_param); reading a tensor waits
-    for the device."""
+    gradients.  Metrics are 0-d tensors (loss, grad_norm, the sentinel's
+    sent_* counts, pclip_scale) and floats (opt_fused_dispatches,
+    state_bytes_per_param); reading a tensor waits for the device."""
     device = next(model.parameters()).device
     params = model.param_dict()
+    opt_cfg = getattr(optimizer, "cfg", None)
+    sentinel_on = bool(getattr(opt_cfg, "sentinel", False))
+    pclip_on = getattr(opt_cfg, "percentile_clipping", 100) < 100
 
     def compute_grads(tokens):
         model.zero_grad(set_to_none=True)
@@ -96,18 +108,30 @@ def make_train_step(cfg, model: M.Model, optimizer,
 
     def train_step(state: TrainState, batch):
         tokens = torch.as_tensor(batch["tokens"]).to(device, torch.long)
-        loss, grads = compute_grads(tokens)
-        grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip)
+        with tracing.annotate("forward_backward"):
+            loss, grads = compute_grads(tokens)
+            grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip)
         lr = hyper.lr_schedule(state.step) if hyper.lr_schedule else None
         dispatch0 = kops.fused_update_count()
-        _, new_opt = optimizer.apply(grads, state.opt_state, lr=lr)
-        metrics = {"loss": loss, "grad_norm": gnorm,
-                   "opt_fused_dispatches":
-                       float(kops.fused_update_count() - dispatch0)}
+        with tracing.annotate("optimizer_update"):
+            out = optimizer.apply(grads, state.opt_state, lr=lr)
+        new_opt = out[1]
+        metrics = {"loss": loss, "grad_norm": gnorm}
+        if sentinel_on:
+            health = out[2]
+            for i, name in enumerate(kfu.HEALTH_SLOTS):
+                metrics[f"sent_{name}"] = health[i]
+        metrics["opt_fused_dispatches"] = float(kops.fused_update_count()
+                                                - dispatch0)
         sb = optimizer.state_bytes(state.opt_state)
         if sb["n_params"]:
             metrics["state_bytes_per_param"] = (sb["state_bytes"]
                                                 / sb["n_params"])
+        if pclip_on:
+            # percentile_clip is pure: against the pre-step state it gives
+            # the scale apply used (the old state's history is not mutated)
+            metrics["pclip_scale"], _ = optimizer.percentile_clip(
+                grads, state.opt_state)
         return TrainState(opt_state=new_opt, step=state.step + 1), metrics
 
     return train_step

@@ -67,12 +67,21 @@ inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 inline std::barrier<>* emu_block_barrier;
 inline std::vector<std::barrier<>*> emu_warp_barriers;
 inline float emu_warp_buf[32][32];
+inline int emu_warp_ibuf[32][32];
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   emu_warp_buf[w][lane] = v;
   emu_warp_barriers[w]->arrive_and_wait();
   const float r = emu_warp_buf[w][lane ^ o];
+  emu_warp_barriers[w]->arrive_and_wait();
+  return r;
+}
+inline int __shfl_xor_sync(unsigned, int v, int o) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  emu_warp_ibuf[w][lane] = v;
+  emu_warp_barriers[w]->arrive_and_wait();
+  const int r = emu_warp_ibuf[w][lane ^ o];
   emu_warp_barriers[w]->arrive_and_wait();
   return r;
 }
@@ -430,6 +439,127 @@ def test_fused_update_packed_at_8_bits_equals_8bit_kernel(libs):
         outs.append(got)
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------- the sentinel output (B3(e))
+def _poison(grad, am, ar):
+    """Plant nonfinite and huge values: block 0's grad holds NaN, +inf and
+    -inf (a NaN absmax, so x / scale reaches +inf: the capped encode),
+    block 1's grad 1e31 (an absmax past the overflow guard, or an inf
+    second moment), block 2's state absmax inf (dequantized state inf and
+    NaN); block 3 stays clean."""
+    grad[0, 3], grad[0, 7], grad[0, 11] = float("nan"), float("inf"), \
+        -float("inf")
+    grad[1, 5] = 1e31
+    am[2] = float("inf")
+    if ar is not None:
+        ar[2] = float("inf")
+
+
+def _same(a, b) -> bool:
+    """Equal values with NaN at the same places (payloads aside)."""
+    if a.is_floating_point():
+        nan = a.isnan()
+        return torch.equal(nan, b.isnan()) and torch.equal(a[~nan], b[~nan])
+    return torch.equal(a, b)
+
+
+def _bits_of(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+SENTINEL_BITS = [(8, 8), (4, 8), (5, 6), (6, 4)]
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("bits", SENTINEL_BITS, ids=lambda b: f"{b[0]}-{b[1]}")
+@pytest.mark.parametrize("algo", ["adam", "lamb", "momentum", "lars",
+                                  "adagrad"])
+def test_fused_update_sentinel_emulated(libs, algo, bits, stochastic):
+    """The SENT instances of both kernels (8/8: fused_update_sentinel,
+    below 8 bits: fused_update_packed_sentinel), with NaN, +-inf and 1e31
+    planted in the grad and the state: the health rows equal
+    ``health_rows`` of the plain version exactly, p / codes / absmax equal
+    the plain version's (NaN where it has NaN), and bit for bit the
+    sentinel-off instance's on the same inputs."""
+    spec = fu.ALGO_SPECS[algo]
+    two = spec.n_states == 2
+    bits_m, bits_r = bits if two else (bits[0], 8)
+    packed = (bits_m, bits_r) != (8, 8)
+    nb, bsz = 4, 264
+    p, grad, cm, am, cr, ar, q1, q2 = _packed_inputs(algo, nb, bsz, bits_m,
+                                                     bits_r, 11)
+    _poison(grad, am, ar)
+    s = _scalars()
+    ts = (torch.rand(nb, generator=torch.Generator().manual_seed(4)) + 0.5
+          if spec.needs_norms else None)
+    seeds = torch.tensor([-7, 2 ** 31 - 1, 12345, 3], dtype=torch.int32)
+    offs = torch.tensor([5, 0, 9, 1], dtype=torch.int32)
+    uniforms = (fu.block_uniforms(nb, bsz, two=two, block_seeds=seeds,
+                                  block_offsets=offs)
+                if stochastic else (None, None))
+    want = fu.fused_update_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                 algo=algo, tensor_scale=ts,
+                                 uniforms=uniforms, bits_m=bits_m,
+                                 bits_r=bits_r, sentinel=True)
+    ptr = lambda t: None if t is None else P(t.data_ptr())
+    widths = (bits_m, bits_r) if packed else ()
+    lib = libs["fused_update"]
+    runs = {}
+    for sent in (True, False):
+        got = [None if t is None else t.clone() for t in (p, cm, am, cr, ar)]
+        health = torch.full((nb, fu.N_HEALTH), -1.0)
+        entry = "fused_update" + ("_packed" if packed else "") + (
+            "_sentinel" if sent else "")
+        rc = getattr(lib, entry)(
+            fu.KERNEL_ALGOS[algo], ptr(got[0]), ptr(grad),
+            *map(ptr, got[1:]), ptr(q1), ptr(q2 if two else None), ptr(ts),
+            ptr(seeds), ptr(offs), *((ptr(health),) if sent else ()),
+            int(stochastic), 0, nb, bsz, *widths, *fu._kernel_scalars(s),
+            None)
+        assert rc == 0
+        runs[sent] = (got, health)
+    got, health = runs[True]
+    assert torch.equal(health, want.health)
+    for name, a, b in zip(want._fields, got, want[:5]):
+        if b is not None:
+            assert _same(a, b), name
+    for a, b in zip(got, runs[False][0]):
+        if a is not None:
+            assert torch.equal(_bits_of(a), _bits_of(b))
+    h = dict(zip(fu.HEALTH_SLOTS, health.sum(dim=0).tolist()))
+    assert h["nonfinite_grad"] == 3 and h["nonfinite_update"] >= 1
+    assert h["nonfinite_absmax_m"] >= 1 and h["edge_hits_m"] >= 1
+    assert health[3, :4].sum() == 0                 # the clean block
+
+
+def test_fused_update_sentinel_clean_8bit_vpt(libs):
+    """The 8-bit SENT instance at B = 2048 (two vectors per thread) on clean
+    inputs: health equal to the plain version's, no nonfinite count."""
+    p, grad, cm, am, cr, ar, q1, q2 = _algo_inputs("adam", 3, 2048, 8)
+    s = _scalars()
+    want = fu.fused_update_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                 algo="adam", sentinel=True)
+    got = [t.clone() for t in (p, cm, am, cr, ar)]
+    health = torch.full((3, fu.N_HEALTH), -1.0)
+    rc = libs["fused_update"].fused_update_sentinel(
+        fu.KERNEL_ALGOS["adam"], *_ptrs(got[0], grad, *got[1:], q1, q2),
+        None, None, None, P(health.data_ptr()), 0, 0, 3, 2048,
+        *fu._kernel_scalars(s), None)
+    assert rc == 0
+    assert torch.equal(health, want.health)
+    assert health[:, :4].sum() == 0 and health[:, 4].sum() > 0
+    for a, b in zip(got, want[:5]):
+        assert torch.equal(a, b)
+
+
+def test_fused_update_sentinel_requires_health(libs):
+    p, grad, cm, am, cr, ar, q1, q2 = _algo_inputs("adam", 1, 64, 8)
+    rc = libs["fused_update"].fused_update_sentinel(
+        fu.KERNEL_ALGOS["adam"], *_ptrs(p, grad, cm, am, cr, ar, q1, q2),
+        None, None, None, None, 0, 0, 1, 64, *fu._kernel_scalars(_scalars()),
+        None)
+    assert rc != 0
 
 
 @pytest.mark.parametrize("bits", [(4, 8), (5, 6), (6, 4)],

@@ -120,8 +120,11 @@ def test_names_and_unported_settings():
         topt.OptimConfig(algo="muon", pooled=False), device="cpu"),
         topt.MuonOptimizer)
     topt.make_optimizer("adam8", state_bits=(4, 8), device="cpu")
-    with pytest.raises(ConfigError, match="A11"):
-        topt.make_optimizer("adam8", sentinel=True, device="cpu")
+    # the sentinel (A11) is ported: apply returns (params, state, health)
+    sent = topt.make_optimizer("adam8", sentinel=True, device="cpu")
+    out = sent.apply({"w": torch.ones(8192)},
+                     sent.init({"w": torch.zeros(8192)}))
+    assert len(out) == 3 and out[2].shape == (8,)
     with pytest.raises(ConfigError):
         topt.make_optimizer("adam8", state_bits=(3, 8), device="cpu")
     with pytest.raises(FormatError):

@@ -51,11 +51,57 @@ def test_import_rule_covers_serving_modules(rel):
     assert ROOT / "src" / "repro_torch" / rel in PORT_FILES
 
 
+TELEMETRY_MODULES = ("telemetry/__init__.py", "telemetry/export.py",
+                     "telemetry/registry.py", "telemetry/tracing.py",
+                     "telemetry/qhealth.py", "telemetry/sentinel.py",
+                     "telemetry/flight.py", "telemetry/inspect.py",
+                     "launch/train.py")
+
+
+@pytest.mark.parametrize("rel", TELEMETRY_MODULES)
+def test_telemetry_modules_import_without_jax(rel):
+    """The fifth slice's modules are among the files the import rule
+    checks, and each imports in a process where JAX and the JAX package
+    cannot be imported."""
+    import subprocess
+    import sys
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in PORT_FILES
+    module = "repro_torch." + rel[:-3].replace("/", ".").replace(
+        ".__init__", "")
+    code = ("import sys\n"
+            "class Block:\n"
+            "    def find_spec(self, name, path=None, target=None):\n"
+            "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+            "            raise ImportError(name)\n"
+            "sys.meta_path.insert(0, Block())\n"
+            f"import {module}\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=300,
+                       env={"PYTHONPATH": str(ROOT / "src"),
+                            "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.train",
+                                    "repro_torch.telemetry.inspect"])
+def test_cli_help_runs(module):
+    import subprocess
+    import sys
+    r = subprocess.run([sys.executable, "-m", module, "--help"],
+                       capture_output=True, text=True, timeout=300,
+                       env={"PYTHONPATH": str(ROOT / "src"),
+                            "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stderr
+    assert "usage" in r.stdout
+
+
 def _entry_points():
     from repro_torch import convert
     from repro_torch.configs import base
     from repro_torch.core import optim
     from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
     from repro_torch.models import model
     from repro_torch.train import loop
     cfg = base.reduced(base.get_config("paper-lm-209m"))
@@ -63,6 +109,10 @@ def _entry_points():
         "init_cache": lambda: model.init_cache(cfg, 1, 8),
         "init_paged_cache": lambda: model.init_paged_cache(cfg, 2, 4, 4),
         "serve_launcher": lambda: serve_launch.main(["--reduce"]),
+        "train_launcher": lambda: train_launch.main(
+            ["--d-model", "64", "--n-layers", "2", "--steps", "1"]),
+        "make_optimizer_sentinel":
+            lambda: optim.make_optimizer("adamw8", sentinel=True),
         "init_model": lambda: model.init_model(cfg),
         "Model": lambda: model.Model(cfg),
         "make_optimizer": lambda: optim.make_optimizer("adamw8"),
@@ -85,7 +135,9 @@ def _entry_points():
                                   "make_optimizer_adafactor32", "Adafactor",
                                   "make_optimizer_muon8",
                                   "make_optimizer_adam8_4bit", "init_cache",
-                                  "init_paged_cache", "serve_launcher"])
+                                  "init_paged_cache", "serve_launcher",
+                                  "train_launcher",
+                                  "make_optimizer_sentinel"])
 def test_entry_point_without_device_raises_without_cuda(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -285,10 +285,18 @@ def test_launch_serve_cpu_smoke():
     assert json.loads(r.stdout.strip().splitlines()[-1])["kv_bits"] == 16
 
 
-def test_launch_serve_refuses_out_and_missing_card(monkeypatch):
+def test_launch_serve_refuses_out_and_missing_card(monkeypatch, tmp_path):
+    """--out (ported with A11) writes the registry as telemetry JSONL that
+    the JAX package's validator accepts; without a card the launcher
+    refuses the default device."""
+    from repro.telemetry.export import validate_jsonl
     from repro_torch.launch import serve as launcher
-    with pytest.raises(ConfigError, match="A11"):
-        launcher.main(["--reduce", "--device", "cpu", "--out", "x.jsonl"])
+    out = str(tmp_path / "serve.jsonl")
+    summary = launcher.main(["--reduce", "--device", "cpu", "--out", out])
+    events, errors = validate_jsonl(out)
+    assert errors == [] and events
+    got = {e["name"]: e["value"] for e in events if e["kind"] == "metric"}
+    assert got["serve/tokens_per_s"] == summary["tokens_per_s"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launcher.main(["--reduce"])
