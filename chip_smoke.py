@@ -26,16 +26,21 @@ flight recorder.  Phases, one line or more each:
    (quantize also stochastic).  Exact agreement is required (p, codes,
    absmax, partials: 0 mismatches).  Then the Newton–Schulz kernels at the
    head's shape (1024 x 50264, padded to 50432): the gram A = X X^T and the
-   apply X' = a X + B X against their tile-replaying plain versions within
-   a stated tolerance, and bit-identical over two launches; the same
-   checks at the stacked norm vectors' shape (10 x 1024, padded to
-   16 x 1024).  Median times beside the least time the card could take
+   apply X' = a X + B X (3xTF32 on the tensor cores) against their
+   tile-replaying plain versions within a stated tolerance, bit-identical
+   over two launches, the gram exactly symmetric; the same checks at the
+   stacked norm vectors' shape (10 x 1024, padded to 16 x 1024), where
+   their device time (torch.profiler) is printed beside the library
+   call's.  Median times beside the least time the card could take
    (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s: the H100 SXM
-   data-sheet peaks; the gram counts the m (m + 1) / 2 dot products of a
-   symmetric result), the plain
-   version's time and, where one PyTorch call computes the same function,
-   that call's (torch.linalg.vector_norm for the norm prologue, torch.mm /
-   torch.addmm with TF32 off for the Newton–Schulz products).
+   data-sheet peaks; for the Newton–Schulz kernels, which take their
+   products on the tensor cores, three TF32 products per f32 product at
+   495 TFLOP/s, with the f32 bound beside it; the gram counts the
+   m (m + 1) / 2 dot products of a symmetric result), the plain version's
+   time and, where one PyTorch call computes the same
+   function, that call's (torch.linalg.vector_norm for the norm prologue,
+   torch.mm / torch.addmm with TF32 off for the Newton–Schulz products,
+   timed in turns with the kernel on the same inputs).
 4. train   — each path with the launch counters zeroed just before it and
    read just after: adamw8 for 10 steps (per-leaf dispatch), then a
    read-back of the trained 8-bit state through the kernel layer (both
@@ -53,8 +58,8 @@ flight recorder.  Phases, one line or more each:
    muon32 — one run for each packed variant and 4-bit quantizer of phase
    3, whose launches its JSON row reports.  The (5, 5) and (6, 6) runs,
    whose second moment is below 8 bits, are held to the same run through
-   the torch oracle (losses within 2e-4) instead of to adam32 within 1%
-   (see ORACLE_RUNS).  Each Muon step must launch the
+   the torch oracle (losses within 2e-4) instead of to adam32 within 1%;
+   muon8 is held to both (see ORACLE_RUNS).  Each Muon step must launch the
    Newton–Schulz
    kernels 5 x the matrix leaves times each, and muon8 the quantize and
    dequantize kernels once per quantized matrix leaf; a profile of one
@@ -123,6 +128,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM, f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12       # H100 SXM, dense TF32 on the tensor cores
 STEPS = 10
 FAMILY_STEPS = 5           # steps of each further optimizer's run
 SEQ_LEN, BATCH = 512, 8
@@ -191,15 +197,19 @@ SLICE3_RUNS = {
     "muon8_4_8_sr": ("muon8", dict(state_bits=(4, 8),
                                    stochastic_rounding=True), "muon32"),
 }
-# Runs with a second moment below 8 bits, outside the paper's claim of
+# Runs held to the same run on the torch oracle path (the plain versions,
+# no kernel launch): per-step losses within the loss-trace tests' rtol.
+# muon8, whose Newton–Schulz kernels take 3xTF32 products where the plain
+# versions take f32 ones, is held to it and to muon32 within 1%.  The
+# runs with a second moment below 8 bits (ORACLE_ONLY) are held to it
+# instead of to their 32-bit twin: they are outside the paper's claim of
 # equal loss (it makes it for 8-bit states; the reference's packed golden
-# configuration keeps the second moment at 8 bits): adam8 at (5, 5) ends
-# 1% from adam32 after 5 steps at full width, with an update that agrees
-# with the JAX package's at these widths (tests/test_torch_lowbit.py).
-# They are held instead to the same run on the torch oracle path (the
-# plain update, no kernel launch): per-step losses within the loss-trace
-# tests' rtol.
-ORACLE_RUNS = ("adam8_5_5", "adam8_6_6")
+# configuration keeps the second moment at 8 bits), and adam8 at (5, 5)
+# ends 1% from adam32 after 5 steps at full width, with an update that
+# agrees with the JAX package's at these widths
+# (tests/test_torch_lowbit.py).
+ORACLE_RUNS = ("adam8_5_5", "adam8_6_6", "muon8")
+ORACLE_ONLY = ("adam8_5_5", "adam8_6_6")
 ORACLE_RTOL = 2e-4
 # Newton–Schulz check: relative error limit of the kernels against their
 # tile-replaying plain versions (largest |difference| over the output's
@@ -247,55 +257,77 @@ def require(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             flop_per_s: float = F32_FLOP_PER_S) -> tuple[float, str]:
+    """The least time of moving ``n_bytes`` over HBM or of ``n_ops``
+    operations at ``flop_per_s``, whichever is larger, and which it is."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOP_PER_S * 1e3
+    t_ops = n_ops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def in_turns(torch, fns: dict, reps: int, per: int, warmup: int = 1) -> dict:
+    """{name: median ms per call} of ``per`` back-to-back calls by CUDA
+    events (the host runs ahead, so its launch overhead is hidden), the fns
+    timed in turns on the same inputs: in order, then in reverse (library,
+    kernel, kernel, library, ...), so that the card's clock and neighbours
+    weigh on each alike."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    times = {k: [] for k in fns}
+    for r in range(reps):
+        for k in (list(fns) if r % 2 == 0 else list(reversed(fns))):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(per):
+                fns[k]()
+            end.record()
+            end.synchronize()
+            times[k].append(start.elapsed_time(end) / per)
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def median_ms(torch, fn, reps: int, per: int = 5, warmup: int = 2) -> float:
     """Median over ``reps`` of the device time of ``per`` back-to-back
-    calls of ``fn`` divided by ``per`` (CUDA events around each group, so
-    the host runs ahead and its launch overhead is hidden; inputs far
-    exceed the 50 MB L2, so every call reads HBM)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per)
-    return statistics.median(times)
+    calls of ``fn`` divided by ``per`` (:func:`in_turns` of one fn; inputs
+    far exceed the 50 MB L2, so every call reads HBM)."""
+    return in_turns(torch, {"fn": fn}, reps, per, warmup)["fn"]
 
 
-def device_ms(torch, fn, n: int = 50) -> float:
-    """Device time per call of ``fn``: the CUDA kernels' time summed by
-    torch.profiler over ``n`` calls, divided by ``n``.  For a kernel of a
-    few microseconds, CUDA events around back-to-back calls measure the
-    host's launch rate instead (each wrapper call costs tens of
-    microseconds of Python)."""
+def device_ms_split(torch, fns: dict, n: int = 20) -> dict:
+    """{name: device time per call} of ``fns`` ({name: (fn, marker)}) from
+    one torch.profiler session, each fn called n times in turns (in order,
+    then reversed, ...): a kernel whose profiler key contains a fn's marker
+    is that fn's, the kernels that match no marker belong to the fn whose
+    marker is None.  For a kernel of a few microseconds, CUDA events around
+    back-to-back calls measure the host's launch rate instead (each wrapper
+    call costs tens of microseconds of Python).  (One session for all the
+    fns compared: a run of back-to-back profiler sessions can come back
+    without device events.)"""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for fn, _ in fns.values():
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+        for r in range(n):
+            for name in (list(fns) if r % 2 == 0 else list(reversed(fns))):
+                fns[name][0]()
         torch.cuda.synchronize()
-    total = 0.0
+    total = dict.fromkeys(fns, 0.0)
     for ev in prof.key_averages():
         if "CUDA" not in str(getattr(ev, "device_type", "")):
             continue
         t = getattr(ev, "self_device_time_total", None)
-        total += t if t is not None else getattr(ev, "self_cuda_time_total",
-                                                 0.0)
-    require(total > 0, "the profiler saw no device time")
-    return total / 1e3 / n
+        t = t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
+        owner = next((k for k, (_, mark) in fns.items()
+                      if mark is not None and mark in ev.key),
+                     next(k for k, (_, mark) in fns.items() if mark is None))
+        total[owner] += t
+    require(all(v > 0 for v in total.values()),
+            f"the profiler saw no device time for some of {list(fns)}")
+    return {k: v / 1e3 / n for k, v in total.items()}
 
 
 def card_line() -> str:
@@ -469,7 +501,6 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
     from repro_torch.kernels import blockwise_dequant as bdq
     from repro_torch.kernels import blockwise_quant as bq
     from repro_torch.kernels import fused_update as fu
-    from repro_torch.kernels import newton_schulz as ns
 
     n = nb * bsz
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -607,72 +638,80 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
           f"{ms:.4f} ms, bound {b:.4f} ms ({by}), plain {plain:.3f} ms")
     del x, ck, ak, cp, ap, vk, vp, p, g
 
-    # B5 / B6 at the head's shape, against the tile-replaying plain versions
-    m, n_cols = ns_shape
-    x = torch.randn(m, n_cols, generator=gen, device=dev)
-    x = ns.pad_matrix(x / x.norm()).contiguous()
-    m, n_pad = x.shape
-    a_, b_, c_ = ns.NS_COEFFS
-    gram = ns.gram_cuda(x)
-    want = ns.gram_plain(x)
-    b_mat = (b_ * want + c_ * (want @ want)).contiguous()
-    results = {"ns_gram": (gram, ns.gram_cuda(x), want,
-                           lambda: ns.gram_cuda(x),
-                           lambda: ns.gram_plain(x),
-                           lambda: torch.mm(x, x.T),
-                           (m * n_pad + m * m) * 4,
-                           # A is symmetric: m (m + 1) / 2 distinct dot
-                           # products of n FMAs (the kernel computes all m^2)
-                           float(m * (m + 1) * n_pad))}
-    applied = ns.apply_cuda(x, b_mat, a_)
-    results["ns_apply"] = (applied, ns.apply_cuda(x, b_mat, a_),
-                           ns.apply_plain(x, b_mat, a_),
-                           lambda: ns.apply_cuda(x, b_mat, a_),
-                           lambda: ns.apply_plain(x, b_mat, a_),
-                           lambda: torch.addmm(x, b_mat, x, beta=a_),
-                           (2 * m * n_pad + m * m) * 4,
-                           2.0 * m * m * n_pad)
-    for name, (k1, k2, w, fn, plain_fn, lib_fn, n_bytes,
-               n_ops) in results.items():
-        rel = ((k1 - w).abs().max() / w.abs().max()).item()
-        same = torch.equal(k1, k2)
-        require(rel < NS_RTOL, f"{name}: largest error {rel:.3e} of the "
-                f"output's largest magnitude (limit {NS_RTOL:g})")
-        require(same, f"{name}: two launches on the same input differ")
-        ms = median_ms(torch, fn, 5, 2, 1)
-        plain = median_ms(torch, plain_fn, 3, 1, 1)
-        library = median_ms(torch, lib_fn, 5, 2, 1)
-        b, by = bound_ms(n_bytes, n_ops)
-        out[name] = dict(max_abs_err=(k1 - w).abs().max().item(),
-                         rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b,
-                         bound_by=by, library_ms=library)
-        print(f"kernel {name} ({m}x{n_pad} f32): largest error {rel:.3e} of "
-              f"the largest magnitude (limit {NS_RTOL:g}), identical over "
-              f"two launches; {ms:.4f} ms, bound {b:.4f} ms ({by}), plain "
-              f"{plain:.3f} ms, library {library:.4f} ms")
+    out.update(check_ns_kernels(torch, dev, ns_shape))
+    return out
 
-    # B5 / B6 at the stacked norm vectors' shape, (10, 1024) padded to
-    # (16, 1024): 20 of a muon8 step's 25 launches of each, one partial
-    # 64 x 64 tile (rows past m masked on load and store)
-    x = torch.randn(10, 1024, generator=gen, device=dev)
-    x = ns.pad_matrix(x / x.norm()).contiguous()
-    gram, want = ns.gram_cuda(x), ns.gram_plain(x)
-    b_mat = (b_ * want + c_ * (want @ want)).contiguous()
-    checks = {"ns_gram": (gram, ns.gram_cuda(x), want),
-              "ns_apply": (ns.apply_cuda(x, b_mat, a_),
-                           ns.apply_cuda(x, b_mat, a_),
-                           ns.apply_plain(x, b_mat, a_))}
-    for name, (k1, k2, w) in checks.items():
-        rel = ((k1 - w).abs().max() / w.abs().max()).item()
-        require(rel < NS_RTOL, f"{name} at {tuple(x.shape)}: largest error "
-                f"{rel:.3e} of the output's largest magnitude (limit "
-                f"{NS_RTOL:g})")
-        require(torch.equal(k1, k2), f"{name} at {tuple(x.shape)}: two "
-                f"launches on the same input differ")
-        out[name]["rel_err_small"] = rel
-        print(f"kernel {name} ({x.shape[0]}x{x.shape[1]} f32): largest "
-              f"error {rel:.3e} of the largest magnitude (limit "
-              f"{NS_RTOL:g}), identical over two launches")
+
+def check_ns_kernels(torch, dev, shape=(1024, 50264),
+                     small=(10, 1024)) -> dict:
+    """B5 / B6 (the Newton–Schulz gram and apply) against their
+    tile-replaying plain versions at the head's ``shape`` and the stacked
+    norm vectors' ``small`` shape (each padded as the main path pads it):
+    within NS_RTOL of the output's largest magnitude, bit-identical over
+    two launches, the gram exactly symmetric.  At the head, kernel and
+    library call timed in turns by CUDA events; at the small shape, where
+    a call is a few microseconds of device time, by torch.profiler's device
+    time, the two in turns in one session.  ``bound_ms`` is the bound of
+    the design: three TF32 products per f32 product at the tensor cores'
+    TF32 rate; the f32 rate outside them gives ``f32_simt_bound_ms``."""
+    from repro_torch.kernels import newton_schulz as ns
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    a_, b_, c_ = ns.NS_COEFFS
+    out = {}
+    for (m, n_cols), head in ((shape, True), (small, False)):
+        x = torch.randn(m, n_cols, generator=gen, device=dev)
+        x = ns.pad_matrix(x / x.norm()).contiguous()
+        m, n_pad = x.shape
+        want = ns.gram_plain(x)
+        b_mat = (b_ * want + c_ * (want @ want)).contiguous()
+        cases = {
+            # A is symmetric: m (m + 1) / 2 distinct dot products of n FMAs
+            "ns_gram": (lambda: ns.gram_cuda(x), lambda: ns.gram_plain(x),
+                        lambda: torch.mm(x, x.T), want,
+                        (m * n_pad + m * m) * 4, float(m * (m + 1) * n_pad)),
+            "ns_apply": (lambda: ns.apply_cuda(x, b_mat, a_),
+                         lambda: ns.apply_plain(x, b_mat, a_),
+                         lambda: torch.addmm(x, b_mat, x, beta=a_),
+                         ns.apply_plain(x, b_mat, a_),
+                         (2 * m * n_pad + m * m) * 4, 2.0 * m * m * n_pad)}
+        for name, (fn, plain_fn, lib_fn, w, n_bytes, n_ops) in cases.items():
+            k1, k2 = fn(), fn()
+            at = f"{name} at {m}x{n_pad}"
+            rel = ((k1 - w).abs().max() / w.abs().max()).item()
+            require(rel < NS_RTOL, f"{at}: largest error {rel:.3e} of the "
+                    f"output's largest magnitude (limit {NS_RTOL:g})")
+            require(torch.equal(k1, k2),
+                    f"{at}: two launches on the same input differ")
+            require(name != "ns_gram" or torch.equal(k1, k1.T),
+                    f"{at}: the result is not exactly symmetric")
+            checked = (f"kernel {name} ({m}x{n_pad} f32): largest error "
+                       f"{rel:.3e} of the largest magnitude (limit "
+                       f"{NS_RTOL:g}), identical over two launches"
+                       f"{', exactly symmetric' if name == 'ns_gram' else ''}")
+            if not head:
+                split = device_ms_split(torch, {"library": (lib_fn, None),
+                                                "kernel": (fn, name)})
+                ms, library = split["kernel"], split["library"]
+                out[name].update(rel_err_small=rel, device_ms_small=ms,
+                                 library_device_ms_small=library)
+                print(f"{checked}; device {ms:.4f} ms per call, library "
+                      f"{library:.4f} ms")
+                continue
+            plain = median_ms(torch, plain_fn, 3, 1, 1)
+            turns = in_turns(torch, {"library": lib_fn, "kernel": fn}, 8, 2)
+            ms, library = turns["kernel"], turns["library"]
+            b, by = bound_ms(n_bytes, 3 * n_ops, TF32_FLOP_PER_S)
+            simt, _ = bound_ms(n_bytes, n_ops)
+            out[name] = dict(max_abs_err=(k1 - w).abs().max().item(),
+                             rel_err=rel, ms=ms, plain_ms=plain, bound_ms=b,
+                             bound_by=by, library_ms=library,
+                             f32_simt_bound_ms=simt)
+            print(f"{checked}; {ms:.4f} ms, library {library:.4f} ms (in "
+                  f"turns, {library / ms:.2f}x the kernel's time); 3xTF32 bound "
+                  f"{b:.4f} ms ({by}, {100 * b / ms:.0f}% of it), f32-SIMT "
+                  f"bound {simt:.4f} ms ({100 * simt / ms:.0f}%); "
+                  f"plain {plain:.3f} ms")
+            del k1, k2
     return out
 
 
@@ -710,10 +749,13 @@ def check_gather_kernel(torch, dev) -> dict:
                     f"values disagree with the plain version (err {err})")
             call_ms = median_ms(torch, lambda: paged_kv.gather_cuda(
                 codes, absmax, table, bits=bits, dtype=dt), 20, per=20)
-            ms = device_ms(torch, lambda: paged_kv.gather_cuda(
-                codes, absmax, table, bits=bits, dtype=dt))
-            plain = device_ms(torch, lambda: paged_kv._gather_torch(
-                codes, absmax, table, bits=bits, dtype=dt))
+            split = device_ms_split(torch, {
+                "kernel": (lambda: paged_kv.gather_cuda(
+                    codes, absmax, table, bits=bits, dtype=dt),
+                    "paged_gather_kernel"),
+                "plain": (lambda: paged_kv._gather_torch(
+                    codes, absmax, table, bits=bits, dtype=dt), None)}, 50)
+            ms, plain = split["kernel"], split["plain"]
             n_out = B * P_ * page * KV * Dh
             osz = 2 if dt == torch.bfloat16 else 4
             b, by = bound_ms(pages_read * page * KV * (W + 4) + B * P_ * 4
@@ -1036,7 +1078,9 @@ def train_slice3(torch, dev, cfg, batches, losses32: dict,
             prof, wall = profile_step(torch, run["step"], run["state"],
                                       batches[FAMILY_STEPS])
             total = sum(t for t, _, _ in prof)
-            ours = _kernel_share(prof, ("ns_gram_kernel", "ns_apply_kernel",
+            ours = _kernel_share(prof, ("ns_gram_kernel",
+                                        "ns_gram_reduce_kernel",
+                                        "ns_apply_kernel",
                                         "fused_update_kernel",
                                         "::quantize_kernel",
                                         "::dequantize_kernel"))
@@ -1078,9 +1122,10 @@ def train_slice3(torch, dev, cfg, batches, losses32: dict,
                     f"losses {worst:.3e} apart (limit {ORACLE_RTOL:g})")
             del oracle
         else:
+            del run
+        if label not in ORACLE_ONLY:
             require(rel < 0.01, f"{label} and {twin} final losses differ by "
                     f"{100 * rel:.2f}% (limit 1%)")
-            del run
         torch.cuda.empty_cache()
 
 
@@ -1592,8 +1637,10 @@ def main() -> int:
             elif "registers" in line:
                 # kernel<template arguments> from the mangled name
                 hit = re.search(r"\d([a-z_]+_kernel)I(.+?)EEv", entry)
+                plain = re.search(r"([a-z_]+_kernel)E", entry)
                 short = (f"{hit.group(1)}<" + ",".join(re.findall(
-                    r"L[ib](\d+)E", hit.group(2))) + ">") if hit else entry
+                    r"L[ib](\d+)E", hit.group(2))) + ">") if hit else (
+                    plain.group(1) if plain else entry)
                 print(f"build: {name}: {short}: "
                       f"{line.split(':', 1)[-1].strip()}; {spill}")
 
@@ -1776,6 +1823,10 @@ def main() -> int:
                      "library_ms": k.get("library_ms")})
         if "off_ms" in k:                 # B3(e): the sentinel-off kernel
             rows[-1]["sentinel_off_ms"] = k["off_ms"]
+        for key in ("f32_simt_bound_ms", "device_ms_small",   # B5, B6
+                    "library_device_ms_small"):
+            if key in k:
+                rows[-1][key] = k[key]
         require(rows[-1]["launches"] > 0, f"{name}: no launch in the {run} "
                 f"run")
     print(f"total {time.perf_counter() - t_start:.1f} s")

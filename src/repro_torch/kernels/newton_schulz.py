@@ -22,12 +22,21 @@ plain versions on CPU tensors; ``impl="torch"`` runs the plain versions.
 The plain versions replay the JAX package's tile loop on the same zero-
 padded arrays (rows to a multiple of 8, columns to a multiple of
 ``TILE_N``): the gram sums one (m, 256) x (256, m) product per column tile
-in order, the apply computes each column tile on its own.  The kernels sum
-each output over the whole contraction in one sequential order instead, so
-they agree with the plain versions to rounding, not bit for bit, and give
-the same bits run to run.  Products are f32 throughout: the m x m finalize
-uses ``torch.matmul``, which is full f32 on the card unless the caller has
-enabled TF32 (``torch.backends.cuda.matmul.allow_tf32``).
+in order, the apply computes each column tile on its own.  The kernels
+take their products on the tensor cores in 3xTF32 (each f32 operand split
+into two TF32 parts; lo*hi, hi*lo, then hi*hi, lo*lo dropped) and sum in
+another order: each output over 32-column stages, a stage on the tensor
+cores and the stages with round-to-nearest f32 adds; the gram's
+contraction split into chunks of whole 256-column tiles (their count from
+the C entry ``ns_gram_splits``), whose partials a second kernel adds in
+chunk order.  So they agree
+with the plain versions within a bound (``csrc/newton_schulz.cu``: about
+2e-6 of the largest magnitude expected at the head's shape, held to
+1e-5), not bit for bit, and give the same bits run to run; the gram is
+exactly symmetric.  The m x m finalize uses ``torch.matmul``, which is
+full f32 on the card unless the caller has enabled TF32
+(``torch.backends.cuda.matmul.allow_tf32``); the kernels' TF32 is their
+own.
 """
 from __future__ import annotations
 
@@ -89,20 +98,29 @@ def _check_x(x: torch.Tensor) -> None:
     build.require(x, "x", torch.float32)
 
 
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def gram_cuda(x: torch.Tensor) -> torch.Tensor:
     """A = X X^T, (m, m) f32, for a padded (m, n) f32 matrix (m <= n).
-    CUDA tensors launch ``ns_gram``; CPU tensors run :func:`gram_plain`."""
+    CUDA tensors launch ``ns_gram`` (the partial-product kernel over S
+    chunks into an (S, m, m) workspace, S from ``ns_gram_splits``, then
+    the kernel that adds the chunks); CPU tensors run :func:`gram_plain`."""
     _check_x(x)
     if x.device.type == "cpu":
         return gram_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"no gram kernel for device {x.device}")
     m, n = x.shape
-    out = torch.empty((m, m), dtype=torch.float32, device=x.device)
     lib = _lib()
+    splits = lib.ns_gram_splits(m, n, _sm_count(x.device))
+    work = torch.empty((splits, m, m), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, m), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.ns_gram(build.ptr(x), build.ptr(out), m, n,
-                         build.stream(x.device))
+        rc = lib.ns_gram(build.ptr(x), build.ptr(work), build.ptr(out), m, n,
+                         splits, build.stream(x.device))
     build.check(lib, rc, "ns_gram")
     gram_cuda.launches += 1
     return out
@@ -199,9 +217,11 @@ def muon_math(g, p, m, *, beta1, lr, weight_decay,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("newton_schulz")
-    lib.ns_gram.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [
+    lib.ns_gram.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     lib.ns_gram.restype = ctypes.c_int
+    lib.ns_gram_splits.argtypes = [ctypes.c_int] * 3
+    lib.ns_gram_splits.restype = ctypes.c_int
     lib.ns_apply.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_float] + [
         ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.ns_apply.restype = ctypes.c_int

@@ -6,8 +6,14 @@ compiler against a small emulation of the CUDA features it uses — one
 the warp shuffles, IEEE single-rounding float intrinsics — and its output
 is held bit for bit against the kernel's plain PyTorch version.  This
 covers the indexing, the block reductions, the binary-search encode and the
-in-place ordering of every kernel without a card.  What ``nvcc`` accepts,
-and the kernels' speed, only ``chip_smoke.py`` on an H100 can show."""
+in-place ordering of every kernel without a card.  The inline PTX of the
+tensor-core kernels sits behind the helpers of ``csrc/mma_sm90.cuh``, which
+the fixture replaces by a host version: a synchronous copy for
+``cp.async`` and, for the TF32 ``mma``, fragments exchanged through a
+per-warp buffer and summed in f32 in a fixed order; those kernels are held
+to their plain versions within the stated tolerance.  What ``nvcc``
+accepts, and the kernels' speed, only ``chip_smoke.py`` on an H100 can
+show."""
 import ctypes
 import re
 import shutil
@@ -35,7 +41,7 @@ CUDA_RUNTIME_H = r"""
 #define __device__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(n) __attribute__((aligned(n)))
 inline unsigned char* emu_dyn_smem;
 #define RQ_DYNAMIC_SHARED(T, name) T* name = reinterpret_cast<T*>(emu_dyn_smem)
@@ -132,6 +138,55 @@ inline __nv_bfloat16 __float2bfloat16_rn(float a) { return emu_bf16(a); }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
 """
 
+# Host version of csrc/mma_sm90.cuh.  cp.async copies at once (the kernels
+# order their stages with __syncthreads); tf32_round as on the card.  The
+# mma: every lane posts its fragments, truncated to TF32 as the tensor core
+# reads an f32 register, to a per-warp buffer, one warp barrier, then each
+# lane sums its four outputs, d + the eight products in k order, in f32.
+# Two buffers taken in turns make one barrier per call enough: a lane
+# rewrites a buffer only after the next barrier, which every lane reaches
+# after reading it.
+MMA_SM90_H = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+inline void cp_async_16(void* dst, const void* src, bool valid) {
+  if (valid) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16);
+}
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
+inline float emu_bits_and(float x, uint32_t add, uint32_t mask) {
+  uint32_t u; std::memcpy(&u, &x, 4);
+  u = (u + add) & mask;
+  std::memcpy(&x, &u, 4);
+  return x;
+}
+inline float tf32_round(float x) {
+  return emu_bits_and(x, 0x1000u, 0xffffe000u);
+}
+inline float emu_mma_buf[2][32][32][6];
+inline thread_local unsigned emu_mma_turn;
+inline void mma_tf32_m16n8k8(float (&d)[4], const float (&a)[4],
+                             const float (&b)[2]) {
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float (*buf)[6] = emu_mma_buf[emu_mma_turn++ & 1][w];
+  const uint32_t tf32 = 0xffffe000u;
+  for (int i = 0; i < 4; ++i) buf[lane][i] = emu_bits_and(a[i], 0, tf32);
+  buf[lane][4] = emu_bits_and(b[0], 0, tf32);
+  buf[lane][5] = emu_bits_and(b[1], 0, tf32);
+  emu_warp_barriers[w]->arrive_and_wait();
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i >> 1), c = 2 * t + (i & 1);
+    float s = d[i];
+    for (int k = 0; k < 8; ++k)
+      s = s + buf[(r & 7) * 4 + (k & 3)][(r >> 3) + 2 * (k >> 2)]
+              * buf[c * 4 + (k & 3)][4 + (k >> 2)];
+    d[i] = s;
+  }
+}
+"""
+
 LAUNCH = re.compile(r"<<<grid, block, (\w+), stream>>>\(")
 P = ctypes.c_void_p
 
@@ -169,6 +224,7 @@ def libs(tmp_path_factory):
     (d / "cuda_bf16.h").write_text(CUDA_BF16_H)
     for f in build.CSRC.iterdir():
         (d / f.name).write_text(_emulated_source(f.read_text()))
+    (d / "mma_sm90.cuh").write_text(MMA_SM90_H)
     procs = {n: subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
          "-pthread", f"-I{d}", "-x", "c++", str(d / f"{n}.cu"), "-o",
@@ -184,8 +240,9 @@ def libs(tmp_path_factory):
         ctypes.c_int] * 4 + [P]
     for name, (source, argtypes) in fu.ARGTYPES.items():
         getattr(libs[source], name).argtypes = argtypes
-    libs["newton_schulz"].ns_gram.argtypes = [P] * 2 + [ctypes.c_int] * 2 \
+    libs["newton_schulz"].ns_gram.argtypes = [P] * 3 + [ctypes.c_int] * 3 \
         + [P]
+    libs["newton_schulz"].ns_gram_splits.argtypes = [ctypes.c_int] * 3
     libs["newton_schulz"].ns_apply.argtypes = [P] * 3 + [ctypes.c_float] \
         + [ctypes.c_int] * 2 + [P]
     libs["paged_gather"].paged_gather.argtypes = [P] * 5 + [
@@ -614,7 +671,13 @@ def test_quantize_bits_emulated(libs, bits, seed, nb, bsz):
 
 
 # ----------------------------------------------- Newton–Schulz (B5, B6)
-NS_SHAPES = [(8, 256), (48, 256), (136, 512), (64, 64)]
+# (16, 1024): the stacked norm vectors' padded shape, 32-row tiles whose
+# warps past row (and, in the gram, column) 16 skip their products, the
+# gram in 4 chunks; (200, 2816): 11 column tiles and a partial 128-row
+# tile, the contraction of the apply (200) ends in a partial stage
+NS_SHAPES = [(8, 256), (48, 256), (136, 512), (64, 64), (32, 256), (16, 1024),
+             (200, 2816)]
+NS_SMS = 132                              # an H100's SMs
 
 
 def _ns_x(m, n, seed):
@@ -622,37 +685,59 @@ def _ns_x(m, n, seed):
         / n ** 0.5
 
 
+def _ns_gram(libs, x, splits):
+    m, n = x.shape
+    a = torch.full((m, m), float("nan"))
+    work = torch.full((splits, m, m), float("nan"))
+    rc = libs["newton_schulz"].ns_gram(*_ptrs(x, work, a), m, n, splits,
+                                       None)
+    assert rc == 0
+    return a
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
 @pytest.mark.parametrize("m,n", NS_SHAPES)
 def test_ns_gram_emulated(libs, m, n):
-    """B5 against the tile-replaying plain version.  The kernel sums each
-    entry over all n in one sequential order with FMAs, the plain version
-    per 256-column tile, then the tiles: each entry is a sum of n products,
-    and any two orders agree within n u sum|x_i y_i| (u = 2^-24); with
-    |x| ~ N(0, 1/n) that is below 2e-6 of the largest entry at these n —
-    the tolerance is 1e-5 of the output's largest magnitude.  The entries
-    must also come out exactly symmetric (FMA is symmetric in its factors)
-    and the same on a second run."""
+    """B5 against the tile-replaying plain version, at the chunk count the
+    wrapper picks for an H100.  The kernel takes 3xTF32 products and sums
+    32-column stages, then the stages with f32 adds, then the chunks; the
+    plain version sums per 256-column tile, then the tiles.  The bound of
+    ``csrc/newton_schulz.cu`` (~2e-6 of the largest entry expected) is
+    held at 1e-5 of the output's largest magnitude.  The entries must also
+    come out exactly symmetric and the same on a second run."""
     from repro_torch.kernels import newton_schulz as ns
     x = _ns_x(m, n, m)
-    outs = []
-    for _ in range(2):
-        a = torch.full((m, m), float("nan"))
-        rc = libs["newton_schulz"].ns_gram(*_ptrs(x, a), m, n, None)
-        assert rc == 0
-        outs.append(a)
+    splits = libs["newton_schulz"].ns_gram_splits(m, n, NS_SMS)
+    outs = [_ns_gram(libs, x, splits) for _ in range(2)]
     want = ns.gram_plain(x)
     assert torch.equal(outs[0], outs[1])
     assert torch.equal(outs[0], outs[0].T)
-    err = (outs[0] - want).abs().max() / want.abs().max()
-    assert err < 1e-5, float(err)
+    err = _rel_err(outs[0], want)
+    assert err < 1e-5, err
+
+
+@pytest.mark.parametrize("splits", [3, 4])
+def test_ns_gram_emulated_uneven_chunks(libs, splits):
+    """The 11 column tiles of (200, 2816) in 3 or 4 chunks of unequal
+    length (3/4/4 and 2/3/3/3 tiles): the same tolerance and exact
+    symmetry, whatever the split."""
+    from repro_torch.kernels import newton_schulz as ns
+    x = _ns_x(200, 2816, 200)
+    a = _ns_gram(libs, x, splits)
+    assert torch.equal(a, a.T)
+    err = _rel_err(a, ns.gram_plain(x))
+    assert err < 1e-5, err
 
 
 @pytest.mark.parametrize("m,n", NS_SHAPES)
 def test_ns_apply_emulated(libs, m, n):
     """B6 against the plain version (a X + B X per column tile), with the
     quintic's a and a B of the iteration's own scale: each entry sums m
-    products in another order (tolerance 1e-5 of the largest magnitude,
-    as for the gram), bits identical run to run."""
+    3xTF32 products in another order (tolerance 1e-5 of the largest
+    magnitude, as for the gram), bits identical run to run."""
     from repro_torch.kernels import newton_schulz as ns
     a_, b_, c_ = ns.NS_COEFFS
     x = _ns_x(m, n, m + 1)
@@ -668,16 +753,37 @@ def test_ns_apply_emulated(libs, m, n):
         outs.append(out)
     want = ns.apply_plain(x, b_mat, a_)
     assert torch.equal(outs[0], outs[1])
-    err = (outs[0] - want).abs().max() / want.abs().max()
-    assert err < 1e-5, float(err)
+    err = _rel_err(outs[0], want)
+    assert err < 1e-5, err
 
 
 def test_ns_kernels_reject_bad_shapes(libs):
-    x = torch.zeros(8, 100)
+    x = torch.zeros(8, 256)
     a = torch.zeros(8, 8)
-    assert libs["newton_schulz"].ns_gram(*_ptrs(x, a), 8, 100, None) != 0
+    work = torch.zeros(2, 8, 8)
+    gram = libs["newton_schulz"].ns_gram
+    assert gram(*_ptrs(x, work, a), 8, 100, 1, None) != 0   # n % 64
+    assert gram(*_ptrs(x, work, a), 8, 256, 0, None) != 0   # no chunk
+    assert gram(*_ptrs(x, work, a), 8, 256, 2, None) != 0   # > column tiles
     assert libs["newton_schulz"].ns_apply(*_ptrs(x, a, x), 1.0, 8, 128,
                                           None) != 0    # out aliases x
+
+
+def test_gram_splits_fill_whole_waves(libs):
+    """The chunk count the wrapper takes from the kernel's library: whole
+    waves of 132 CTAs at the head's shape, one chunk per column tile when
+    that fits in one wave (also for the 32-row tile of m <= 32), 0 for a
+    shape the kernels refuse."""
+    from repro_torch.kernels import newton_schulz as ns
+    gram_splits = libs["newton_schulz"].ns_gram_splits
+    assert gram_splits(1024, 50432, 132) == 11        # 396 = 3 x 132
+    assert gram_splits(16, 1024, 132) == 4
+    assert gram_splits(200, 2816, 132) == 11
+    assert gram_splits(64, 64, 132) == 1
+    assert gram_splits(8, 100, 132) == 0
+    for m, n in [(1024, 50432), (512, 4096), (1320, 8192)]:
+        s = gram_splits(m, n, 132)
+        assert 1 <= s <= -(-n // ns.TILE_N)
 
 
 # (n_pages, page, KV, Dh, B, P): Dh 64 takes the 16-byte path (W = 64 or
