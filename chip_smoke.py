@@ -340,8 +340,9 @@ def card_line() -> str:
 # ------------------------------------------------------------------ phase 3
 def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
                   bsz: int = 2048) -> dict:
-    """Each kernel against its plain version at (nb, bsz); the default is
-    the main path's largest leaf, blocks/b0_attn/mlp/w_in."""
+    """B1, B2 and the 8-bit updates B3(a)-(c) against their plain versions
+    at (nb, bsz); the default is the main path's largest leaf,
+    blocks/b0_attn/mlp/w_in."""
     from repro_torch.core import qmap
     from repro_torch.kernels import blockwise_dequant as bdq
     from repro_torch.kernels import blockwise_quant as bq
@@ -393,8 +394,8 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
                                             bound_by=by)
     del x, ck, cp, vk, vp
 
-    # B3 fused updates and the B4 norm prologue: one step from random
-    # nonzero states, each variant against its plain version
+    # B3 fused updates: one step from random nonzero states, each variant
+    # against its plain version
     p = torch.randn(nb, bsz, generator=gen, device=dev) * 0.02
     g = torch.randn(nb, bsz, generator=gen, device=dev) * 1e-3
     codes = [torch.randint(0, 256, (nb, bsz), generator=gen, device=dev,
@@ -404,39 +405,13 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
     hyper = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
                  weight_decay=WEIGHT_DECAY, step=7.0, gnorm_scale=1.0)
     s = fu.scalars(device=dev, **hyper)
-    norm_hyper = {k: v for k, v in hyper.items() if k != "lr"}
-    library = median_ms(torch, lambda: (torch.linalg.vector_norm(p, dim=1),
-                                        torch.linalg.vector_norm(g, dim=1)),
-                        20)
-    for kind in ("lars", "lamb"):
-        lamb = kind == "lamb"
-        state = (codes[0], am, codes[1], ar, qs, qu) if lamb \
-            else (None,) * 6
-        want = fu.norm_partials_plain(p, g, *state, s, algo=kind)
-        got = fu.norm_partials_cuda(p, g, *state, algo=kind, **norm_hyper)
-        err = (got - want).abs().max().item()
-        n_bad = int((got != want).sum())
-        require(n_bad == 0, f"norm_partials/{kind}: {n_bad} partials "
-                f"disagree with the plain version (err {err})")
-        ms = median_ms(torch, lambda: fu.norm_partials_cuda(
-            p, g, *state, algo=kind, **norm_hyper), 20)
-        plain = median_ms(torch, lambda: fu.norm_partials_plain(
-            p, g, *state, s, algo=kind), 3, 2, 1)
-        b, by = bound_ms(n * (10 if lamb else 8) + nb * (40 if lamb else 32),
-                         n * (26 if lamb else 6))
-        out[f"norm_partials/{kind}"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=library)
-        print(f"kernel norm_partials {kind} ({nb}x{bsz}): exact, 0 "
-              f"mismatches; {ms:.4f} ms, bound {b:.4f} ms ({by}), plain "
-              f"{plain:.3f} ms, torch.linalg.vector_norm of p and g "
-              f"{library:.4f} ms")
-        if lamb:
-            partials_lamb = got
-    ts = fu.segment_scales_from_partials(fu.ALGO_SPECS["lamb"],
-                                         partials_lamb, ((0, nb),), nb,
-                                         WEIGHT_DECAY, 1e-3)
-    del want, got, partials_lamb
+    # lamb/lars take the trust ratio of lamb's prologue (B4 is checked and
+    # timed in check_packed_and_norm_kernels)
+    partials = fu.norm_partials_plain(p, g, codes[0], am, codes[1], ar, qs,
+                                      qu, s, algo="lamb")
+    ts = fu.segment_scales_from_partials(fu.ALGO_SPECS["lamb"], partials,
+                                         ((0, nb),), nb, WEIGHT_DECAY, 1e-3)
+    del partials
 
     for variant, (algo, sr) in VARIANTS.items():
         spec = fu.ALGO_SPECS[algo]
@@ -452,8 +427,6 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
         del uniforms
         got = [None if t is None else t.clone()
                for t in (p, codes[0], am, cr, arr)]
-        # the update kernel alone: lamb/lars take the trust ratio computed
-        # above (the prologue is checked and timed on its own)
         kw = dict(hyper, algo=algo, stochastic=sr, seed=SEED,
                   tensor_scale_blocks=ts_v)
         fu.fused_update_cuda(got[0], g, got[1], got[2], got[3], got[4], q1,
@@ -490,16 +463,31 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
     return out
 
 
-def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
-                         bsz: int = 2048, ns_shape=(1024, 50264)) -> dict:
-    """The third slice's kernels against their plain versions: the packed
-    update (B3(d)), lamb's prologue on packed states (B4), quantize and
-    dequantize at 4 bits (B1/B2) at (nb, bsz); the Newton–Schulz gram and
-    apply (B5/B6) at ``ns_shape``, the main path's head."""
+def _mismatches(got, want) -> tuple[int, float]:
+    """(values of got that differ from want, largest |difference|) over
+    pairs of tensors; a None in want skips its pair."""
+    n_bad, err = 0, 0.0
+    for k_, w_ in zip(got, want):
+        if w_ is None:
+            continue
+        n_bad += int((k_ != w_).sum())
+        err = max(err, (k_.float() - w_.float()).abs().max().item())
+    return n_bad, err
+
+
+def check_packed_and_norm_kernels(torch, dev,
+                                  nb: int = 10 * 1024 * 8192 // 2048,
+                                  bsz: int = 2048) -> dict:
+    """The two kernels whose CTAs walk the blocks, against their plain
+    versions at (nb, bsz), the main path's largest leaf: exact.  B4, the
+    norm prologue, for lars, lamb and lamb on (4, 8) states, each timed in
+    turns with its library call (torch.linalg.vector_norm of p and of g);
+    B3(d), the packed update, at each of PACKED_VARIANTS, and at (4, 8)
+    timed in turns with the 8-bit update B3(a) (adamw) on the same p and
+    g.  Only the wrappers' Python interface is used, so that
+    scripts/ns_bench.py can run this on another tree's kernels."""
     from repro_torch.core import qmap
     from repro_torch.core.lowbit import pack_codes
-    from repro_torch.kernels import blockwise_dequant as bdq
-    from repro_torch.kernels import blockwise_quant as bq
     from repro_torch.kernels import fused_update as fu
 
     n = nb * bsz
@@ -517,14 +505,57 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
         0, 1 << bits, (nb, bsz), generator=gen, device=dev), bits)
     out = {}
 
-    def mismatches(got, want):
-        n_bad, err = 0, 0.0
-        for k_, w_ in zip(got, want):
-            if w_ is None:
-                continue
-            n_bad += int((k_ != w_).sum())
-            err = max(err, (k_.float() - w_.float()).abs().max().item())
-        return n_bad, err
+    # B4: lars, lamb and lamb on (4, 8) states, each in turns with the two
+    # vector norms (the prologue also adds ||u||^2 for lamb: the library
+    # call is the same for all three)
+    norm_hyper = {k: v for k, v in hyper.items() if k != "lr"}
+    library_fn = lambda: (torch.linalg.vector_norm(p, dim=1),
+                          torch.linalg.vector_norm(g, dim=1))
+    for name, bits in (("lars", None), ("lamb", (8, 8)),
+                       ("lamb_4_8", (4, 8))):
+        kind = "lars" if bits is None else "lamb"
+        bits_m, bits_r = bits or (8, 8)
+        state = ((codes(bits_m), am, codes(bits_r), ar, qm(bits_m),
+                  qm(bits_r, False)) if bits else (None,) * 6)
+        kw = dict(norm_hyper, algo=kind, bits_m=bits_m, bits_r=bits_r)
+        want = fu.norm_partials_plain(p, g, *state, s, algo=kind,
+                                      bits_m=bits_m, bits_r=bits_r)
+        got = fu.norm_partials_cuda(p, g, *state, **kw)
+        n_bad, err = _mismatches([got], [want])
+        require(n_bad == 0, f"norm_partials/{name}: {n_bad} partials "
+                f"disagree with the plain version (err {err})")
+        # 20 calls between the events: the first call's host time (~0.1 ms
+        # of the wrapper's Python before its launch, against ~0.02 ms for
+        # the library's) falls on the timed span once per 20 calls
+        turns = in_turns(torch, {
+            "library": library_fn,
+            "kernel": lambda: fu.norm_partials_cuda(p, g, *state, **kw)},
+            20, 20)
+        ms, library = turns["kernel"], turns["library"]
+        # device time alone, the two in turns in one profiler session: the
+        # wrapper's host time does not enter it
+        split = device_ms_split(torch, {
+            "library": (library_fn, None),
+            "kernel": (lambda: fu.norm_partials_cuda(p, g, *state, **kw),
+                       "norm_partials_kernel")})
+        plain = median_ms(torch, lambda: fu.norm_partials_plain(
+            p, g, *state, s, algo=kind, bits_m=bits_m, bits_r=bits_r), 3, 2,
+            1)
+        per_elem = 8 + (bits_m + bits_r) / 8 if bits else 8
+        b, by = bound_ms(n * per_elem + nb * (40 if bits else 32),
+                         n * (26 if bits else 6))
+        out[f"norm_partials/{name}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=library, device_ms=split["kernel"],
+            library_device_ms=split["library"])
+        print(f"kernel norm_partials {name} ({nb}x{bsz}): exact, 0 "
+              f"mismatches; {ms:.4f} ms, in turns with torch.linalg."
+              f"vector_norm of p and g {library:.4f} ms ({ms / library:.3f}x "
+              f"its time); device time {split['kernel']:.4f} ms against "
+              f"{split['library']:.4f} ms "
+              f"({split['kernel'] / split['library']:.3f}x); bound {b:.4f} "
+              f"ms ({by}, {100 * b / ms:.0f}% of it), plain {plain:.3f} ms")
+        del state, want, got
 
     # B3(d): the packed update, every variant bit-exact
     for variant, (algo, bits_m, bits_r, sr) in PACKED_VARIANTS.items():
@@ -544,13 +575,13 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
         kw = dict(hyper, algo=algo, stochastic=sr, seed=SEED, bits_m=bits_m,
                   bits_r=bits_r)
         fu.fused_update_cuda(got[0], g, *got[1:], q1, q2, **kw)
-        n_bad, err = mismatches(got, want[:5])
+        n_bad, err = _mismatches(got, want[:5])
         require(n_bad == 0, f"fused_update/{variant}: {n_bad} values (p, "
                 f"packed codes, absmax) disagree with the plain version "
                 f"(err {err})")
         del want
-        ms = median_ms(torch, lambda: fu.fused_update_cuda(
-            got[0], g, *got[1:], q1, q2, **kw), 20)
+        run = lambda: fu.fused_update_cuda(got[0], g, *got[1:], q1, q2, **kw)
+        ms = median_ms(torch, run, 20)
         plain = median_ms(torch, lambda: fu.fused_update_plain(
             p, g, cm, am, cr, arr, q1, q2, s, algo=algo,
             uniforms=(fu.block_uniforms(nb, bsz, two=two, seed=SEED,
@@ -568,39 +599,46 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
         print(f"kernel fused_update {variant} ({nb}x{bsz}, bits "
               f"{bits_m}/{bits_r if two else '-'}): p, packed codes and "
               f"absmax exact, 0 mismatches; {ms:.4f} ms, bound {b:.4f} ms "
-              f"({by}), plain {plain:.3f} ms")
-        del got, cm, cr
+              f"({by}, {100 * b / ms:.0f}% of it), plain {plain:.3f} ms")
+        if variant == "adam8_4_8":
+            # in turns with the 8-bit kernel (adamw, B3(a)) on the same p, g
+            st8 = [p.clone(), codes(8), am.clone(), codes(8), ar.clone()]
+            q8s, q8u = qm(8), qm(8, False)
+            turns = in_turns(torch, {
+                "8bit": lambda: fu.fused_update_cuda(
+                    st8[0], g, *st8[1:], q8s, q8u, **dict(kw, algo="adamw",
+                                                          bits_m=8,
+                                                          bits_r=8)),
+                "packed": run}, 20, 5)
+            out[f"fused_update/{variant}"]["adamw8_in_turns_ms"] = \
+                turns["8bit"]
+            print(f"kernel fused_update {variant} in turns with adamw8 "
+                  f"(B3(a)) on the same p and g: {turns['packed']:.4f} ms vs "
+                  f"{turns['8bit']:.4f} ms "
+                  f"({turns['packed'] / turns['8bit']:.3f}x)")
+            del st8
+        del got, cm, cr, run
+    del p, g
+    return out
 
-    # B4: lamb's norm prologue on (4, 8) states
-    q1, q2 = qm(4), qm(8, False)
-    cm, cr = codes(4), codes(8)
-    state = (cm, am, cr, ar, q1, q2)
-    norm_hyper = {k: v for k, v in hyper.items() if k != "lr"}
-    want = fu.norm_partials_plain(p, g, *state, s, algo="lamb", bits_m=4,
-                                  bits_r=8)
-    got = fu.norm_partials_cuda(p, g, *state, algo="lamb", bits_m=4,
-                                bits_r=8, **norm_hyper)
-    n_bad, err = mismatches([got], [want])
-    require(n_bad == 0, f"norm_partials/lamb_4_8: {n_bad} partials disagree "
-            f"with the plain version (err {err})")
-    ms = median_ms(torch, lambda: fu.norm_partials_cuda(
-        p, g, *state, algo="lamb", bits_m=4, bits_r=8, **norm_hyper), 20)
-    plain = median_ms(torch, lambda: fu.norm_partials_plain(
-        p, g, *state, s, algo="lamb", bits_m=4, bits_r=8), 3, 2, 1)
-    library = median_ms(torch, lambda: (torch.linalg.vector_norm(p, dim=1),
-                                        torch.linalg.vector_norm(g, dim=1)),
-                        20)
-    b, by = bound_ms(n * 9.5 + nb * 40, n * 26)
-    out["norm_partials/lamb_4_8"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-        library_ms=library)
-    print(f"kernel norm_partials lamb_4_8 ({nb}x{bsz}): exact, 0 mismatches; "
-          f"{ms:.4f} ms, bound {b:.4f} ms ({by}), plain {plain:.3f} ms, "
-          f"torch.linalg.vector_norm of p and g {library:.4f} ms")
-    del want, got, state, cm, cr
+
+def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
+                         bsz: int = 2048, ns_shape=(1024, 50264)) -> dict:
+    """The third slice's kernels against their plain versions: quantize and
+    dequantize at 4 bits (B1/B2) at (nb, bsz); the Newton–Schulz gram and
+    apply (B5/B6) at ``ns_shape``, the main path's head.  (The packed
+    update B3(d) and lamb's prologue on packed states are in
+    :func:`check_packed_and_norm_kernels`.)"""
+    from repro_torch.core import qmap
+    from repro_torch.kernels import blockwise_dequant as bdq
+    from repro_torch.kernels import blockwise_quant as bq
+
+    n = nb * bsz
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    out = {}
 
     # B1 / B2 at 4 bits; B1 also stochastic
-    q4 = qm(4)
+    q4 = torch.as_tensor(qmap.get_qmap("dynamic", True, bits=4), device=dev)
     x = torch.randn(nb, bsz, generator=gen, device=dev) * torch.exp(
         torch.randn(nb, 1, generator=gen, device=dev) * 3)
     x[0] = 0.0
@@ -608,7 +646,7 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
                        ("blockwise_quant/4bit_sr", SEED + 11)):
         ck, ak = bq.quantize_blockwise(x, q4, bits=4, seed=seed)
         cp, ap = bq.quantize_plain(x, q4, bits=4, seed=seed)
-        n_bad, err = mismatches([ck, ak], [cp, ap])
+        n_bad, err = _mismatches([ck, ak], [cp, ap])
         require(n_bad == 0, f"{name}: {n_bad} packed codes or absmax "
                 f"disagree with the plain version (err {err})")
         ms = median_ms(torch, lambda: bq.quantize_blockwise(
@@ -623,7 +661,7 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
               f"{b:.4f} ms ({by}), plain {plain:.3f} ms")
     vk = bdq.dequantize_blockwise(ck, ak, q4, bits=4)
     vp = bdq.dequantize_plain(ck, ak, q4, bits=4)
-    n_bad, err = mismatches([vk], [vp])
+    n_bad, err = _mismatches([vk], [vp])
     require(n_bad == 0, f"blockwise_dequant/4bit disagrees with its plain "
             f"version (err {err})")
     ms = median_ms(torch, lambda: bdq.dequantize_blockwise(ck, ak, q4,
@@ -636,7 +674,7 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
                                          bound_by=by, library_ms=None)
     print(f"kernel blockwise_dequant/4bit ({nb}x{bsz} -> f32): exact; "
           f"{ms:.4f} ms, bound {b:.4f} ms ({by}), plain {plain:.3f} ms")
-    del x, ck, ak, cp, ap, vk, vp, p, g
+    del x, ck, ak, cp, ap, vk, vp
 
     out.update(check_ns_kernels(torch, dev, ns_shape))
     return out
@@ -1074,6 +1112,17 @@ def train_slice3(torch, dev, cfg, batches, losses32: dict,
                     and all(packed(leaf.codes_r, b_r) for leaf in quant
                             if leaf.codes_r is not None),
                     f"{label}: codes are not packed at {b_m}/{b_r} bits")
+        if label == "adam8_4_8":
+            prof, wall = profile_step(torch, run["step"], run["state"],
+                                      batches[FAMILY_STEPS])
+            total = sum(t for t, _, _ in prof)
+            ours = _kernel_share(prof, ("fused_update_packed_kernel",))
+            print(f"profile adam8_4_8 step: {total:.2f} ms device time over "
+                  f"{wall:.2f} ms wall (device idle "
+                  f"{100 * (1 - total / wall):.1f}%); port kernels: "
+                  + "; ".join(f"{k} {t:.3f} ms in {n} launches "
+                              f"({100 * t / total:.1f}% of device time)"
+                              for k, (t, n) in ours.items()))
         if label == "muon8":
             prof, wall = profile_step(torch, run["step"], run["state"],
                                       batches[FAMILY_STEPS])
@@ -1644,8 +1693,33 @@ def main() -> int:
                 print(f"build: {name}: {short}: "
                       f"{line.split(':', 1)[-1].strip()}; {spill}")
 
+    # the grids of the kernels whose CTAs walk the blocks, at the main
+    # path's largest leaf (their registers and static shared memory are on
+    # the build lines above)
+    from repro_torch.kernels import fused_update as fu
+    sms, nb_main = build.sm_count(dev), 10 * 1024 * 8192 // 2048
+    lib_fu, lib_np = fu._lib("fused_update"), fu._lib("norm_partials")
+    ctas = lib_fu.fused_update_packed_ctas(nb_main, 2048, sms)
+    smem = {bits: lib_fu.fused_update_packed_smem(fu.KERNEL_ALGOS["adam"],
+                                                  2048, *bits)
+            for bits in ((4, 8), (5, 5), (6, 6))}
+    print(f"grid: fused_update_packed_kernel at {nb_main}x2048: {ctas} "
+          f"CTAs on {sms} SMs ({nb_main / ctas:.1f} blocks each); dynamic "
+          f"shared memory per CTA for adam "
+          + ", ".join(f"{b}: {v} B" for b, v in smem.items()))
+    for kind in ("lars", "lamb"):
+        ctas = lib_np.norm_partials_ctas(fu.NORM_KINDS[kind], nb_main, 2048,
+                                         sms)
+        print(f"grid: norm_partials_kernel {kind} at {nb_main}x2048: {ctas} "
+              f"CTAs on {sms} SMs ({nb_main / ctas:.1f} blocks each), "
+              f"dynamic shared memory 0 B" + (
+                  f" ({lib_np.norm_partials_smem(2048, 4, 8)} B on (4, 8) "
+                  f"states)" if kind == "lamb" else ""))
+
     # ---- 3. kernels vs plain versions
     kernels = check_kernels(torch, dev)
+    torch.cuda.empty_cache()
+    kernels.update(check_packed_and_norm_kernels(torch, dev))
     torch.cuda.empty_cache()
     kernels.update(check_slice3_kernels(torch, dev))
     torch.cuda.empty_cache()
@@ -1824,7 +1898,8 @@ def main() -> int:
         if "off_ms" in k:                 # B3(e): the sentinel-off kernel
             rows[-1]["sentinel_off_ms"] = k["off_ms"]
         for key in ("f32_simt_bound_ms", "device_ms_small",   # B5, B6
-                    "library_device_ms_small"):
+                    "library_device_ms_small", "device_ms",      # B4
+                    "library_device_ms", "adamw8_in_turns_ms"):  # B3(d)
             if key in k:
                 rows[-1][key] = k[key]
         require(rows[-1]["launches"] > 0, f"{name}: no launch in the {run} "

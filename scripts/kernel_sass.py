@@ -4,7 +4,7 @@
     python3 scripts/kernel_sass.py [SOURCE ...] [--filter REGEX] [--dump FILE]
 
 Builds the named sources of ``src/repro_torch/kernels/csrc`` (default:
-fused_update) with the port's own flags (``repro_torch.kernels.build``),
+fused_update and norm_partials) with the port's own flags (``repro_torch.kernels.build``),
 disassembles each library with ``cuobjdump -sass`` and prints, for every
 kernel instance whose name matches ``--filter``, its static instruction
 count and the counts of a few opcode families (barriers, shuffles,
@@ -12,7 +12,10 @@ compares, selects, float adds and FMAs, tensor-core products (HMMA),
 shared and global loads, cp.async copies (LDGSTS)).  The names read
 ``kernel<template arguments>``, e.g.
 ``fused_update_kernel<0,2,0,1>`` = adam, 2 vectors per thread, not
-stochastic, with the sentinel.  ``--dump FILE`` writes the matching
+stochastic, with the sentinel; ``fused_update_packed_kernel<0,1,0,0>`` =
+adam, 1 group of 8 elements per thread, not stochastic, no sentinel;
+``norm_partials_kernel<1,2,1>`` = lamb, 2 vectors per thread, packed
+rows.  ``--dump FILE`` writes the matching
 kernels' SASS to FILE.  Needs the CUDA toolkit (nvcc, cuobjdump):
 it runs on the machine with the card.
 """
@@ -67,7 +70,8 @@ def sass_counts(lib: Path) -> tuple[dict, dict]:
 def main(argv=None) -> int:
     from repro_torch.kernels import build
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("sources", nargs="*", default=["fused_update"])
+    ap.add_argument("sources", nargs="*",
+                    default=["fused_update", "norm_partials"])
     ap.add_argument("--filter", default=".")
     ap.add_argument("--dump")
     args = ap.parse_args(argv)

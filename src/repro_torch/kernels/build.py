@@ -113,6 +113,14 @@ def require(t, name: str, dtype, shape=None, device=None) -> None:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
 
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device, from which the kernels'
+    C helpers size their grids (the gram's chunks, the CTAs of the packed
+    update and the norm prologue)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 

@@ -18,6 +18,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "mma_sm90.cuh"
+
 // A dynamic shared-memory array of the launch's third <<<>>> argument.
 #ifndef RQ_DYNAMIC_SHARED
 #define RQ_DYNAMIC_SHARED(T, name) extern __shared__ __align__(16) T name[]
@@ -63,6 +65,27 @@ __device__ __forceinline__ void load_codebook(const float* qmap, float* lut,
   __syncthreads();
 }
 
+// Copy a codebook of n_levels = 2^bits entries into shared memory (lut, as
+// load_lut) and build its n_levels - 1 midpoints (cb[i+1] + cb[i]) * 0.5 in
+// Eytzinger order for encode_tree: tree[k], k = 1 .. n_levels - 1, is the
+// node k of a complete binary search tree over the sorted midpoints (its
+// children 2k and 2k + 1; node k at level d = floor(log2 k), j = k - 2^d,
+// holds midpoint (2j + 1) 2^(bits - 1 - d) - 1).  Ends with a barrier.
+__device__ __forceinline__ void load_codebook_tree(const float* qmap,
+                                                   float* lut, float* tree,
+                                                   int bits) {
+  const int n_levels = 1 << bits;
+  load_lut(qmap, lut, n_levels);
+  __syncthreads();
+  for (int k = threadIdx.x + 1; k < n_levels; k += blockDim.x) {
+    int d = 0;
+    while ((2 << d) <= k) ++d;
+    const int i = ((2 * (k - (1 << d)) + 1) << (bits - 1 - d)) - 1;
+    tree[k] = __fmul_rn(__fadd_rn(lut[i + 1], lut[i]), 0.5f);
+  }
+  __syncthreads();
+}
+
 // ---- bit-packed codes (core/lowbit/packing.py): a row of b-bit codes is
 // an MSB-first big-endian bitstream, code j at stream bits [j*b, j*b + b),
 // byte k holding stream bits [8k, 8k + 8) with bit 8k at its bit 7.  5- and
@@ -94,6 +117,78 @@ __device__ __forceinline__ uint8_t pack_byte(const uint8_t* codes,
   return static_cast<uint8_t>(acc & 0xFFu);
 }
 
+// The b bytes of 8 consecutive b-bit codes of a packed row, as one
+// big-endian integer: code c of the 8 is bits [b (7 - c), b (8 - c)).
+__device__ __forceinline__ uint64_t load_group(const uint8_t* src, int bits) {
+  uint64_t v = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    if (i < bits) v = (v << 8) | src[i];
+  return v;
+}
+
+__device__ __forceinline__ uint32_t bswap32(uint32_t x) {
+  return (x >> 24) | ((x >> 8) & 0xFF00u) | ((x << 8) & 0xFF0000u) |
+         (x << 24);
+}
+
+// Store the b bytes of a group (load_group's layout) at dst, in the widest
+// words its alignment allows: dst is 4-byte aligned at b = 4, 8-byte at
+// b = 8 and 2-byte at b = 6 (a packed row of B = 8k elements is k b bytes,
+// and a group starts b bytes after the previous one).
+__device__ __forceinline__ void store_group(uint8_t* dst, uint64_t v,
+                                            int bits) {
+  if (bits == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = bswap32(static_cast<uint32_t>(v));
+  } else if (bits == 8) {
+    uint2 w;
+    w.x = bswap32(static_cast<uint32_t>(v >> 32));
+    w.y = bswap32(static_cast<uint32_t>(v));
+    *reinterpret_cast<uint2*>(dst) = w;
+  } else if (bits == 6) {
+    uint16_t* d = reinterpret_cast<uint16_t*>(dst);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const uint32_t w = static_cast<uint32_t>(v >> (32 - 16 * i)) & 0xFFFFu;
+      d[i] = static_cast<uint16_t>((w >> 8) | ((w & 0xFFu) << 8));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < bits)
+        dst[i] = static_cast<uint8_t>(v >> (8 * (bits - 1 - i)));
+  }
+}
+
+// Bytes a packed row of w bytes takes in a staging buffer: it is copied
+// from the 16-byte boundary at or below its start, so it begins up to 15
+// bytes in, and one readable byte follows it (unpack_code).
+__host__ __device__ __forceinline__ int staged_row_bytes(int w) {
+  return (w + 15) / 16 * 16 + 16;
+}
+
+// Issue this thread's share of the copies of the packed row of w bytes at
+// byte `start` of `codes` (total bytes) into dst (16-byte aligned): 16-byte
+// cp.async pieces from the 16-byte boundary at or below start; a piece
+// that would read past `total` is read byte by byte (zeros past it).  The
+// row begins at dst + (start & 15).  No commit.
+__device__ __forceinline__ void stage_packed_row(uint8_t* dst,
+                                                 const uint8_t* codes,
+                                                 size_t start, int w,
+                                                 size_t total) {
+  const size_t base = start & ~static_cast<size_t>(15);
+  const int pieces = static_cast<int>((start + w - base + 15) / 16);
+  for (int c = threadIdx.x; c < pieces; c += blockDim.x) {
+    const size_t off = base + 16 * static_cast<size_t>(c);
+    if (off + 16 <= total) {
+      cp_async_16(dst + 16 * c, codes + off, true);
+    } else {
+      for (int i = 0; i < 16; ++i)
+        dst[16 * c + i] = off + i < total ? codes[off + i] : 0;
+    }
+  }
+}
+
 // Number of midpoints b_j <= x, j < 255: binary lifting over the sorted
 // midpoints.  Reads bounds[0..254] only; NaN compares false everywhere and
 // gets code 0.
@@ -103,6 +198,19 @@ __device__ __forceinline__ uint32_t encode(float x, const float* bounds) {
   for (uint32_t step = 128; step > 0; step >>= 1)
     pos += (bounds[pos + step - 1] <= x) ? step : 0u;
   return pos;
+}
+
+// Number of the 2^BITS - 1 midpoints <= x, by BITS steps down the
+// Eytzinger tree of load_codebook_tree: the same count as encode over the
+// same midpoints padded with +inf, capped at 2^BITS - 1 (NaN: 0; +inf:
+// 2^BITS - 1).  A warp's lanes read the first five levels from neighbouring
+// words, so those reads do not conflict in shared-memory banks.
+template <int BITS>
+__device__ __forceinline__ uint32_t encode_tree(float x, const float* tree) {
+  uint32_t k = 1;
+#pragma unroll
+  for (int d = 0; d < BITS; ++d) k = 2 * k + (tree[k] <= x ? 1u : 0u);
+  return k - (1u << BITS);
 }
 
 __device__ __forceinline__ float decode(uint32_t code, const float* lut) {
@@ -178,22 +286,12 @@ __device__ __forceinline__ float hash_uniform(uint32_t idx, uint32_t seed) {
   return __fmul_rn(static_cast<float>(x >> 8), 1.0f / 16777216.0f);
 }
 
-// The code of one value of a block being requantized: nearest code of
-// x / scale; with a uniform u, moved to the neighbour on the far side of
-// x / scale with probability |x - q_near| / |q_other - q_near| (never past
-// max_code).  NaN gets code 0 and stays there.  x / scale is +inf only
-// when the block also holds a NaN (absmax NaN, scale 1): encode counts
-// every +inf midpoint padding it, so the code is capped at max_code, the
-// code the JAX package's searchsorted oracle gives.
-__device__ __forceinline__ uint32_t requant_code(float x, float scale,
-                                                 const float* lut,
-                                                 const float* bounds,
-                                                 bool stochastic, float u,
-                                                 uint32_t max_code) {
-  const float xn = __fdiv_rn(x, scale);
-  uint32_t code = encode(xn, bounds);
-  code = code > max_code ? max_code : code;
-  if (!stochastic) return code;
+// The stochastic choice of requant_code: code, the nearest code of xn,
+// moved to the neighbour on the far side of xn with probability
+// |xn - q_near| / |q_other - q_near| (never past max_code).
+__device__ __forceinline__ uint32_t stochastic_code(float xn, uint32_t code,
+                                                    const float* lut, float u,
+                                                    uint32_t max_code) {
   const float q_near = lut[code];
   int other = static_cast<int>(code) + (xn > q_near ? 1 : -1);
   other = other < 0 ? 0 : (other > static_cast<int>(max_code)
@@ -202,6 +300,23 @@ __device__ __forceinline__ uint32_t requant_code(float x, float scale,
   const float p_other =
       span > 0.f ? __fdiv_rn(fabsf(__fsub_rn(xn, q_near)), span) : 0.f;
   return u < p_other ? static_cast<uint32_t>(other) : code;
+}
+
+// The code of one value of a block being requantized: nearest code of
+// x / scale; with a uniform u, the stochastic choice (stochastic_code).
+// NaN gets code 0 and stays there.  x / scale is +inf only when the block
+// also holds a NaN (absmax NaN, scale 1): encode counts every +inf
+// midpoint padding it, so the code is capped at max_code, the code the
+// JAX package's searchsorted oracle gives.
+__device__ __forceinline__ uint32_t requant_code(float x, float scale,
+                                                 const float* lut,
+                                                 const float* bounds,
+                                                 bool stochastic, float u,
+                                                 uint32_t max_code) {
+  const float xn = __fdiv_rn(x, scale);
+  uint32_t code = encode(xn, bounds);
+  code = code > max_code ? max_code : code;
+  return stochastic ? stochastic_code(xn, code, lut, u, max_code) : code;
 }
 
 // |x| <= FLT_MAX: false for NaN and +-inf (no isfinite needed).
@@ -290,6 +405,22 @@ __device__ __forceinline__ float3 block_sum3(float a, float b, float c,
 }
 
 }  // namespace rq
+
+// Waves of resident CTAs in the grid of a kernel whose CTAs walk the
+// blocks (fused_update_packed_kernel, norm_partials_kernel): each CTA
+// walks n_blocks / ctas blocks, a few at the main path's shape, and the
+// hardware hands CTAs to the SMs that free up.  One wave of CTAs with
+// fixed shares of the blocks ran 13% slower on an H100 (B3(d), PERF.md):
+// the SMs that finished first sat idle.
+constexpr int kWaves = 16;
+
+// The grid of such a kernel: kWaves waves of per_sm CTAs on each of sms
+// SMs, at most one CTA per block; 0 for no block or no SM.
+static inline int rq_walk_ctas(int n_blocks, int sms, int per_sm) {
+  if (n_blocks <= 0 || sms <= 0) return 0;
+  const long long ctas = static_cast<long long>(sms) * per_sm * kWaves;
+  return ctas < n_blocks ? static_cast<int>(ctas) : n_blocks;
+}
 
 // Vectors of 4 per thread a kernel holds in registers for a block of
 // block_size elements: 1, 2, 4 or 8 (block_size <= 8192).  0 = unsupported.

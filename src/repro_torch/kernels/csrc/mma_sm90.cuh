@@ -1,4 +1,6 @@
-// Helpers for the tensor-core kernels (newton_schulz.cu): 16-byte cp.async
+// Helpers for the tensor-core kernels (newton_schulz.cu) and the kernels
+// that stage blocks in shared memory (common.cuh::stage_packed_row,
+// fused_update_packed_kernel, norm_partials_kernel): 16-byte cp.async
 // copies into shared memory, TF32 rounding and the TF32 mma.sync.m16n8k8
 // product.  Every use of inline PTX in those kernels goes through these
 // helpers, so that the kernels' logic can be checked on a host with a

@@ -459,23 +459,19 @@ def norm_partials_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
     if packed and p.shape[1] % 8:
         raise ValueError(f"packed states need a block size that is a "
                          f"multiple of 8, got {p.shape[1]}")
-    out = torch.empty((p.shape[0], N_PARTIALS), dtype=torch.float32,
-                      device=p.device)
+    nb, bsz = p.shape
+    out = torch.empty((nb, N_PARTIALS), dtype=torch.float32, device=p.device)
     opt = lambda t: build.ptr(t) if lamb else None
     state = (opt(codes_m), opt(absmax_m), opt(codes_r), opt(absmax_r),
              opt(qmap_m), opt(qmap_r))
     lib = _lib("norm_partials")
+    kind = NORM_KINDS[spec.norm_kind]
+    ctas = lib.norm_partials_ctas(kind, nb, bsz, build.sm_count(p.device))
     with torch.cuda.device(p.device):
-        if packed:
-            rc = lib.norm_partials_packed(
-                build.ptr(p), build.ptr(g), *state, build.ptr(out),
-                p.shape[0], p.shape[1], bits_m, bits_r, *_kernel_scalars(s),
-                build.stream(p.device))
-        else:
-            rc = lib.norm_partials(
-                NORM_KINDS[spec.norm_kind], build.ptr(p), build.ptr(g),
-                *state, build.ptr(out), p.shape[0], p.shape[1],
-                *_kernel_scalars(s), build.stream(p.device))
+        rc = lib.norm_partials_grid(
+            kind, build.ptr(p), build.ptr(g), *state,
+            build.ptr(out), nb, bsz, bits_m, bits_r, ctas,
+            *_kernel_scalars(s), build.stream(p.device))
     build.check(lib, rc, "norm_partials")
     norm_partials_cuda.launches += 1
     return out
@@ -638,13 +634,17 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
                 build.ptr(codes_m), build.ptr(absmax_m), opt(codes_r),
                 opt(absmax_r), build.ptr(qmap_m),
                 opt(qmap_r if two else None), opt(ts), opt(block_seeds),
-                opt(block_offsets)) + ((build.ptr(health),) if sentinel
-                                       else ())
-        ints = (int(bool(stochastic)), to_i32(seed), nb, bsz) + (
-            (bits_m, bits_r) if packed else ())
-        entry = "fused_update" + ("_packed" if packed else "") + (
-            "_sentinel" if sentinel else "")
+                opt(block_offsets))
+        ints = (int(bool(stochastic)), to_i32(seed), nb, bsz)
         lib = _lib("fused_update")
+        if packed:          # health may be null; the grid from the SM count
+            entry = "fused_update_packed_grid"
+            ptrs += (opt(health),)
+            ints += (bits_m, bits_r, lib.fused_update_packed_ctas(
+                nb, bsz, build.sm_count(dev)))
+        else:
+            entry = "fused_update" + ("_sentinel" if sentinel else "")
+            ptrs += (build.ptr(health),) if sentinel else ()
         with torch.cuda.device(dev):
             rc = getattr(lib, entry)(*ptrs, *ints, *_kernel_scalars(s),
                                      build.stream(dev))
@@ -678,6 +678,15 @@ ARGTYPES = {
                               + [_F] * 10 + [_P]),
     "fused_update_packed_sentinel": ("fused_update", [_I] + [_P] * 12
                                      + [_I] * 6 + [_F] * 10 + [_P]),
+    # the packed kernel on a grid of ctas CTAs that walk the blocks:
+    # fused_update_packed_sentinel's arguments (health may be null) with
+    # ctas after bits_r; ctas from fused_update_packed_ctas(n_blocks,
+    # block_size, SM count)
+    "fused_update_packed_grid": ("fused_update", [_I] + [_P] * 12 + [_I] * 7
+                                 + [_F] * 10 + [_P]),
+    "fused_update_packed_ctas": ("fused_update", [_I] * 3),
+    # its dynamic shared memory per CTA: algo, block_size, bits_m, bits_r
+    "fused_update_packed_smem": ("fused_update", [_I] * 4),
     # kind, p, g, codes/absmax m and r, qmaps, out, n_blocks, block_size,
     # 10 scalars, stream
     "norm_partials": ("norm_partials", [_I] + [_P] * 9 + [_I] * 2
@@ -686,6 +695,14 @@ ARGTYPES = {
     # bits_m, bits_r, 10 scalars, stream
     "norm_partials_packed": ("norm_partials", [_P] * 9 + [_I] * 4
                              + [_F] * 10 + [_P]),
+    # kind, p, g, codes/absmax m and r, qmaps, out, n_blocks, block_size,
+    # bits_m, bits_r, ctas, 10 scalars, stream; ctas from
+    # norm_partials_ctas(kind, n_blocks, block_size, SM count)
+    "norm_partials_grid": ("norm_partials", [_I] + [_P] * 9 + [_I] * 5
+                           + [_F] * 10 + [_P]),
+    "norm_partials_ctas": ("norm_partials", [_I] * 4),
+    # its dynamic shared memory per CTA: block_size, bits_m, bits_r
+    "norm_partials_smem": ("norm_partials", [_I] * 3),
 }
 
 

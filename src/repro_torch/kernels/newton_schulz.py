@@ -98,11 +98,6 @@ def _check_x(x: torch.Tensor) -> None:
     build.require(x, "x", torch.float32)
 
 
-@functools.cache
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def gram_cuda(x: torch.Tensor) -> torch.Tensor:
     """A = X X^T, (m, m) f32, for a padded (m, n) f32 matrix (m <= n).
     CUDA tensors launch ``ns_gram`` (the partial-product kernel over S
@@ -115,7 +110,7 @@ def gram_cuda(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"no gram kernel for device {x.device}")
     m, n = x.shape
     lib = _lib()
-    splits = lib.ns_gram_splits(m, n, _sm_count(x.device))
+    splits = lib.ns_gram_splits(m, n, build.sm_count(x.device))
     work = torch.empty((splits, m, m), dtype=torch.float32, device=x.device)
     out = torch.empty((m, m), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):

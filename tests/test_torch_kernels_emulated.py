@@ -39,6 +39,7 @@ CUDA_RUNTIME_H = r"""
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(...)
@@ -52,6 +53,7 @@ struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx;
 inline uint3 blockIdx;
 inline dim3 blockDim;
+inline dim3 gridDim;
 struct float4 { float x, y, z, w; };
 struct float3 { float x, y, z; };
 struct float2 { float x, y; };
@@ -98,6 +100,7 @@ inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fsqrt_rn(float a) { volatile float r = std::sqrt(a); return r; }
 template <class F> void emu_launch(dim3 grid, dim3 block, size_t smem, F f) {
   blockDim = block;
+  gridDim = grid;
   std::vector<float> dyn((smem + 3) / 4 + 4);
   for (unsigned by = 0; by < grid.y; ++by)
   for (unsigned b = 0; b < grid.x; ++b) {
@@ -638,6 +641,138 @@ def test_norm_partials_packed_emulated(libs, bits, nb, bsz):
     assert rc == 0
     assert torch.equal(out, want)
     assert bool((want[:, 2] > 0).all())
+
+
+# ------------------------- persistent CTAs walking several blocks (B3(d), B4)
+# (n_blocks, B, CTAs): 5 blocks over 2 CTAs (3 and 2 blocks each) at the
+# main path's B and at B = 264, whose packed rows start off 16-byte
+# boundaries and whose last row ends in a partial 16-byte piece; 3 blocks
+# of 8192 over 2 CTAs (4 groups or vectors per thread)
+WALKS = [(5, 2048, 2), (5, 264, 2), (3, 8192, 2)]
+WALK_BITS = [(4, 8), (5, 5), (6, 4)]
+
+
+@pytest.mark.parametrize("nb,bsz,ctas", WALKS)
+@pytest.mark.parametrize("mode", ["deterministic", "stochastic", "sentinel"])
+@pytest.mark.parametrize("bits", WALK_BITS, ids=lambda b: f"{b[0]}-{b[1]}")
+@pytest.mark.parametrize("algo", ["adam", "lars"])
+def test_fused_update_packed_walk_emulated(libs, algo, bits, mode, nb, bsz,
+                                           ctas):
+    """The packed kernel on fewer CTAs than blocks (each CTA walks its
+    blocks through the two-slot cp.async ring), bit for bit against the
+    plain version: p, packed codes, absmax and, with the sentinel, the
+    health rows (NaN / +-inf / 1e31 planted)."""
+    spec = fu.ALGO_SPECS[algo]
+    two = spec.n_states == 2
+    bits_m, bits_r = bits if two else (bits[0], 8)
+    p, grad, cm, am, cr, ar, q1, q2 = _packed_inputs(algo, nb, bsz, bits_m,
+                                                     bits_r, 13)
+    sent, stochastic = mode == "sentinel", mode == "stochastic"
+    if sent:
+        _poison(grad, am, ar)
+    s = _scalars()
+    ts = (torch.rand(nb, generator=torch.Generator().manual_seed(4)) + 0.5
+          if spec.needs_norms else None)
+    seeds = torch.tensor([-7, 2 ** 31 - 1, 12345, 3, 0][:nb],
+                         dtype=torch.int32)
+    offs = torch.tensor([5, 0, 9, 1, 2][:nb], dtype=torch.int32)
+    uniforms = (fu.block_uniforms(nb, bsz, two=two, block_seeds=seeds,
+                                  block_offsets=offs)
+                if stochastic else (None, None))
+    want = fu.fused_update_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                 algo=algo, tensor_scale=ts,
+                                 uniforms=uniforms, bits_m=bits_m,
+                                 bits_r=bits_r, sentinel=sent)
+    got = [None if t is None else t.clone() for t in (p, cm, am, cr, ar)]
+    health = torch.full((nb, fu.N_HEALTH), -1.0)
+    ptr = lambda t: None if t is None else P(t.data_ptr())
+    rc = libs["fused_update"].fused_update_packed_grid(
+        fu.KERNEL_ALGOS[algo], ptr(got[0]), ptr(grad), *map(ptr, got[1:]),
+        ptr(q1), ptr(q2 if two else None), ptr(ts), ptr(seeds), ptr(offs),
+        ptr(health if sent else None), int(stochastic), 0, nb, bsz, bits_m,
+        bits_r, ctas, *fu._kernel_scalars(s), None)
+    assert rc == 0
+    for name, a, b in zip(want._fields, got, want[:5]):
+        if b is not None:
+            assert _same(a, b), name
+    if sent:
+        assert torch.equal(health, want.health)
+        assert health[:, 0].sum() == 3
+    else:
+        assert (health == -1.0).all()          # no health row written
+
+
+@pytest.mark.parametrize("nb,bsz,ctas", WALKS)
+@pytest.mark.parametrize("bits", [None, (8, 8)] + WALK_BITS,
+                         ids=lambda b: "lars" if b is None
+                         else f"lamb-{b[0]}-{b[1]}")
+def test_norm_partials_walk_emulated(libs, bits, nb, bsz, ctas):
+    """B4 on fewer CTAs than blocks (each CTA loads its next block before
+    the current block's reduction; packed rows through the two-slot
+    cp.async ring), lars and lamb at 8 bits and packed, bit for bit
+    against the plain version's summation order."""
+    algo = "lars" if bits is None else "lamb"
+    bits_m, bits_r = bits or (8, 8)
+    p, grad, cm, am, cr, ar, q1, q2 = _packed_inputs("lamb", nb, bsz, bits_m,
+                                                     bits_r, 17)
+    p = p * torch.exp(torch.randn(nb, bsz, generator=torch.Generator()
+                                  .manual_seed(nb)) * 2)  # wide range
+    s = _scalars(step=3.0)
+    want = fu.norm_partials_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                  algo=algo, bits_m=bits_m, bits_r=bits_r)
+    out = torch.full((nb, fu.N_PARTIALS), float("nan"))
+    state = (cm, am, cr, ar, q1, q2) if algo == "lamb" else (None,) * 6
+    ptr = lambda t: None if t is None else P(t.data_ptr())
+    rc = libs["norm_partials"].norm_partials_grid(
+        fu.NORM_KINDS[algo], ptr(p), ptr(grad), *map(ptr, state), ptr(out),
+        nb, bsz, bits_m, bits_r, ctas, *fu._kernel_scalars(s), None)
+    assert rc == 0
+    assert torch.equal(out, want)
+
+
+def test_walk_grids_fill_an_h100(libs):
+    """The grids the wrappers take from the kernels' libraries at an
+    H100's 132 SMs: 16 waves of the CTAs resident at once (at B = 2048, 5
+    per SM for the packed update, 8 for lars's prologue and 4 for lamb's;
+    fewer for larger blocks), never more than the blocks; 0 for a shape
+    the kernels refuse, and a grid of 0 CTAs is refused."""
+    ctas = libs["fused_update"].fused_update_packed_ctas
+    adam, momentum = fu.KERNEL_ALGOS["adam"], fu.KERNEL_ALGOS["momentum"]
+    waves = 16
+    assert ctas(40960, 2048, NS_SMS) == NS_SMS * 5 * waves    # 256 threads
+    assert ctas(40960, 4096, NS_SMS) == NS_SMS * 2 * waves    # 512
+    assert ctas(40960, 8192, NS_SMS) == NS_SMS * 1 * waves    # 1024
+    assert ctas(5, 2048, NS_SMS) == 5
+    assert ctas(0, 2048, NS_SMS) == 0
+    assert ctas(5, 100, NS_SMS) == 0
+    norms = libs["norm_partials"].norm_partials_ctas
+    lars, lamb = fu.NORM_KINDS["lars"], fu.NORM_KINDS["lamb"]
+    assert norms(lars, 40960, 2048, NS_SMS) == NS_SMS * 8 * waves
+    assert norms(lamb, 40960, 2048, NS_SMS) == NS_SMS * 4 * waves
+    assert norms(lars, 40960, 8192, NS_SMS) == NS_SMS * 2 * waves
+    assert norms(lamb, 40960, 8192, NS_SMS) == NS_SMS * 1 * waves
+    assert norms(lamb, 100, 4096, NS_SMS) == 100
+    assert norms(lars, 5, 2048, NS_SMS) == 5
+    assert norms(lars, 0, 2048, NS_SMS) == 0
+    assert norms(2, 40960, 2048, NS_SMS) == 0
+    # the rings' dynamic shared memory: 2 x (p and g rows + staged rows)
+    smem = libs["fused_update"].fused_update_packed_smem
+    assert smem(adam, 2048, 4, 8) == 2 * (8 * 2048 + 1040 + 2064)
+    assert smem(momentum, 2048, 4, 8) == 2 * (8 * 2048 + 1040)
+    assert libs["norm_partials"].norm_partials_smem(2048, 4, 8) == \
+        2 * (1040 + 2064)
+    assert libs["norm_partials"].norm_partials_smem(2048, 8, 8) == 0
+    p, grad, cm, am, cr, ar, q1, q2 = _packed_inputs("adam", 2, 264, 4, 8, 1)
+    rc = libs["fused_update"].fused_update_packed_grid(
+        adam, *_ptrs(p, grad, cm, am, cr, ar, q1, q2), None, None, None,
+        None, 0, 0, 2, 264, 4, 8, 0, *fu._kernel_scalars(_scalars()), None)
+    assert rc != 0
+    out = torch.zeros(2, fu.N_PARTIALS)
+    rc = libs["norm_partials"].norm_partials_grid(
+        fu.NORM_KINDS["lars"], *_ptrs(p, grad), None, None, None, None, None,
+        None, P(out.data_ptr()), 2, 264, 8, 8, 0,
+        *fu._kernel_scalars(_scalars()), None)
+    assert rc != 0
 
 
 @pytest.mark.parametrize("nb,bsz", [(5, 2048), (3, 264), (1, 64)])
