@@ -16,7 +16,10 @@ flight recorder.  Phases, one line or more each:
 1. device  — require CUDA (exit 2 without it).
 2. build   — compile every kernel from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all in parallel).
-3. kernels — each kernel and variant against its plain PyTorch version on
+3. kernels — first the division shortcut of the 8-bit update and B1
+   (``csrc/common.cuh::div_fast``) against ``__fdiv_rn`` for every f32 x
+   in its range at 50 divisors (0 mismatches); then each kernel and
+   variant against its plain PyTorch version on
    the card, at the main path's largest leaf (blocks/b0_attn/mlp/w_in:
    40960 blocks of 2048): quantize, dequantize, the fused update for
    adamw8, stochastic adamw8, momentum8, lars8, lamb8 and adagrad8, and the
@@ -31,8 +34,12 @@ flight recorder.  Phases, one line or more each:
    over two launches, the gram exactly symmetric; the same checks at the
    stacked norm vectors' shape (10 x 1024, padded to 16 x 1024), where
    their device time (torch.profiler) is printed beside the library
-   call's.  Median times beside the least time the card could take
-   (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s: the H100 SXM
+   call's.  Median times (B1 and the 8-bit and sentinel updates by raw
+   launches of the C entry their wrapper calls, on its grid, with the
+   wrapper's host microseconds per call beside them; the sentinel in
+   turns with the sentinel-off kernel) beside the least time the card
+   could take (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s: the
+   H100 SXM
    data-sheet peaks; for the Newton–Schulz kernels, which take their
    products on the tensor cores, three TF32 products per f32 product at
    495 TFLOP/s, with the f32 bound beside it; the gram counts the
@@ -112,6 +119,7 @@ Any failure raises: the script then exits non-zero without the last line.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -330,6 +338,90 @@ def device_ms_split(torch, fns: dict, n: int = 20) -> dict:
     return {k: v / 1e3 / n for k, v in total.items()}
 
 
+def host_us(torch, fn, n: int = 50) -> float:
+    """Host microseconds per call of a wrapper: n calls back to back on the
+    host clock, after a sync and without waiting for the device (n
+    launches do not fill the launch queue, so the host never waits)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def raw_update(torch, lib, entry: str, algo: str, st, g, q1, q2, ts=None,
+               *, sr: bool = False, health=None, tail=(), hyper) -> callable:
+    """A launch of C entry ``entry`` of ``csrc/fused_update.cu`` (of
+    ``lib``, this tree's or another's) on the state st = [p, codes_m,
+    absmax_m, codes_r, absmax_r], in place, with no wrapper in between:
+    the kernel's own time.  ``tail``: the entry's ints after block_size
+    (``(ctas,)`` for fused_update_grid, ``(bits_m, bits_r, ctas)`` for
+    fused_update_packed_grid); ``health`` for the entries that take it."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_update as fu
+    nb, bsz = st[0].shape
+    ptr = lambda t: None if t is None else build.ptr(t)
+    ptrs = (fu.KERNEL_ALGOS[algo], ptr(st[0]), ptr(g), *map(ptr, st[1:]),
+            ptr(q1), ptr(q2 if st[3] is not None else None), ptr(ts), None,
+            None) + (() if entry == "fused_update" else (ptr(health),))
+    args = (*ptrs, int(sr), fu.to_i32(SEED), nb, bsz, *tail,
+            *fu._kernel_scalars(fu.scalars(device="cpu", **hyper)),
+            build.stream(st[0].device))
+    fn = getattr(lib, entry)
+    keep = (st, g, q1, q2, ts, health)     # the tensors behind the pointers
+
+    def launch():
+        build.check(lib, fn(*args), entry)
+        return keep
+    return launch
+
+
+def raw_quantize(torch, lib, x, q, codes, absmax, bits: int, seed=None,
+                 ctas=None) -> callable:
+    """A launch of ``blockwise_quantize_grid`` (with ``ctas``) or, without,
+    ``blockwise_quantize`` (one CTA per block) of ``lib``, no wrapper in
+    between."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_update as fu
+    nb, bsz = x.shape
+    entry = "blockwise_quantize" if ctas is None else \
+        "blockwise_quantize_grid"
+    args = (build.ptr(x), build.ptr(q), build.ptr(codes), build.ptr(absmax),
+            nb, bsz, bits, int(seed is not None),
+            fu.to_i32(seed) if seed is not None else 0,
+            *(() if ctas is None else (ctas,)), build.stream(x.device))
+    fn = getattr(lib, entry)
+    keep = (x, q, codes, absmax)           # the tensors behind the pointers
+
+    def launch():
+        build.check(lib, fn(*args), entry)
+        return keep
+    return launch
+
+
+def ptxas_report(log: Path) -> list:
+    """``kernel<template arguments>: registers ...; spills`` for each kernel
+    instance in an nvcc build log (``-Xptxas -v``)."""
+    entry, spill, out = "?", "", []
+    for line in log.read_text().splitlines() if log.exists() else ():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "spill" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif "registers" in line:
+            # kernel<template arguments> from the mangled name
+            hit = re.search(r"\d([a-z_]+_kernel)I(.+?)EEv", entry)
+            plain = re.search(r"([a-z_]+_kernel)E", entry)
+            short = (f"{hit.group(1)}<" + ",".join(re.findall(
+                r"L[ib](\d+)E", hit.group(2))) + ">") if hit else (
+                plain.group(1) if plain else entry)
+            out.append(f"{short}: {line.split(':', 1)[-1].strip()}; {spill}")
+    return out
+
+
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -346,7 +438,7 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
     from repro_torch.core import qmap
     from repro_torch.kernels import blockwise_dequant as bdq
     from repro_torch.kernels import blockwise_quant as bq
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import build, ops
     from repro_torch.kernels import fused_update as fu
 
     n = nb * bsz
@@ -365,13 +457,21 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
               (ak - ap).abs().max().item())
     require(torch.equal(ck, cp) and torch.equal(ak, ap),
             f"blockwise_quant disagrees with its plain version (err {err})")
-    ms = median_ms(torch, lambda: ops.quantize_blockwise(x, qs), 20)
+    # the kernel's time: raw launches of its C entry on the wrappers' grid
+    # (the wrapper's host time beside it)
+    lib_q = bq._lib()
+    ctas = lib_q.blockwise_quantize_ctas(nb, bsz, 8, build.sm_count(dev))
+    ms = median_ms(torch, raw_quantize(torch, lib_q, x, qs, ck.clone(),
+                                       ak.clone(), 8, ctas=ctas), 20, 10)
+    wrap_us = host_us(torch, lambda: ops.quantize_blockwise(x, qs))
     plain = median_ms(torch, lambda: bq.quantize_plain(x, qs), 3, 2, 1)
     b, by = bound_ms(n * 5 + nb * 4 + 1024, n * 19)
     out["blockwise_quant"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                                  bound_ms=b, bound_by=by)
-    print(f"kernel blockwise_quant ({nb}x{bsz} f32): exact; {ms:.4f} ms, "
-          f"bound {b:.4f} ms ({by}), plain {plain:.3f} ms")
+                                  bound_ms=b, bound_by=by, host_us=wrap_us)
+    print(f"kernel blockwise_quant ({nb}x{bsz} f32): exact; {ms:.4f} ms "
+          f"({ctas} CTAs), bound {b:.4f} ms ({by}, {100 * b / ms:.0f}% of "
+          f"it), plain {plain:.3f} ms; wrapper {wrap_us:.1f} us of host "
+          f"time per call")
 
     # B2 dequantize: exact, f32 and bf16
     for dt in (torch.float32, torch.bfloat16):
@@ -412,6 +512,7 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
     ts = fu.segment_scales_from_partials(fu.ALGO_SPECS["lamb"], partials,
                                          ((0, nb),), nb, WEIGHT_DECAY, 1e-3)
     del partials
+    lib_fu, sms = fu._lib("fused_update"), build.sm_count(dev)
 
     for variant, (algo, sr) in VARIANTS.items():
         spec = fu.ALGO_SPECS[algo]
@@ -441,8 +542,13 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
                 f"(p, codes, absmax) disagree with the plain version "
                 f"(err {err})")
         del want
-        ms = median_ms(torch, lambda: fu.fused_update_cuda(
-            got[0], g, got[1], got[2], got[3], got[4], q1, qu, **kw), 20)
+        grid = lib_fu.fused_update_ctas(fu.KERNEL_ALGOS[algo], 0, nb, bsz,
+                                        sms)
+        ms = median_ms(torch, raw_update(
+            torch, lib_fu, "fused_update_grid", algo, got, g, q1, qu, ts_v,
+            sr=sr, tail=(grid,), hyper=hyper), 20, 10)
+        wrap_us = host_us(torch, lambda: fu.fused_update_cuda(
+            got[0], g, got[1], got[2], got[3], got[4], q1, qu, **kw))
         plain = median_ms(torch, lambda: fu.fused_update_plain(
             p, g, codes[0], am, cr, arr, q1, qu, s, algo=algo,
             tensor_scale=ts_v,
@@ -455,12 +561,70 @@ def check_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
         b, by = bound_ms(n * per_elem + nb * per_block + 2048, n * ops_)
         out[f"fused_update/{variant}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None)
+            library_ms=None, host_us=wrap_us)
         print(f"kernel fused_update {variant} ({nb}x{bsz}): p, codes and "
-              f"absmax exact, 0 mismatches; {ms:.4f} ms, bound {b:.4f} ms "
-              f"({by}), plain {plain:.3f} ms")
+              f"absmax exact, 0 mismatches; {ms:.4f} ms ({grid} CTAs), "
+              f"bound {b:.4f} ms ({by}, {100 * b / ms:.0f}% of it), plain "
+              f"{plain:.3f} ms; wrapper {wrap_us:.1f} us of host time per "
+              f"call")
         del got
     return out
+
+
+def check_div_shortcut(torch, dev) -> dict:
+    """The division shortcut of the 8-bit update and B1
+    (``csrc/common.cuh::div_fast``: x / c for a divisor fixed before the
+    loop, in place of ``__fdiv_rn``), against ``__fdiv_rn`` for every f32
+    bit pattern x in the shortcut's range, at the main path's divisors:
+    c1 and c2 of adamw's steps 1..10, 0.52 and 0.00698 at the kernels
+    phase's step 7, and 24 random block scales over 2^-60 .. 2^60 with the
+    range's ends, 1, a power of two and the significands next to 1 and 2;
+    plus divisors outside the range (subnormal, 2^-61, 2^61, FLT_MAX),
+    where no x may take it.  0 mismatches required."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_update as fu
+    divs = []
+    for step in range(1, 11):
+        s = fu.scalars(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                       weight_decay=WEIGHT_DECAY, step=float(step),
+                       gnorm_scale=1.0, device="cpu")
+        divs += [float(s["c1"]), float(s["c2"])]
+    gen = torch.Generator().manual_seed(SEED + 7)
+    exps = torch.randint(-60, 60, (24,), generator=gen)
+    sig = 1 + torch.rand(24, generator=gen, dtype=torch.float64)
+    divs += [float(torch.tensor(float(m) * 2.0 ** int(e),
+                                dtype=torch.float32))
+             for m, e in zip(sig, exps)]
+    divs += [2.0 ** -60, 2.0 ** 60, 1.0, 0.5, 1.0000001, 1.9999999]
+    outside = [1e-40, 2.0 ** -61, 2.0 ** 61, 3.4028234663852886e38]
+    d = torch.tensor(divs + outside, dtype=torch.float32, device=dev)
+    bad = torch.zeros(len(d), dtype=torch.int64, device=dev)
+    seen = torch.zeros(len(d), dtype=torch.int64, device=dev)
+    lib = fu._lib("fused_update")
+    # divisors, n, mismatches and x checked per divisor (int64), stream; a
+    # card-only entry (the CPU tests' emulation lacks it)
+    check = lib.fused_update_div_check
+    check.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+    check.restype = ctypes.c_int
+    t0 = time.perf_counter()
+    build.check(lib, check(
+        build.ptr(d), len(d), build.ptr(bad), build.ptr(seen),
+        build.stream(dev)), "fused_update_div_check")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_bad, n_seen = int(bad.sum()), seen.tolist()
+    require(n_bad == 0, f"div_fast disagrees with __fdiv_rn for {n_bad} x "
+            f"(by divisor: {bad.tolist()})")
+    require(all(n > 0 for n in n_seen[:len(divs)]) and
+            not any(n_seen[len(divs):]),
+            f"div_fast's range: x checked per divisor {n_seen}")
+    print(f"kernel div_fast: every f32 x in range checked against "
+          f"__fdiv_rn at {len(divs)} divisors ({sum(n_seen)} quotients, "
+          f"{min(n_seen[:len(divs)])}-{max(n_seen)} per divisor), 0 "
+          f"mismatches; {len(outside)} divisors outside the range take "
+          f"none; {secs:.1f} s")
+    return {"divisors": len(divs), "quotients": sum(n_seen),
+            "mismatches": n_bad}
 
 
 def _mismatches(got, want) -> tuple[int, float]:
@@ -632,9 +796,11 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
     from repro_torch.core import qmap
     from repro_torch.kernels import blockwise_dequant as bdq
     from repro_torch.kernels import blockwise_quant as bq
+    from repro_torch.kernels import build
 
     n = nb * bsz
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    lib_q = bq._lib()
     out = {}
 
     # B1 / B2 at 4 bits; B1 also stochastic
@@ -649,16 +815,22 @@ def check_slice3_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
         n_bad, err = _mismatches([ck, ak], [cp, ap])
         require(n_bad == 0, f"{name}: {n_bad} packed codes or absmax "
                 f"disagree with the plain version (err {err})")
-        ms = median_ms(torch, lambda: bq.quantize_blockwise(
-            x, q4, bits=4, seed=seed), 20)
+        ms = median_ms(torch, raw_quantize(
+            torch, lib_q, x, q4, ck.clone(), ak.clone(), 4, seed,
+            lib_q.blockwise_quantize_ctas(nb, bsz, 4, build.sm_count(dev))),
+            20, 10)
+        wrap_us = host_us(torch, lambda: bq.quantize_blockwise(
+            x, q4, bits=4, seed=seed))
         plain = median_ms(torch, lambda: bq.quantize_plain(
             x, q4, bits=4, seed=seed), 3, 2, 1)
         b, by = bound_ms(n * 4.5 + nb * 4 + 64,
                          n * (19 + (40 if seed is not None else 0)))
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                         bound_by=by, library_ms=None)
+                         bound_by=by, library_ms=None, host_us=wrap_us)
         print(f"kernel {name} ({nb}x{bsz} f32): exact; {ms:.4f} ms, bound "
-              f"{b:.4f} ms ({by}), plain {plain:.3f} ms")
+              f"{b:.4f} ms ({by}, {100 * b / ms:.0f}% of it), plain "
+              f"{plain:.3f} ms; wrapper {wrap_us:.1f} us of host time per "
+              f"call")
     vk = bdq.dequantize_blockwise(ck, ak, q4, bits=4)
     vp = bdq.dequantize_plain(ck, ak, q4, bits=4)
     n_bad, err = _mismatches([vk], [vp])
@@ -833,13 +1005,16 @@ def check_sentinel_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
     the health rows equal ``health_rows`` of the plain version exactly, p,
     codes and absmax equal the sentinel-off kernel's bit for bit (and the
     plain version's, NaN where it has NaN).  Timed on clean inputs against
-    the sentinel-off kernel in turns (off, on, on, off)."""
+    the sentinel-off kernel in turns (off, on, on, off, ...), by raw
+    launches of the C entry the wrapper calls."""
     from repro_torch.core import qmap
     from repro_torch.core.lowbit import pack_codes
+    from repro_torch.kernels import build
     from repro_torch.kernels import fused_update as fu
 
     n = nb * bsz
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    lib_fu, sms = fu._lib("fused_update"), build.sm_count(dev)
     qm = lambda bits, signed: torch.as_tensor(
         qmap.get_qmap("dynamic", signed, bits=bits), device=dev)
     p = torch.randn(nb, bsz, generator=gen, device=dev) * 0.02
@@ -919,13 +1094,24 @@ def check_sentinel_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
                                                             ar if two
                                                             else None)]
         st_off = [None if t is None else t.clone() for t in st_on]
-        run_on = lambda: fu.fused_update_cuda(st_on[0], g, *st_on[1:], q1,
-                                              q2, sentinel=True, **kw)
-        run_off = lambda: fu.fused_update_cuda(st_off[0], g, *st_off[1:],
-                                               q1, q2, **kw)
-        times = [median_ms(torch, fn, 20)
-                 for fn in (run_off, run_on, run_on, run_off)]
-        ms_off, ms = (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
+        health = torch.empty(nb, fu.N_HEALTH, device=dev)
+        packed = (bits_m, bits_r) != (8, 8)
+        # raw launches of the wrappers' C entry and grid, in turns (off,
+        # on, on, off, ...): the kernels' own times
+        tails = {sent: ((bits_m, bits_r, lib_fu.fused_update_packed_ctas(
+            nb, bsz, sms)) if packed else (lib_fu.fused_update_ctas(
+                fu.KERNEL_ALGOS[algo], int(sent), nb, bsz, sms),))
+            for sent in (False, True)}
+        entry = "fused_update_packed_grid" if packed else "fused_update_grid"
+        turns = in_turns(torch, {
+            k: raw_update(torch, lib_fu, entry, algo, st_, g, q1, q2, ts_v,
+                          sr=sr, health=h_, tail=tails[h_ is not None],
+                          hyper=hyper)
+            for k, st_, h_ in (("off", st_off, None),
+                               ("on", st_on, health))}, 20, 10)
+        ms_off, ms = turns["off"], turns["on"]
+        wrap_us = host_us(torch, lambda: fu.fused_update_cuda(
+            st_on[0], g, *st_on[1:], q1, q2, sentinel=True, **kw))
         plain = median_ms(torch, lambda: fu.fused_update_plain(
             p, g, cm, am, cr, ar if two else None, q1, q2, s, algo=algo,
             tensor_scale=ts_v, uniforms=uniforms, bits_m=bits_m,
@@ -939,15 +1125,16 @@ def check_sentinel_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
                          + 2048, n * ops_)
         out[f"fused_update/sentinel_{variant}"] = dict(
             max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-            library_ms=None, off_ms=ms_off)
+            library_ms=None, off_ms=ms_off, host_us=wrap_us)
         print(f"kernel fused_update sentinel {variant} ({nb}x{bsz}, bits "
               f"{bits_m}/{bits_r if two else '-'}): health rows exact (0 "
               f"mismatches) on clean and poisoned inputs, p/codes/absmax "
               f"bit-identical to the sentinel-off kernel; poisoned counts "
               f"{sums['poisoned']}; {ms:.4f} ms vs sentinel-off "
-              f"{ms_off:.4f} ms ({ms / ms_off:.3f}x; turns "
-              + ", ".join(f"{t:.4f}" for t in times) + f"), bound {b:.4f} "
-              f"ms ({by}), plain {plain:.3f} ms")
+              f"{ms_off:.4f} ms in turns ({ms / ms_off:.3f}x), bound "
+              f"{b:.4f} ms ({by}, {100 * b / ms:.0f}% of it), plain "
+              f"{plain:.3f} ms; wrapper {wrap_us:.1f} us of host time per "
+              f"call")
         del st_on, st_off, cm, cr, uniforms
         torch.cuda.empty_cache()
     return out
@@ -979,9 +1166,11 @@ def train(torch, dev, cfg, name: str, steps: int, batches, label=None,
                 metrics=metrics)
 
 
-def profile_step(torch, step, state, batch):
+def profile_step(torch, step, state, batch, each=()):
     """Device time by kernel over one step (torch.profiler), and the
-    step's wall time under the profiler."""
+    step's wall time under the profiler; with ``each`` (kernel name
+    parts), also {part: [device ms of each launch]} of the kernels whose
+    name contains the part, in launch order."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1000,7 +1189,18 @@ def profile_step(torch, step, state, batch):
         if t:
             rows.append((t / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
-    return rows, wall_ms
+    if not each:
+        return rows, wall_ms
+    launches = {part: [] for part in each}
+    for ev in prof.events():
+        if "CUDA" not in str(getattr(ev, "device_type", "")):
+            continue
+        t = getattr(ev, "device_time", None)
+        t = t if t is not None else getattr(ev, "cuda_time", 0.0)
+        for part in each:
+            if part in ev.name:
+                launches[part].append(t / 1e3)
+    return rows, wall_ms, launches
 
 
 def readback(torch, opt, state) -> int:
@@ -1124,8 +1324,14 @@ def train_slice3(torch, dev, cfg, batches, losses32: dict,
                               f"({100 * t / total:.1f}% of device time)"
                               for k, (t, n) in ours.items()))
         if label == "muon8":
-            prof, wall = profile_step(torch, run["step"], run["state"],
-                                      batches[FAMILY_STEPS])
+            prof, wall, each = profile_step(torch, run["step"], run["state"],
+                                            batches[FAMILY_STEPS],
+                                            each=("::quantize_kernel",))
+            b1 = sorted(each["::quantize_kernel"], reverse=True)
+            print(f"profile muon8 step: B1 (quantize_kernel) per launch, "
+                  f"largest first (the head's 25132 blocks, then the norm "
+                  f"stacks' 5): " + ", ".join(f"{t:.4f}" for t in b1)
+                  + f" ms; {sum(b1):.4f} ms in {len(b1)} launches")
             total = sum(t for t, _, _ in prof)
             ours = _kernel_share(prof, ("ns_gram_kernel",
                                         "ns_gram_reduce_kernel",
@@ -1676,22 +1882,8 @@ def main() -> int:
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}) "
           f"into {build.build_dir().relative_to(ROOT)}")
     for name in build.SOURCES:
-        log = (build.build_dir() / f"{name}.log")
-        entry, spill = "?", ""
-        for line in log.read_text().splitlines() if log.exists() else ():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1] if "'" in line else line
-            elif "spill" in line:
-                spill = line.split(":", 1)[-1].strip()
-            elif "registers" in line:
-                # kernel<template arguments> from the mangled name
-                hit = re.search(r"\d([a-z_]+_kernel)I(.+?)EEv", entry)
-                plain = re.search(r"([a-z_]+_kernel)E", entry)
-                short = (f"{hit.group(1)}<" + ",".join(re.findall(
-                    r"L[ib](\d+)E", hit.group(2))) + ">") if hit else (
-                    plain.group(1) if plain else entry)
-                print(f"build: {name}: {short}: "
-                      f"{line.split(':', 1)[-1].strip()}; {spill}")
+        for line in ptxas_report(build.build_dir() / f"{name}.log"):
+            print(f"build: {name}: {line}")
 
     # the grids of the kernels whose CTAs walk the blocks, at the main
     # path's largest leaf (their registers and static shared memory are on
@@ -1699,6 +1891,24 @@ def main() -> int:
     from repro_torch.kernels import fused_update as fu
     sms, nb_main = build.sm_count(dev), 10 * 1024 * 8192 // 2048
     lib_fu, lib_np = fu._lib("fused_update"), fu._lib("norm_partials")
+    from repro_torch.kernels import blockwise_quant as bq
+    for sent in (0, 1):
+        ctas = lib_fu.fused_update_ctas(fu.KERNEL_ALGOS["adam"], sent,
+                                        nb_main, 2048, sms)
+        print(f"grid: fused_update_kernel (adam, sentinel "
+              f"{'on' if sent else 'off'}) at {nb_main}x2048: {ctas} CTAs "
+              f"on {sms} SMs ({nb_main / ctas:.1f} blocks each); dynamic "
+              f"shared memory per CTA "
+              f"{lib_fu.fused_update_smem(fu.KERNEL_ALGOS['adam'], 2048)} B "
+              f"(one-state algorithms: "
+              f"{lib_fu.fused_update_smem(fu.KERNEL_ALGOS['momentum'], 2048)}"
+              f" B)")
+    lib_q = bq._lib()
+    for nb_q in (nb_main, 1024 * 50264 // 2048):   # the largest leaf, the head
+        ctas = lib_q.blockwise_quantize_ctas(nb_q, 2048, 8, sms)
+        print(f"grid: quantize_kernel at {nb_q}x2048: {ctas} CTAs on {sms} "
+              f"SMs ({nb_q / ctas:.1f} blocks each); dynamic shared memory "
+              f"per CTA {lib_q.blockwise_quantize_smem(2048)} B")
     ctas = lib_fu.fused_update_packed_ctas(nb_main, 2048, sms)
     smem = {bits: lib_fu.fused_update_packed_smem(fu.KERNEL_ALGOS["adam"],
                                                   2048, *bits)
@@ -1717,6 +1927,7 @@ def main() -> int:
                   f"states)" if kind == "lamb" else ""))
 
     # ---- 3. kernels vs plain versions
+    check_div_shortcut(torch, dev)
     kernels = check_kernels(torch, dev)
     torch.cuda.empty_cache()
     kernels.update(check_packed_and_norm_kernels(torch, dev))
@@ -1764,6 +1975,10 @@ def main() -> int:
           f"profiler (device idle {100 * (1 - total / wall):.1f}%); top:")
     for t, count, key in prof[:12]:
         print(f"profile   {t:9.3f} ms  x{count:<5d} {key[:90]}")
+    print("profile adamw8 step: port kernels: " + "; ".join(
+        f"{k} {t:.3f} ms in {n} launches ({100 * t / total:.1f}% of device "
+        f"time)" for k, (t, n) in _kernel_share(
+            prof, ("fused_update_kernel",)).items()))
     ms8 = statistics.median(run8["ms"][1:])
     del run8
     torch.cuda.empty_cache()

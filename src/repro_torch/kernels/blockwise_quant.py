@@ -6,8 +6,9 @@ and packed ``(n_blocks, B * bits / 8)`` rows at 4, 5 and 6 bits
 stochastically (the Muon leaf update's requantize).
 
 ``quantize_blockwise`` launches the CUDA kernel ``csrc/blockwise_quant.cu``
-for CUDA tensors and runs :func:`quantize_plain` for CPU tensors.  One CTA
-per quantization block, so no row padding is needed.
+for CUDA tensors, on the grid its library picks for the card's SM count
+(CTAs that walk the blocks), and runs :func:`quantize_plain` for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -71,24 +72,41 @@ def quantize_blockwise(x: torch.Tensor, codebook: torch.Tensor, *,
     absmax = torch.empty((nb,), dtype=torch.float32, device=x.device)
     sr = seed is not None
     lib = _lib()
+    ctas = lib.blockwise_quantize_ctas(nb, bsz, bits,
+                                       build.sm_count(x.device))
     with torch.cuda.device(x.device):
-        rc = lib.blockwise_quantize(
+        rc = lib.blockwise_quantize_grid(
             build.ptr(x), build.ptr(codebook), build.ptr(codes),
             build.ptr(absmax), nb, bsz, bits, int(sr),
-            fu.to_i32(seed) if sr else 0,
-            build.stream(x.device))
-    build.check(lib, rc, "blockwise_quantize")
+            fu.to_i32(seed) if sr else 0, ctas, build.stream(x.device))
+    build.check(lib, rc, "blockwise_quantize_grid")
     quantize_blockwise.launches += 1
     return codes, absmax
 
 
 quantize_blockwise.launches = 0
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry -> argtypes
+ARGTYPES = {
+    # x, qmap, codes, absmax, n_blocks, block_size, bits, stochastic, seed,
+    # stream (one CTA per block)
+    "blockwise_quantize": [_P] * 4 + [_I] * 5 + [_P],
+    # as blockwise_quantize, with ctas before the stream: CTAs that walk
+    # the blocks, from blockwise_quantize_ctas(n_blocks, block_size, bits,
+    # SM count)
+    "blockwise_quantize_grid": [_P] * 4 + [_I] * 6 + [_P],
+    "blockwise_quantize_ctas": [_I] * 4,
+    # its dynamic shared memory per CTA: block_size
+    "blockwise_quantize_smem": [_I],
+}
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("blockwise_quant")
-    lib.blockwise_quantize.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p]
-    lib.blockwise_quantize.restype = ctypes.c_int
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

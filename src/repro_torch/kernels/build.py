@@ -42,28 +42,29 @@ def nvcc() -> str:
     return path
 
 
-def build_dir() -> Path:
+def build_dir(csrc: Path = CSRC) -> Path:
     """Directory keyed by the sources' contents and the compiler flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(CSRC.iterdir()):
+    for f in sorted(csrc.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build(names=SOURCES) -> dict:
-    """Compile every missing library of ``names`` in parallel.  Returns
+def build(names=SOURCES, csrc: Path = CSRC) -> dict:
+    """Compile every missing library of ``names`` in parallel (from the
+    sources in ``csrc``: another tree's, to compare kernels).  Returns
     ``{name: seconds}`` for the ones compiled (empty when all were built);
     the compiler's register/shared-memory report is kept beside each
     library as ``<name>.log``."""
-    out_dir = build_dir()
+    out_dir = build_dir(csrc)
     out_dir.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not (out_dir / f"{n}.so").exists()]
     procs = {}
     t0 = time.perf_counter()
     for n in todo:
         tmp = out_dir / f"{n}.{os.getpid()}.tmp.so"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)

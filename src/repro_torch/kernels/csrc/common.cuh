@@ -5,9 +5,10 @@
 // stochastic_codes, block_requantize).  On the TPU the
 // codebook lookup is a one-hot matmul and encode a compare-count over all
 // 255 midpoints; here, as in the paper's own CUDA kernels, the codebook is a
-// 256-entry lookup table in shared memory and encode is a branch-free binary
-// search over the midpoints (8 shared-memory reads per element), which
-// equals searchsorted(side="right") and the compare-count.
+// 256-entry lookup table in shared memory and encode is a branch-free
+// search down the midpoints in Eytzinger order (bits shared-memory reads
+// per element), which equals searchsorted(side="right") and the
+// compare-count.
 //
 // Every float operation is written with an explicitly rounded intrinsic
 // (__fadd_rn, __fmul_rn, __fdiv_rn, __fsqrt_rn), so no FMA contraction and
@@ -34,9 +35,17 @@ constexpr int kMaxBlock = 8192;  // largest block (kernels/common.py)
 // unpack_code may read past its end, rounded to 16.
 constexpr int kMaxStagedRow = kMaxBlock + 16;
 
-// NaN-propagating max, like jnp.max / torch.amax.
+// NaN-propagating max, like jnp.max / torch.amax (on the card one
+// max.NaN instruction, whose NaN is the canonical one; the payload of a
+// NaN absmax is not part of any result the kernels are held to).
 __device__ __forceinline__ float nanmax(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
   return (a > b || a != a) ? a : b;
+#endif
 }
 
 // Copy a codebook of n_levels = 2^bits <= 256 entries into a 256-entry
@@ -46,23 +55,6 @@ __device__ __forceinline__ void load_lut(const float* qmap, float* lut,
                                          int n_levels = kCodebookSize) {
   for (int i = threadIdx.x; i < kCodebookSize; i += blockDim.x)
     lut[i] = i < n_levels ? qmap[i] : 0.f;
-}
-
-// Copy a codebook of n_levels entries into shared memory and build its
-// n_levels - 1 midpoints (cb[i+1] + cb[i]) * 0.5, padded with +inf to 255
-// — the values kernels/common.py::padded_bounds computes.  The padding
-// caps encode at n_levels - 1 (no value compares >= +inf but +inf, which
-// a normalized value never is).  Ends with a barrier.
-__device__ __forceinline__ void load_codebook(const float* qmap, float* lut,
-                                              float* bounds,
-                                              int n_levels = kCodebookSize) {
-  load_lut(qmap, lut, n_levels);
-  __syncthreads();
-  for (int i = threadIdx.x; i < kCodebookSize - 1; i += blockDim.x)
-    bounds[i] = i < n_levels - 1
-                    ? __fmul_rn(__fadd_rn(lut[i + 1], lut[i]), 0.5f)
-                    : INFINITY;
-  __syncthreads();
 }
 
 // Copy a codebook of n_levels = 2^bits entries into shared memory (lut, as
@@ -100,21 +92,6 @@ __device__ __forceinline__ uint32_t unpack_code(const uint8_t* row,
                      static_cast<uint32_t>(row[(bit >> 3) + 1]);
   return (w >> (16u - (bit & 7u) - static_cast<uint32_t>(bits))) &
          ((1u << bits) - 1u);
-}
-
-// Byte k of the packed row of `codes` (one code per byte): the OR of every
-// code that overlaps stream bits [8k, 8k + 8), each shifted so that its
-// last bit lands at stream bit (c + 1) * b - 1.
-__device__ __forceinline__ uint8_t pack_byte(const uint8_t* codes,
-                                             uint32_t k, int bits) {
-  const int hi = 8 * static_cast<int>(k) + 8;
-  uint32_t acc = 0;
-  for (int c = 8 * static_cast<int>(k) / bits; c * bits < hi; ++c) {
-    const int shift = hi - (c + 1) * bits;
-    const uint32_t code = codes[c];
-    acc |= shift >= 0 ? code << shift : code >> -shift;
-  }
-  return static_cast<uint8_t>(acc & 0xFFu);
 }
 
 // The b bytes of 8 consecutive b-bit codes of a packed row, as one
@@ -160,6 +137,58 @@ __device__ __forceinline__ void store_group(uint8_t* dst, uint64_t v,
   }
 }
 
+// ---- 8-bit codes of a thread's group of 8 elements (the walking kernels):
+// two little-endian words, code c at byte c (w.x codes 0-3, w.y 4-7).  A
+// group starts 8 bytes after the previous one, so its word is 8-byte
+// aligned when the block size is a multiple of 8 (wide); at a block size of
+// 8k + 4 every other row starts off an 8-byte boundary, the word is read
+// and written as two 4-byte halves, and the row's last group is a half
+// group of 4 codes (half: w.y is neither read nor written).
+__device__ __forceinline__ uint2 load_codes8(const uint8_t* src, bool wide,
+                                             bool half) {
+  if (wide) return *reinterpret_cast<const uint2*>(src);
+  uint2 w;
+  w.x = *reinterpret_cast<const uint32_t*>(src);
+  w.y = half ? 0u : *reinterpret_cast<const uint32_t*>(src + 4);
+  return w;
+}
+
+__device__ __forceinline__ void store_codes8(uint8_t* dst, uint2 w,
+                                             bool wide, bool half) {
+  if (wide) {
+    *reinterpret_cast<uint2*>(dst) = w;
+    return;
+  }
+  *reinterpret_cast<uint32_t*>(dst) = w.x;
+  if (!half) *reinterpret_cast<uint32_t*>(dst + 4) = w.y;
+}
+
+// The codebook value of code c of a group's word: the code's byte,
+// shifted straight to its byte offset in the 256-entry table.
+__device__ __forceinline__ float decode8(uint2 w, int c, const float* lut) {
+  const uint32_t word = c < 4 ? w.x : w.y;
+  const int sh = 8 * (c & 3);
+  const uint32_t off = (sh ? word >> (sh - 2) : word << 2) & 0x3FCu;
+  return *reinterpret_cast<const float*>(reinterpret_cast<const char*>(lut) +
+                                         off);
+}
+
+__device__ __forceinline__ int popc(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
+
+// Bytes of w that are 0x00 or 0xFF (8-bit codes at a codebook edge): a
+// byte is one of them iff its 8 bits are all equal, iff its 7 pairs of
+// neighbouring bits XOR to 0.
+__device__ __forceinline__ int edge_bytes(uint32_t w) {
+  const uint32_t x = (w ^ (w >> 1)) & 0x7F7F7F7Fu;
+  return 4 - popc((x + 0x7F7F7F7Fu) & 0x80808080u);
+}
+
 // Bytes a packed row of w bytes takes in a staging buffer: it is copied
 // from the 16-byte boundary at or below its start, so it begins up to 15
 // bytes in, and one readable byte follows it (unpack_code).
@@ -189,28 +218,24 @@ __device__ __forceinline__ void stage_packed_row(uint8_t* dst,
   }
 }
 
-// Number of midpoints b_j <= x, j < 255: binary lifting over the sorted
-// midpoints.  Reads bounds[0..254] only; NaN compares false everywhere and
-// gets code 0.
-__device__ __forceinline__ uint32_t encode(float x, const float* bounds) {
-  uint32_t pos = 0;
-#pragma unroll
-  for (uint32_t step = 128; step > 0; step >>= 1)
-    pos += (bounds[pos + step - 1] <= x) ? step : 0u;
-  return pos;
-}
-
 // Number of the 2^BITS - 1 midpoints <= x, by BITS steps down the
-// Eytzinger tree of load_codebook_tree: the same count as encode over the
-// same midpoints padded with +inf, capped at 2^BITS - 1 (NaN: 0; +inf:
-// 2^BITS - 1).  A warp's lanes read the first five levels from neighbouring
+// Eytzinger tree of load_codebook_tree: searchsorted(side="right") over the
+// midpoints padded with +inf (kernels/common.py::padded_bounds), capped at
+// 2^BITS - 1 (NaN: 0; +inf: 2^BITS - 1, the code the JAX package's oracle
+// gives x / scale = +inf, which a block with a NaN and an inf reaches:
+// absmax NaN, scale 1).  A warp's lanes read the first five levels from neighbouring
 // words, so those reads do not conflict in shared-memory banks.
 template <int BITS>
 __device__ __forceinline__ uint32_t encode_tree(float x, const float* tree) {
-  uint32_t k = 1;
+  // the node k as its byte offset 4k: each step is one shared load at
+  // tree + 4k, a compare and a shift-add
+  const char* base = reinterpret_cast<const char*>(tree);
+  uint32_t off = 4;
 #pragma unroll
-  for (int d = 0; d < BITS; ++d) k = 2 * k + (tree[k] <= x ? 1u : 0u);
-  return k - (1u << BITS);
+  for (int d = 0; d < BITS; ++d)
+    off = 2 * off +
+          (*reinterpret_cast<const float*>(base + off) <= x ? 4u : 0u);
+  return (off >> 2) - (1u << BITS);
 }
 
 __device__ __forceinline__ float decode(uint32_t code, const float* lut) {
@@ -250,22 +275,81 @@ __device__ __forceinline__ float2 block_max2(float a, float b, float* red) {
   return make_float2(red[64], red[65]);
 }
 
+// fma and reciprocal, rounded to nearest (under the host emulation of the
+// CPU tests: std::fmaf and 1 / c, which round the same).
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+#ifdef __CUDACC__
+  return __fmaf_rn(a, b, c);
+#else
+  return std::fmaf(a, b, c);
+#endif
+}
+
+__device__ __forceinline__ float rcp_rn(float c) {
+#ifdef __CUDACC__
+  return __frcp_rn(c);
+#else
+  volatile float r = 1.f / c;
+  return r;
+#endif
+}
+
+// Division by a divisor c fixed before the loop (a block's scale), without
+// __fdiv_rn's reciprocal, operand check and slow-path branch per element.
+// hi = RN(1/c) and lo = RN(RN(1 - c hi) hi) carry 1/c to a relative
+// 2^-47, so q0 = RN(x hi + RN(x lo)) (Brisebarre-Muller-Raina's
+// one-multiply-one-fma quotient) is within 0.5 + 2^-22 ulp of x / c; the
+// remainder x - c q0 is then exact (fma), and by Markstein's theorem (y
+// within half an ulp of 1/c, q within one ulp of x / c: RN(q + (x - c q) y)
+// is the correctly rounded x / c) one more fma gives RN(x / c), the bits of
+// __fdiv_rn, for every divisor.  The theorem needs every intermediate
+// normal: the shortcut takes c in [2^-60, 2^60] and |x| in [c 2^-40,
+// c 2^40] (x and the quotient normal, x lo and the remainder above 2^-149
+// apart from 0); x_min / x_max give that range (empty for another c), and
+// a caller takes it for a whole group of values or not at all.
+// chip_smoke.py checks it against __fdiv_rn for every f32 x at dozens of
+// divisors (fused_update_div_check).
+struct DivBy {
+  float c, hi, lo;
+  float x_min, x_max;
+};
+
+__device__ __forceinline__ DivBy div_by(float c) {
+  DivBy d;
+  d.c = c;
+  d.hi = rcp_rn(c);
+  d.lo = __fmul_rn(fma_rn(-c, d.hi, 1.f), d.hi);
+  const bool ok = c >= 0x1p-60f && c <= 0x1p60f;   // false for NaN
+  d.x_min = ok ? __fmul_rn(c, 0x1p-40f) : INFINITY;
+  d.x_max = ok ? __fmul_rn(c, 0x1p40f) : 0.f;
+  return d;
+}
+
+// RN(x / d.c) for |x| in [d.x_min, d.x_max].
+__device__ __forceinline__ float div_fast(float x, const DivBy& d) {
+  const float q0 = fma_rn(x, d.hi, __fmul_rn(x, d.lo));
+  return fma_rn(fma_rn(-d.c, q0, x), d.hi, q0);
+}
+
+// xn[c] = RN(x[c] / d.c) for a group of 8 whose |x| lie in [lo, hi] (hi
+// NaN if one is NaN; elements a caller discards may lie outside): div_fast
+// when [lo, hi] lies in its range (one branch for the group), else
+// __fdiv_rn.
+__device__ __forceinline__ void div8(const float (&x)[8], const DivBy& d,
+                                     float lo, float hi, float (&xn)[8]) {
+  if (lo >= d.x_min && hi <= d.x_max) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) xn[c] = div_fast(x[c], d);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) xn[c] = __fdiv_rn(x[c], d.c);
+  }
+}
+
 // Scale of a block: its absmax, or 1 for an all-zero block (and, as in the
 // JAX package, for a NaN absmax, since NaN > 0 is false).
 __device__ __forceinline__ float block_scale(float absmax) {
   return absmax > 0.f ? absmax : 1.f;
-}
-
-// Encode four values normalized by a true division x / scale (not a
-// multiply by 1/scale, which rounds differently).
-__device__ __forceinline__ uchar4 encode4(float4 v, float scale,
-                                          const float* bounds) {
-  uchar4 c;
-  c.x = static_cast<unsigned char>(encode(__fdiv_rn(v.x, scale), bounds));
-  c.y = static_cast<unsigned char>(encode(__fdiv_rn(v.y, scale), bounds));
-  c.z = static_cast<unsigned char>(encode(__fdiv_rn(v.z, scale), bounds));
-  c.w = static_cast<unsigned char>(encode(__fdiv_rn(v.w, scale), bounds));
-  return c;
 }
 
 // ---- stochastic rounding (kernels/common.py: hash_uniform,
@@ -286,9 +370,10 @@ __device__ __forceinline__ float hash_uniform(uint32_t idx, uint32_t seed) {
   return __fmul_rn(static_cast<float>(x >> 8), 1.0f / 16777216.0f);
 }
 
-// The stochastic choice of requant_code: code, the nearest code of xn,
-// moved to the neighbour on the far side of xn with probability
-// |xn - q_near| / |q_other - q_near| (never past max_code).
+// The stochastic choice of a requantized value xn = x / scale (the JAX
+// package's requant_code): code, the nearest code of xn, moved to the
+// neighbour on the far side of xn with probability |xn - q_near| /
+// |q_other - q_near| (never past max_code).
 __device__ __forceinline__ uint32_t stochastic_code(float xn, uint32_t code,
                                                     const float* lut, float u,
                                                     uint32_t max_code) {
@@ -300,23 +385,6 @@ __device__ __forceinline__ uint32_t stochastic_code(float xn, uint32_t code,
   const float p_other =
       span > 0.f ? __fdiv_rn(fabsf(__fsub_rn(xn, q_near)), span) : 0.f;
   return u < p_other ? static_cast<uint32_t>(other) : code;
-}
-
-// The code of one value of a block being requantized: nearest code of
-// x / scale; with a uniform u, the stochastic choice (stochastic_code).
-// NaN gets code 0 and stays there.  x / scale is +inf only when the block
-// also holds a NaN (absmax NaN, scale 1): encode counts every +inf
-// midpoint padding it, so the code is capped at max_code, the code the
-// JAX package's searchsorted oracle gives.
-__device__ __forceinline__ uint32_t requant_code(float x, float scale,
-                                                 const float* lut,
-                                                 const float* bounds,
-                                                 bool stochastic, float u,
-                                                 uint32_t max_code) {
-  const float xn = __fdiv_rn(x, scale);
-  uint32_t code = encode(xn, bounds);
-  code = code > max_code ? max_code : code;
-  return stochastic ? stochastic_code(xn, code, lut, u, max_code) : code;
 }
 
 // |x| <= FLT_MAX: false for NaN and +-inf (no isfinite needed).
@@ -353,13 +421,6 @@ __device__ __forceinline__ void block_sum2(int (&v)[2], int* red) {
       v[1] += __shfl_xor_sync(0xffffffffu, v[1], o);
     }
   }
-}
-
-__device__ __forceinline__ float absmax4(float m, float4 v) {
-  m = nanmax(m, fabsf(v.x));
-  m = nanmax(m, fabsf(v.y));
-  m = nanmax(m, fabsf(v.z));
-  return nanmax(m, fabsf(v.w));
 }
 
 // Sum over the CTA of three values at once, in one fixed order: each warp
@@ -407,7 +468,8 @@ __device__ __forceinline__ float3 block_sum3(float a, float b, float c,
 }  // namespace rq
 
 // Waves of resident CTAs in the grid of a kernel whose CTAs walk the
-// blocks (fused_update_packed_kernel, norm_partials_kernel): each CTA
+// blocks (fused_update_kernel, fused_update_packed_kernel, quantize_kernel,
+// norm_partials_kernel): each CTA
 // walks n_blocks / ctas blocks, a few at the main path's shape, and the
 // hardware hands CTAs to the SMs that free up.  One wave of CTAs with
 // fixed shares of the blocks ran 13% slower on an H100 (B3(d), PERF.md):
@@ -420,6 +482,23 @@ static inline int rq_walk_ctas(int n_blocks, int sms, int per_sm) {
   if (n_blocks <= 0 || sms <= 0) return 0;
   const long long ctas = static_cast<long long>(sms) * per_sm * kWaves;
   return ctas < n_blocks ? static_cast<int>(ctas) : n_blocks;
+}
+
+// Let a kernel take more than the default 48 KB of dynamic shared memory.
+template <class K>
+static inline cudaError_t rq_allow_smem(K kernel, int smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    smem)
+             : cudaSuccess;
+}
+
+// Threads of the CTA of a kernel in which each thread owns one group of 8
+// consecutive elements of a block: the fewest of 256, 512 and 1024 that
+// give every group of a block of block_size <= 8192 its own thread.
+static inline int rq_walk_threads(int block_size) {
+  return block_size <= 2048 ? 256 : (block_size <= 4096 ? 512 : 1024);
 }
 
 // Vectors of 4 per thread a kernel holds in registers for a block of

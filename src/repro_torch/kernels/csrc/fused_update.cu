@@ -16,20 +16,57 @@
 // two-state ones (adam/adamw, lamb), plus 8 B of absmax per block and
 // state and, for lamb/lars, 4 B of trust ratio per block, over 3.35 TB/s.
 // The ~40-60 f32 operations per element (divisions, a square root, the
-// 8-step binary searches in shared memory, the hash when rounding
-// stochastically) stay below the f32 rate.
+// 8-step searches in shared memory, the hash when rounding stochastically)
+// stay below the f32 rate, but not below the rate at which an SM issues
+// instructions: the two-state and stochastic updates are bound by issue
+// (PERF.md), so the design cuts instructions per element.
 //
-// Design of the 8-bit kernel (the packed kernel's is below): one
-// 256-thread CTA per quantization block, so the per-block
-// absmax of the new states is one CTA reduction (warp shuffles, then
-// shared memory) and nothing crosses CTAs.  Each thread loads p, g and the
-// codes as float4/uchar4 words (coalesced), keeps the new states in
-// registers across the reduction, and stores p and the codes once: a single
-// HBM pass.  The codebooks and their midpoints sit in shared memory;
-// adagrad's single state uses the unsigned codebook, which the wrapper
-// passes as qmap_m.  The kernel is a template on the algorithm (one- or
-// two-state, trust ratio or not), on the vectors per thread and on
-// stochastic rounding, so each variant carries only its own work.
+// Design of the 8-bit kernel (the packed kernel's is below; the two share
+// their skeleton): a streaming kernel whose CTAs walk the blocks.
+//   * Each thread owns one group of 8 consecutive elements of a block
+//     (thread v: elements 8v .. 8v + 7; a CTA of THREADS = 256, 512 or
+//     1024 threads, the fewest that cover the block).  Its 8 codes per
+//     state are one aligned 8-byte word (row * B + 8v is a multiple of 8),
+//     loaded and stored whole; at a block size of 8k + 4 (B = 260) the
+//     words are read and written as 4-byte halves and the row ends in a
+//     half group of 4 elements (rq::load_codes8 / store_codes8).  The
+//     thread keeps its new states in registers across the absmax
+//     reduction.  Every quantity that depends on the mapping of elements
+//     to threads is order-free: the absmax is a NaN-propagating max, the
+//     sentinel counts are integers, the stochastic uniform is indexed by
+//     the element's position in its leaf.
+//   * CTAs walk the blocks (block blockIdx.x, then + gridDim.x, ...) on a
+//     grid of 16 waves of the CTAs resident at once (fused_update_ctas,
+//     rq_walk_ctas): each CTA loads the codebooks and builds their
+//     midpoints once for the ~4 blocks it walks at the main path's 40960.
+//   * Two-state algorithms: a two-slot ring of shared-memory stages, each
+//     one block's p and g rows, filled by 16-byte cp.async pieces: the next
+//     block's p and g are in flight while the current block updates,
+//     reduces and encodes.  One-state ones (short, memory-bound updates)
+//     load p and g straight into registers.  The next block's code words,
+//     absmax and trust ratio are loaded into registers at the top of the
+//     current block, so they too arrive while it works.  Codes are not
+//     staged: a warp's 8-byte words are 256 contiguous bytes, and the ring
+//     stays at 2 x 16 KB per CTA at B = 2048, so that 5 CTAs of 256
+//     threads fit in an SM (4 for the two-state instances with the
+//     sentinel, which spill at 48 registers).
+//   * Fewer instructions per element: the encode walks the 255 midpoints
+//     in Eytzinger order with the node kept as its byte offset
+//     (rq::encode_tree<8>: 8 steps of a shared load, a compare and a
+//     shift-add; the first five levels free of bank conflicts), the decode
+//     shifts a code's byte straight to its table offset (rq::decode8);
+//     the divisions by c1, c2 and the block scales take rq::div_fast (two
+//     fmas and a multiply on a reciprocal computed once, exact: common.cuh)
+//     for a group of 8 whose values lie in its range, where __fdiv_rn
+//     computes the reciprocal, checks its operands and branches for every
+//     element; the NaN-propagating max is one max.NaN; the sentinel
+//     counts nonfinite values only in a group whose max of |g| or |p| is
+//     nonfinite, and codebook-edge codes four at a time (rq::edge_bytes).
+// The codebooks and their midpoints sit in shared memory; adagrad's single
+// state uses the unsigned codebook, which the wrapper passes as qmap_m.
+// The kernel is a template on the algorithm (one- or two-state, trust
+// ratio or not), the CTA size, stochastic rounding and the sentinel, so
+// each variant carries only its own work.
 //
 // Stochastic rounding (paper App H) draws its uniform per element from the
 // counter hash of common.cuh at the JAX package's element index
@@ -46,7 +83,9 @@
 // at a codebook edge (0 or 2^bits - 1, before packing) per state, and new
 // absmax past ABSMAX_OVERFLOW_THRESHOLD (1e30) per state — counted on
 // values the thread already holds in registers or shared memory, in the
-// same single pass.  Each thread keeps four integer counters packed two to
+// same single pass (the 8-bit kernel counts nonfinite g and p only in a
+// group whose largest |g| or |p| is nonfinite, and edge codes four to a
+// word).  Each thread keeps four integer counters packed two to
 // a word (16 bits each: a block holds at most 8192 elements); after the
 // encode loop one CTA reduction of the two words (rq::block_sum2) sums them
 // exactly, and thread 0 adds the absmax slots and stores the block's row:
@@ -57,8 +96,9 @@
 //
 // In place: p, the code arrays and the absmax vectors are overwritten.
 // Each thread reads its own elements before it writes them, and every
-// thread reads a block's old absmax before the barrier inside the
-// reduction, after which thread 0 writes the new one.
+// thread reads a block's old absmax (with its code words, a block ahead in
+// the 8-bit kernel) before the barriers of that block's reduction, after
+// which thread 0 writes the new one.
 //
 // Order of operations: update_math.cuh, held bit-exactly against the plain
 // version, repro_torch/kernels/fused_update.py::fused_update_plain.
@@ -87,108 +127,258 @@ __device__ __forceinline__ void store_health(float* health, size_t row,
                      static_cast<float>(n[1] >> 16), ov_m, ov_r);
 }
 
-template <int ALGO, int VPT, bool STOCH, bool SENT>
-__global__ void __launch_bounds__(rq::kThreads)
+// Resident CTAs per SM of the update kernels, whose CTAs walk the blocks:
+// 5 of 256 threads (the launch bound caps registers at 48), 2 of 512 and 1
+// of 1024 (64 registers).  Their shared memory fits: at B = 2048 the 8-bit
+// kernel's ring is 32 KB and the packed kernel's 38,976 B at (4, 8), plus
+// 4.6 KB of codebooks, midpoints and reduction slots, 5 x 37-44 KB of an
+// H100 SM's 228 KB.
+template <int THREADS>
+constexpr int walk_ctas_per_sm() {
+  return THREADS == 256 ? 5 : 1024 / THREADS;
+}
+
+// Encode a group's 8 new values x of one state at 8 bits (x / scale, the
+// nearest code, with a uniform from element idx0 + c the stochastic
+// choice) into rq::load_codes8's layout; lo and hi: the least and largest
+// |x| of the group's elements (rq::div8).
+template <bool STOCH>
+__device__ __forceinline__ uint2 encode_codes8(const float (&x)[8],
+                                               const rq::DivBy& scale,
+                                               float lo, float hi,
+                                               const float* lut,
+                                               const float* tree,
+                                               uint32_t idx0, uint32_t seed) {
+  float xn[8];
+  rq::div8(x, scale, lo, hi, xn);
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    uint32_t code = rq::encode_tree<8>(xn[c], tree);
+    if (STOCH)
+      code = rq::stochastic_code(xn[c], code, lut,
+                                 rq::hash_uniform(idx0 + c, seed), 255u);
+    w[c >> 2] |= code << (8 * (c & 3));
+  }
+  uint2 out;
+  out.x = w[0];
+  out.y = w[1];
+  return out;
+}
+
+// Codes of a group's word at a codebook edge (0 or 255), the first 4 of a
+// half group.
+__device__ __forceinline__ int edges8(uint2 w, bool half) {
+  return rq::edge_bytes(w.x) + (half ? 0 : rq::edge_bytes(w.y));
+}
+
+// Resident CTAs per SM of the 8-bit kernel: walk_ctas_per_sm, but 4 of 256
+// threads for the two-state instances with the sentinel, which spill at
+// 48 registers (the launch bound at 5) and fit in 64.
+template <int ALGO, int THREADS, bool SENT>
+constexpr int update8_ctas_per_sm() {
+  return THREADS == 256 && SENT && rq::AlgoTraits<ALGO>::kTwoStates
+             ? 4
+             : walk_ctas_per_sm<THREADS>();
+}
+
+// What a thread reads of a block before its stage arrives: its code words
+// and the block's absmax, trust ratio, seed and leaf offset.
+struct BlockHead {
+  uint2 cm, cr;
+  float am, ar, ts;
+  uint32_t seed, off;
+};
+
+template <int ALGO, int THREADS, bool STOCH, bool SENT>
+__global__ void __launch_bounds__(THREADS,
+                                  update8_ctas_per_sm<ALGO, THREADS, SENT>())
 fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
                     float* absmax_m, uint8_t* codes_r, float* absmax_r,
                     const float* qmap_m, const float* qmap_r,
                     const float* tensor_scale, const int* block_seeds,
                     const int* block_offsets, float* health, int seed,
-                    int block_size, rq::Scalars s) {
+                    int n_blocks, int block_size, rq::Scalars s) {
   constexpr bool kTwo = rq::AlgoTraits<ALGO>::kTwoStates;
-  __shared__ float lut_m[rq::kCodebookSize], bounds_m[rq::kCodebookSize];
+  constexpr bool kNorms = rq::AlgoTraits<ALGO>::kNeedsNorms;
+  __shared__ float lut_m[rq::kCodebookSize], tree_m[rq::kCodebookSize];
   __shared__ float lut_r[kTwo ? rq::kCodebookSize : 1];
-  __shared__ float bounds_r[kTwo ? rq::kCodebookSize : 1];
+  __shared__ float tree_r[kTwo ? rq::kCodebookSize : 1];
   __shared__ float red[66];
   __shared__ int hred[SENT ? 64 : 1];
-  rq::load_codebook(qmap_m, lut_m, bounds_m);
-  if (kTwo) rq::load_codebook(qmap_r, lut_r, bounds_r);
+  RQ_DYNAMIC_SHARED(float4, ring);
 
-  const size_t row = blockIdx.x;
-  const size_t off = row * block_size;
-  const int nvec = block_size >> 2;
-  float4* pr = reinterpret_cast<float4*>(p + off);
-  const float4* gr = reinterpret_cast<const float4*>(g + off);
-  uchar4* cmr = reinterpret_cast<uchar4*>(codes_m + off);
-  uchar4* crr = kTwo ? reinterpret_cast<uchar4*>(codes_r + off) : nullptr;
-  const float am = absmax_m[row];
-  const float ar = kTwo ? absmax_r[row] : 0.f;
-  const float ts = rq::AlgoTraits<ALGO>::kNeedsNorms ? tensor_scale[row] : 1.f;
-
-  float4 m2[VPT], r2[VPT];
-  float mx_m = 0.f, mx_r = 0.f;
-  int cnt[2] = {0, 0};          // sentinel counts (see kHigh)
-#pragma unroll
-  for (int k = 0; k < VPT; ++k) {
-    const int i = threadIdx.x + k * rq::kThreads;
-    if (i < nvec) {
-      const float4 pv = pr[i], gv = gr[i];
-      const uchar4 cm = cmr[i];
-      const uchar4 cr = kTwo ? crr[i] : make_uchar4(0, 0, 0, 0);
-      const float pe[4] = {pv.x, pv.y, pv.z, pv.w};
-      const float ge[4] = {gv.x, gv.y, gv.z, gv.w};
-      const uint8_t ce_m[4] = {cm.x, cm.y, cm.z, cm.w};
-      const uint8_t ce_r[4] = {cr.x, cr.y, cr.z, cr.w};
-      float pn[4], mn[4], rn[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float m = __fmul_rn(rq::decode(ce_m[c], lut_m), am);
-        const float r = kTwo ? __fmul_rn(rq::decode(ce_r[c], lut_r), ar) : 0.f;
-        const rq::Update o = rq::update<ALGO>(
-            pe[c], __fmul_rn(ge[c], s.gnorm_scale), m, r, ts, s);
-        pn[c] = o.p2;
-        mn[c] = o.m2;
-        rn[c] = o.r2;
-        if (SENT)
-          cnt[0] += (rq::is_finite(ge[c]) ? 0 : 1) +
-                    (rq::is_finite(o.p2) ? 0 : kHigh);
+  const int bsz = block_size, nvec = bsz >> 2;
+  const size_t nb = static_cast<size_t>(n_blocks);
+  const size_t stride = gridDim.x;
+  const int v = threadIdx.x;              // this thread's group
+  const bool live = 8 * v < bsz;
+  const bool half = 8 * v + 4 == bsz;     // a block of 8k + 4 ends in one
+  const bool wide = (bsz & 7) == 0;       // 8-byte aligned code words
+  // issue (and commit, also when empty) the copies of block row's p and g
+  // rows into ring slot `slot` (two-state instances; the one-state ones,
+  // whose update is short and memory-bound, load p and g straight into
+  // registers: through the ring they ran 4% slower on an H100)
+  auto stage = [&](size_t row, int slot) {
+    if (kTwo && row < nb) {
+      float4* d = ring + 2 * nvec * slot;
+      const float4* sp = reinterpret_cast<const float4*>(p + row * bsz);
+      const float4* sg = reinterpret_cast<const float4*>(g + row * bsz);
+      for (int c = threadIdx.x; c < nvec; c += THREADS) {
+        cp_async_16(d + c, sp + c, true);
+        cp_async_16(d + nvec + c, sg + c, true);
       }
-      pr[i] = make_float4(pn[0], pn[1], pn[2], pn[3]);
-      m2[k] = make_float4(mn[0], mn[1], mn[2], mn[3]);
-      r2[k] = make_float4(rn[0], rn[1], rn[2], rn[3]);
-      mx_m = rq::absmax4(mx_m, m2[k]);
-      if (kTwo) mx_r = rq::absmax4(mx_r, r2[k]);
     }
-  }
-  const float2 mx = rq::block_max2(mx_m, mx_r, red);
-  const float scale_m = rq::block_scale(mx.x), scale_r = rq::block_scale(mx.y);
-  const uint32_t bseed =
-      static_cast<uint32_t>(block_seeds ? block_seeds[row] : seed);
-  const uint32_t boff =
-      static_cast<uint32_t>(block_offsets ? block_offsets[row]
-                                          : static_cast<int>(row));
+    cp_async_commit();
+  };
+  auto head = [&](size_t row) {
+    BlockHead h{};
+    h.ts = 1.f;
+    if (row < nb) {
+      if (live) {
+        h.cm = rq::load_codes8(codes_m + row * bsz + 8 * v, wide, half);
+        if (kTwo)
+          h.cr = rq::load_codes8(codes_r + row * bsz + 8 * v, wide, half);
+      }
+      h.am = absmax_m[row];
+      if (kTwo) h.ar = absmax_r[row];
+      if (kNorms) h.ts = tensor_scale[row];
+      if (STOCH) {
+        h.seed = static_cast<uint32_t>(block_seeds ? block_seeds[row] : seed);
+        h.off = static_cast<uint32_t>(block_offsets ? block_offsets[row]
+                                                    : static_cast<int>(row));
+      }
+    }
+    return h;
+  };
+  size_t row = blockIdx.x;
+  stage(row, 0);
+  stage(row + stride, 1);
+  BlockHead next = head(row);
+  rq::load_codebook_tree(qmap_m, lut_m, tree_m, 8);
+  if (kTwo) rq::load_codebook_tree(qmap_r, lut_r, tree_r, 8);
+  const rq::DivBy c1 = rq::div_by(s.c1), c2 = rq::div_by(s.c2);
+
+  for (int slot = 0; row < nb; row += stride, slot ^= 1) {
+    const BlockHead cur = next;
+    next = head(row + stride);   // in flight while this block works
+    cp_async_wait<1>();   // this block's stage (the next one may still fly)
+    if (kTwo) __syncthreads();
+    // this block's p and g rows: the ring's stage, or global memory
+    const float4* sp = kTwo ? ring + 2 * nvec * slot
+                            : reinterpret_cast<const float4*>(p + row * bsz);
+    const float4* sg = kTwo ? sp + nvec
+                            : reinterpret_cast<const float4*>(g + row * bsz);
+    float xm[8], xr[8];   // the new states, kept across the absmax
+    float mx_m = 0.f, mx_r = 0.f;            // the group's largest |state|
+    float mn_m = INFINITY, mn_r = INFINITY;  // and least (rq::div8's range)
+    int cnt[2] = {0, 0};  // sentinel counts (see kHigh)
+    if (live) {
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 p0 = sp[2 * v], g0 = sg[2 * v];
+      const float4 p1 = half ? zero : sp[2 * v + 1];
+      const float4 g1 = half ? zero : sg[2 * v + 1];
+      const float pe[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float ge[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+      float pn[8];
+      float mx_g = 0.f, mx_p = 0.f;  // the sentinel's: NaN or inf if any
+      if constexpr (kTwo) {
+        // the 8 elements' moments first, then their quotients by c1 and c2
+        // (rq::div_fast when the group lies in both ranges) and the step
 #pragma unroll
-  for (int k = 0; k < VPT; ++k) {
-    const int i = threadIdx.x + k * rq::kThreads;
-    if (i < nvec) {
-      const float xm[4] = {m2[k].x, m2[k].y, m2[k].z, m2[k].w};
-      const float xr[4] = {r2[k].x, r2[k].y, r2[k].z, r2[k].w};
-      uint8_t om[4], orr[4];
+        for (int c = 0; c < 8; ++c) {
+          rq::adam_moments(__fmul_rn(ge[c], s.gnorm_scale),
+                           __fmul_rn(rq::decode8(cur.cm, c, lut_m), cur.am),
+                           __fmul_rn(rq::decode8(cur.cr, c, lut_r), cur.ar),
+                           s, xm[c], xr[c]);
+          if (c < 4 || !half) {
+            mx_m = rq::nanmax(mx_m, fabsf(xm[c]));
+            mx_r = rq::nanmax(mx_r, fabsf(xr[c]));
+            mn_m = fminf(mn_m, fabsf(xm[c]));
+            mn_r = fminf(mn_r, fabsf(xr[c]));
+            if (SENT) mx_g = rq::nanmax(mx_g, fabsf(ge[c]));
+          }
+        }
+        if (mn_m >= c1.x_min && mx_m <= c1.x_max && mn_r >= c2.x_min &&
+            mx_r <= c2.x_max) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        // element index in the block's own leaf, as uint32 (wraps)
-        const uint32_t idx = boff * static_cast<uint32_t>(block_size) +
-                             static_cast<uint32_t>(4 * i + c);
-        const float u1 = STOCH ? rq::hash_uniform(idx, bseed + rq::kState1Salt) : 0.f;
-        om[c] = static_cast<uint8_t>(
-            rq::requant_code(xm[c], scale_m, lut_m, bounds_m, STOCH, u1, 255u));
-        if (SENT) cnt[1] += om[c] == 0 || om[c] == 255 ? 1 : 0;
-        if (kTwo) {
-          const float u2 = STOCH ? rq::hash_uniform(idx, bseed + rq::kState2Salt) : 0.f;
-          orr[c] = static_cast<uint8_t>(
-              rq::requant_code(xr[c], scale_r, lut_r, bounds_r, STOCH, u2, 255u));
-          if (SENT) cnt[1] += orr[c] == 0 || orr[c] == 255 ? kHigh : 0;
+          for (int c = 0; c < 8; ++c)
+            pn[c] = rq::adam_param<ALGO>(pe[c], rq::div_fast(xm[c], c1),
+                                         rq::div_fast(xr[c], c2), cur.ts, s);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            pn[c] = rq::adam_param<ALGO>(pe[c], __fdiv_rn(xm[c], s.c1),
+                                         __fdiv_rn(xr[c], s.c2), cur.ts, s);
+        }
+        if (SENT) {
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            if (c < 4 || !half) mx_p = rq::nanmax(mx_p, fabsf(pn[c]));
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const rq::Update o = rq::update<ALGO>(
+              pe[c], __fmul_rn(ge[c], s.gnorm_scale),
+              __fmul_rn(rq::decode8(cur.cm, c, lut_m), cur.am), 0.f, cur.ts,
+              s);
+          pn[c] = o.p2;
+          xm[c] = o.m2;
+          if (c < 4 || !half) {
+            mx_m = rq::nanmax(mx_m, fabsf(o.m2));
+            mn_m = fminf(mn_m, fabsf(o.m2));
+            if (SENT) {
+              mx_g = rq::nanmax(mx_g, fabsf(ge[c]));
+              mx_p = rq::nanmax(mx_p, fabsf(o.p2));
+            }
+          }
         }
       }
-      cmr[i] = make_uchar4(om[0], om[1], om[2], om[3]);
-      if (kTwo) crr[i] = make_uchar4(orr[0], orr[1], orr[2], orr[3]);
+      // count the nonfinite g and new p only in a group that has one (g
+      // read again, from the stage, which holds it until the reduction)
+      if (SENT && !(rq::is_finite(mx_g) && rq::is_finite(mx_p))) {
+        const float4 h0 = sg[2 * v];
+        const float4 h1 = half ? zero : sg[2 * v + 1];
+        const float gr[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+#pragma unroll
+        for (int c = 0; c < 8; ++c)
+          if (c < 4 || !half)
+            cnt[0] += (rq::is_finite(gr[c]) ? 0 : 1) +
+                      (rq::is_finite(pn[c]) ? 0 : kHigh);
+      }
+      float4* pr = reinterpret_cast<float4*>(p + row * bsz);
+      pr[2 * v] = make_float4(pn[0], pn[1], pn[2], pn[3]);
+      if (!half) pr[2 * v + 1] = make_float4(pn[4], pn[5], pn[6], pn[7]);
     }
-  }
-  if (SENT) rq::block_sum2(cnt, hred);
-  if (threadIdx.x == 0) {
-    absmax_m[row] = mx.x;
-    if (kTwo) absmax_r[row] = mx.y;
-    if (SENT) store_health<kTwo>(health, row, cnt, mx);
+    // every thread has read this stage before the reduction's first
+    // barrier: refill it with the block two ahead
+    const float2 mx = rq::block_max2(mx_m, mx_r, red);
+    stage(row + 2 * stride, slot);
+    if (live) {
+      // element index in the block's own leaf, as uint32 (wraps)
+      const uint32_t idx0 = cur.off * static_cast<uint32_t>(bsz) +
+                            static_cast<uint32_t>(8 * v);
+      const size_t at = row * bsz + 8 * v;
+      const uint2 nm = encode_codes8<STOCH>(
+          xm, rq::div_by(rq::block_scale(mx.x)), mn_m, mx_m, lut_m, tree_m,
+          idx0, cur.seed + rq::kState1Salt);
+      rq::store_codes8(codes_m + at, nm, wide, half);
+      if (SENT) cnt[1] += edges8(nm, half);
+      if (kTwo) {
+        const uint2 nr = encode_codes8<STOCH>(
+            xr, rq::div_by(rq::block_scale(mx.y)), mn_r, mx_r, lut_r,
+            tree_r, idx0, cur.seed + rq::kState2Salt);
+        rq::store_codes8(codes_r + at, nr, wide, half);
+        if (SENT) cnt[1] += edges8(nr, half) * kHigh;
+      }
+    }
+    if (SENT) rq::block_sum2(cnt, hred);
+    if (threadIdx.x == 0) {
+      absmax_m[row] = mx.x;
+      if (kTwo) absmax_r[row] = mx.y;
+      if (SENT) store_health<kTwo>(health, row, cnt, mx);
+    }
   }
 }
 
@@ -232,13 +422,8 @@ fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
 //     barrier, by which every thread has read it.
 // Shared memory per CTA: dynamic 2 x (8 B + staged packed rows) — 38,976
 // bytes for adam at B = 2048, (4, 8) — plus 4 KB of codebooks and
-// midpoints.  Resident CTAs per SM: 5 of 256 threads (the launch bound
-// caps registers at 48; 5 x 43.6 KB of shared memory fit in an H100 SM's
-// 228 KB at (4, 8)), 2 of 512 and 1 of 1024 (64 registers).
-template <int THREADS>
-constexpr int packed_ctas_per_sm() {
-  return THREADS == 256 ? 5 : 1024 / THREADS;
-}
+// midpoints; resident CTAs per SM as the 8-bit kernel's
+// (walk_ctas_per_sm).
 
 // Bytes of one stage of the packed kernel's ring (a multiple of 16).
 __host__ __device__ inline int packed_stage_bytes(int block_size, int wm,
@@ -291,7 +476,7 @@ __device__ __forceinline__ uint64_t encode_group(
 }
 
 template <int ALGO, int THREADS, bool STOCH, bool SENT>
-__global__ void __launch_bounds__(THREADS, packed_ctas_per_sm<THREADS>())
+__global__ void __launch_bounds__(THREADS, walk_ctas_per_sm<THREADS>())
 fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
                            float* absmax_m, uint8_t* codes_r,
                            float* absmax_r, const float* qmap_m,
@@ -444,45 +629,14 @@ struct Args {
   const int* block_offsets;
   float* health;  // (n_blocks, 8) sentinel output, or null
   int seed, n_blocks, block_size, bits_m, bits_r;
-  int ctas;       // the packed kernel's grid
+  int ctas;       // the grid: CTAs that walk the blocks
   rq::Scalars s;
 };
 
-template <int ALGO, int VPT, bool STOCH, bool SENT>
-int launch(const Args& a, cudaStream_t stream) {
-  const dim3 grid(a.n_blocks), block(rq::kThreads);
-  fused_update_kernel<ALGO, VPT, STOCH, SENT><<<grid, block, 0, stream>>>(
-      a.p, a.g, a.codes_m, a.absmax_m, a.codes_r, a.absmax_r, a.qmap_m,
-      a.qmap_r, a.tensor_scale, a.block_seeds, a.block_offsets, a.health,
-      a.seed, a.block_size, a.s);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int ALGO, bool STOCH, bool SENT>
-int launch_vpt(const Args& a, cudaStream_t stream) {
-  switch (rq_vectors_per_thread(a.block_size)) {
-    case 1: return launch<ALGO, 1, STOCH, SENT>(a, stream);
-    case 2: return launch<ALGO, 2, STOCH, SENT>(a, stream);
-    case 4: return launch<ALGO, 4, STOCH, SENT>(a, stream);
-    case 8: return launch<ALGO, 8, STOCH, SENT>(a, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-template <int ALGO>
-int launch_algo(const Args& a, bool stochastic, cudaStream_t stream) {
-  const bool sent = a.health != nullptr;
-  if (stochastic)
-    return sent ? launch_vpt<ALGO, true, true>(a, stream)
-                : launch_vpt<ALGO, true, false>(a, stream);
-  return sent ? launch_vpt<ALGO, false, true>(a, stream)
-              : launch_vpt<ALGO, false, false>(a, stream);
-}
-
-// Threads of the packed kernel's CTA: the fewest of 256, 512 and 1024
-// that give every group of 8 elements of a block its own thread.
-int packed_threads(int block_size) {
-  return block_size <= 2048 ? 256 : (block_size <= 4096 ? 512 : 1024);
+// Dynamic shared memory of the 8-bit kernel: the two-state instances'
+// two-slot ring of p and g rows.
+int update8_smem_bytes(bool two, int block_size) {
+  return two ? 2 * 8 * block_size : 0;
 }
 
 // Dynamic shared memory of the packed kernel: its two-slot ring.
@@ -491,94 +645,94 @@ int packed_smem_bytes(int block_size, int bits_m, int bits_r, bool two) {
                                 two ? block_size * bits_r / 8 : 0);
 }
 
-// CTAs of the packed kernel for n_blocks blocks on a card of `sms` SMs
-// (rq_walk_ctas); 0 for an invalid shape.
-int packed_ctas(int n_blocks, int block_size, int sms) {
-  if (block_size <= 0 || block_size % 8 || block_size > rq::kMaxBlock)
+// CTAs of an update kernel for n_blocks blocks on a card of `sms` SMs
+// (rq_walk_ctas); 0 for a block size that is not a multiple of `multiple`
+// (8 for packed rows, 4 for 8-bit ones) or above rq::kMaxBlock.  lean:
+// the 8-bit kernel's two-state instances with the sentinel
+// (update8_ctas_per_sm).
+int walk_ctas(int n_blocks, int block_size, int sms, int multiple,
+              bool lean = false) {
+  if (block_size <= 0 || block_size % multiple || block_size > rq::kMaxBlock)
     return 0;
   int per_sm;
-  switch (packed_threads(block_size)) {
-    case 256: per_sm = packed_ctas_per_sm<256>(); break;
-    case 512: per_sm = packed_ctas_per_sm<512>(); break;
-    default: per_sm = packed_ctas_per_sm<1024>(); break;
+  switch (rq_walk_threads(block_size)) {
+    case 256:
+      per_sm = lean ? update8_ctas_per_sm<rq::kAdam, 256, true>()
+                    : walk_ctas_per_sm<256>();
+      break;
+    case 512: per_sm = walk_ctas_per_sm<512>(); break;
+    default: per_sm = walk_ctas_per_sm<1024>(); break;
   }
   return rq_walk_ctas(n_blocks, sms, per_sm);
 }
 
-template <int ALGO, int THREADS, bool STOCH, bool SENT>
-int launch_packed(const Args& a, cudaStream_t stream) {
-  const int smem = packed_smem_bytes(a.block_size, a.bits_m, a.bits_r,
-                                     rq::AlgoTraits<ALGO>::kTwoStates);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_update_packed_kernel<ALGO, THREADS, STOCH, SENT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+template <bool PACKED, int ALGO, int THREADS, bool STOCH, bool SENT>
+int launch(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.ctas), block(THREADS);
-  fused_update_packed_kernel<ALGO, THREADS, STOCH, SENT><<<grid, block, smem, stream>>>(
-      a.p, a.g, a.codes_m, a.absmax_m, a.codes_r, a.absmax_r, a.qmap_m,
-      a.qmap_r, a.tensor_scale, a.block_seeds, a.block_offsets, a.health,
-      a.seed, a.n_blocks, a.block_size, a.bits_m, a.bits_r, a.s);
+  if constexpr (PACKED) {
+    const int smem = packed_smem_bytes(a.block_size, a.bits_m, a.bits_r,
+                                       rq::AlgoTraits<ALGO>::kTwoStates);
+    const cudaError_t e = rq_allow_smem(
+        fused_update_packed_kernel<ALGO, THREADS, STOCH, SENT>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fused_update_packed_kernel<ALGO, THREADS, STOCH, SENT><<<grid, block, smem, stream>>>(
+        a.p, a.g, a.codes_m, a.absmax_m, a.codes_r, a.absmax_r, a.qmap_m,
+        a.qmap_r, a.tensor_scale, a.block_seeds, a.block_offsets, a.health,
+        a.seed, a.n_blocks, a.block_size, a.bits_m, a.bits_r, a.s);
+  } else {
+    const int smem = update8_smem_bytes(rq::AlgoTraits<ALGO>::kTwoStates,
+                                        a.block_size);
+    const cudaError_t e =
+        rq_allow_smem(fused_update_kernel<ALGO, THREADS, STOCH, SENT>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fused_update_kernel<ALGO, THREADS, STOCH, SENT><<<grid, block, smem, stream>>>(
+        a.p, a.g, a.codes_m, a.absmax_m, a.codes_r, a.absmax_r, a.qmap_m,
+        a.qmap_r, a.tensor_scale, a.block_seeds, a.block_offsets, a.health,
+        a.seed, a.n_blocks, a.block_size, a.s);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int ALGO, bool STOCH, bool SENT>
-int launch_packed_threads(const Args& a, cudaStream_t stream) {
-  switch (packed_threads(a.block_size)) {
-    case 256: return launch_packed<ALGO, 256, STOCH, SENT>(a, stream);
-    case 512: return launch_packed<ALGO, 512, STOCH, SENT>(a, stream);
-    default: return launch_packed<ALGO, 1024, STOCH, SENT>(a, stream);
+template <bool PACKED, int ALGO, bool STOCH, bool SENT>
+int launch_threads(const Args& a, cudaStream_t stream) {
+  switch (rq_walk_threads(a.block_size)) {
+    case 256: return launch<PACKED, ALGO, 256, STOCH, SENT>(a, stream);
+    case 512: return launch<PACKED, ALGO, 512, STOCH, SENT>(a, stream);
+    default: return launch<PACKED, ALGO, 1024, STOCH, SENT>(a, stream);
   }
 }
 
-template <int ALGO>
-int launch_packed_algo(const Args& a, bool stochastic, cudaStream_t stream) {
+template <bool PACKED, int ALGO>
+int launch_algo(const Args& a, bool stochastic, cudaStream_t stream) {
   const bool sent = a.health != nullptr;
   if (stochastic)
-    return sent ? launch_packed_threads<ALGO, true, true>(a, stream)
-                : launch_packed_threads<ALGO, true, false>(a, stream);
-  return sent ? launch_packed_threads<ALGO, false, true>(a, stream)
-              : launch_packed_threads<ALGO, false, false>(a, stream);
+    return sent ? launch_threads<PACKED, ALGO, true, true>(a, stream)
+                : launch_threads<PACKED, ALGO, true, false>(a, stream);
+  return sent ? launch_threads<PACKED, ALGO, false, true>(a, stream)
+              : launch_threads<PACKED, ALGO, false, false>(a, stream);
 }
 
 bool valid_bits(int b) { return b == 4 || b == 5 || b == 6 || b == 8; }
 
+// The 8-bit kernel (packed false) or the packed one, on a.ctas CTAs.
+template <bool PACKED>
 int run(int algo, const Args& a, int stochastic, cudaStream_t stream) {
   if (a.n_blocks == 0) return 0;
   const bool two = algo == rq::kAdam || algo == rq::kLamb;
   const bool norms = algo == rq::kLamb || algo == rq::kLars;
   if ((two && (!a.codes_r || !a.absmax_r || !a.qmap_r)) ||
-      (norms && !a.tensor_scale))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool sr = stochastic != 0;
-  switch (algo) {
-    case rq::kAdam: return launch_algo<rq::kAdam>(a, sr, stream);
-    case rq::kLamb: return launch_algo<rq::kLamb>(a, sr, stream);
-    case rq::kMomentum: return launch_algo<rq::kMomentum>(a, sr, stream);
-    case rq::kLars: return launch_algo<rq::kLars>(a, sr, stream);
-    case rq::kAdagrad: return launch_algo<rq::kAdagrad>(a, sr, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-int run_packed(int algo, const Args& a, int stochastic, cudaStream_t stream) {
-  if (a.n_blocks == 0) return 0;
-  const bool two = algo == rq::kAdam || algo == rq::kLamb;
-  const bool norms = algo == rq::kLamb || algo == rq::kLars;
-  if ((two && (!a.codes_r || !a.absmax_r || !a.qmap_r ||
-               !valid_bits(a.bits_r))) ||
-      (norms && !a.tensor_scale) || !valid_bits(a.bits_m) ||
-      a.block_size % 8 || a.block_size <= 0 ||
+      (norms && !a.tensor_scale) ||
+      (PACKED && (!valid_bits(a.bits_m) || (two && !valid_bits(a.bits_r)))) ||
+      a.block_size <= 0 || a.block_size % (PACKED ? 8 : 4) ||
       a.block_size > rq::kMaxBlock || a.ctas <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool sr = stochastic != 0;
   switch (algo) {
-    case rq::kAdam: return launch_packed_algo<rq::kAdam>(a, sr, stream);
-    case rq::kLamb: return launch_packed_algo<rq::kLamb>(a, sr, stream);
-    case rq::kMomentum: return launch_packed_algo<rq::kMomentum>(a, sr, stream);
-    case rq::kLars: return launch_packed_algo<rq::kLars>(a, sr, stream);
-    case rq::kAdagrad: return launch_packed_algo<rq::kAdagrad>(a, sr, stream);
+    case rq::kAdam: return launch_algo<PACKED, rq::kAdam>(a, sr, stream);
+    case rq::kLamb: return launch_algo<PACKED, rq::kLamb>(a, sr, stream);
+    case rq::kMomentum: return launch_algo<PACKED, rq::kMomentum>(a, sr, stream);
+    case rq::kLars: return launch_algo<PACKED, rq::kLars>(a, sr, stream);
+    case rq::kAdagrad: return launch_algo<PACKED, rq::kAdagrad>(a, sr, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -595,7 +749,44 @@ rq::Scalars scalars(float lr, float beta1, float one_minus_beta1,
 
 // algo: rq::Algo (adam and adamw are both kAdam).  codes_r, absmax_r and
 // qmap_r are null for one-state algorithms, tensor_scale for block-local
-// ones; block_seeds and block_offsets may be null (see above).
+// ones; block_seeds and block_offsets may be null (see above).  health:
+// null, or the sentinel's (n_blocks, 8) f32 output (16-byte aligned).
+// block_size a multiple of 4 and at most rq::kMaxBlock.  ctas: the grid,
+// from fused_update_ctas; each CTA walks the blocks blockIdx.x,
+// blockIdx.x + ctas, ...
+extern "C" int fused_update_grid(
+    int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
+    uint8_t* codes_r, float* absmax_r, const float* qmap_m,
+    const float* qmap_r, const float* tensor_scale, const int* block_seeds,
+    const int* block_offsets, float* health, int stochastic, int seed,
+    int n_blocks, int block_size, int ctas, float lr, float beta1,
+    float one_minus_beta1, float beta2, float one_minus_beta2, float eps,
+    float weight_decay, float c1, float c2, float gnorm_scale,
+    cudaStream_t stream) {
+  const Args a{p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r,
+               tensor_scale, block_seeds, block_offsets, health, seed,
+               n_blocks, block_size, 8, 8, ctas,
+               scalars(lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
+                       eps, weight_decay, c1, c2, gnorm_scale)};
+  return run<false>(algo, a, stochastic, stream);
+}
+
+// The grid of fused_update_grid for algorithm `algo`, with the sentinel
+// output or not, on a card of `sms` SMs; 0 for an invalid shape.
+extern "C" int fused_update_ctas(int algo, int sentinel, int n_blocks,
+                                 int block_size, int sms) {
+  const bool two = algo == rq::kAdam || algo == rq::kLamb;
+  return walk_ctas(n_blocks, block_size, sms, 4, two && sentinel);
+}
+
+// Dynamic shared memory per CTA of fused_update_grid (its ring; 0 for the
+// one-state algorithms).
+extern "C" int fused_update_smem(int algo, int block_size) {
+  return update8_smem_bytes(algo == rq::kAdam || algo == rq::kLamb,
+                            block_size);
+}
+
+// fused_update_grid with one CTA per block and no sentinel output.
 extern "C" int fused_update(
     int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
     uint8_t* codes_r, float* absmax_r, const float* qmap_m,
@@ -604,16 +795,16 @@ extern "C" int fused_update(
     int block_size, float lr, float beta1, float one_minus_beta1, float beta2,
     float one_minus_beta2, float eps, float weight_decay, float c1, float c2,
     float gnorm_scale, cudaStream_t stream) {
-  const Args a{p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r,
-               tensor_scale, block_seeds, block_offsets, nullptr, seed,
-               n_blocks, block_size, 8, 8, 0,
-               scalars(lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
-                       eps, weight_decay, c1, c2, gnorm_scale)};
-  return run(algo, a, stochastic, stream);
+  return fused_update_grid(algo, p, g, codes_m, absmax_m, codes_r, absmax_r,
+                           qmap_m, qmap_r, tensor_scale, block_seeds,
+                           block_offsets, nullptr, stochastic, seed, n_blocks,
+                           block_size, n_blocks, lr, beta1, one_minus_beta1,
+                           beta2, one_minus_beta2, eps, weight_decay, c1, c2,
+                           gnorm_scale, stream);
 }
 
-// With the sentinel: as fused_update, plus health, the (n_blocks, 8) f32
-// output of per-block health counts (16-byte aligned, not null).
+// fused_update_grid with one CTA per block and the sentinel output
+// (health not null).
 extern "C" int fused_update_sentinel(
     int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
     uint8_t* codes_r, float* absmax_r, const float* qmap_m,
@@ -624,21 +815,18 @@ extern "C" int fused_update_sentinel(
     float weight_decay, float c1, float c2, float gnorm_scale,
     cudaStream_t stream) {
   if (!health) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r,
-               tensor_scale, block_seeds, block_offsets, health, seed,
-               n_blocks, block_size, 8, 8, 0,
-               scalars(lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
-                       eps, weight_decay, c1, c2, gnorm_scale)};
-  return run(algo, a, stochastic, stream);
+  return fused_update_grid(algo, p, g, codes_m, absmax_m, codes_r, absmax_r,
+                           qmap_m, qmap_r, tensor_scale, block_seeds,
+                           block_offsets, health, stochastic, seed, n_blocks,
+                           block_size, n_blocks, lr, beta1, one_minus_beta1,
+                           beta2, one_minus_beta2, eps, weight_decay, c1, c2,
+                           gnorm_scale, stream);
 }
 
-// The packed variant: as fused_update, with codes_m / codes_r stored as
-// packed bits_m- / bits_r-bit rows of block_size * bits / 8 bytes, and
+// The packed variant: as fused_update_grid, with codes_m / codes_r stored
+// as packed bits_m- / bits_r-bit rows of block_size * bits / 8 bytes, and
 // qmaps of 2^bits entries.  Widths in {4, 5, 6, 8}; block_size a multiple
-// of 8 and at most rq::kMaxBlock.  health: null, or the sentinel's output
-// (as in fused_update_sentinel).  ctas: the grid, from
-// fused_update_packed_ctas; each CTA walks the blocks blockIdx.x,
-// blockIdx.x + ctas, ...
+// of 8 and at most rq::kMaxBlock.  ctas: from fused_update_packed_ctas.
 extern "C" int fused_update_packed_grid(
     int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
     uint8_t* codes_r, float* absmax_r, const float* qmap_m,
@@ -653,14 +841,14 @@ extern "C" int fused_update_packed_grid(
                n_blocks, block_size, bits_m, bits_r, ctas,
                scalars(lr, beta1, one_minus_beta1, beta2, one_minus_beta2,
                        eps, weight_decay, c1, c2, gnorm_scale)};
-  return run_packed(algo, a, stochastic, stream);
+  return run<true>(algo, a, stochastic, stream);
 }
 
 // The grid of fused_update_packed_grid on a card of `sms` SMs (the same
 // for every algorithm and width); 0 for an invalid shape.
 extern "C" int fused_update_packed_ctas(int n_blocks, int block_size,
                                         int sms) {
-  return packed_ctas(n_blocks, block_size, sms);
+  return walk_ctas(n_blocks, block_size, sms, 8);
 }
 
 // Dynamic shared memory per CTA of fused_update_packed_grid (its ring).
@@ -707,3 +895,38 @@ extern "C" int fused_update_packed_sentinel(
       one_minus_beta1, beta2, one_minus_beta2, eps, weight_decay, c1, c2,
       gnorm_scale, stream);
 }
+
+// The check of rq::div_fast: for each of the n divisors, every f32 bit
+// pattern x in its range [x_min, x_max] (both signs) against __fdiv_rn;
+// mismatches[i] counts the x that differ for divisor i and checked[i] the
+// x in range.  One thread per x of a 2^32 sweep, grid-strided.  On the
+// card only (the CPU tests' emulation runs no such sweep).
+#ifdef __CUDACC__
+__global__ void div_check_kernel(const float* divisors, int n,
+                                 unsigned long long* mismatches,
+                                 unsigned long long* checked) {
+  for (int i = 0; i < n; ++i) {
+    const rq::DivBy d = rq::div_by(divisors[i]);
+    unsigned long long bad = 0, seen = 0;
+    for (unsigned long long b = blockIdx.x * 256ull + threadIdx.x;
+         b < (1ull << 32); b += 256ull * gridDim.x) {
+      const float x = __uint_as_float(static_cast<uint32_t>(b));
+      if (!(fabsf(x) >= d.x_min && fabsf(x) <= d.x_max)) continue;
+      ++seen;
+      const float a = rq::div_fast(x, d), want = __fdiv_rn(x, d.c);
+      bad += __float_as_uint(a) != __float_as_uint(want) ? 1 : 0;
+    }
+    atomicAdd(mismatches + i, bad);
+    atomicAdd(checked + i, seen);
+  }
+}
+
+extern "C" int fused_update_div_check(const float* divisors, int n,
+                                      unsigned long long* mismatches,
+                                      unsigned long long* checked,
+                                      cudaStream_t stream) {
+  const dim3 grid(132 * 16), block(256);
+  div_check_kernel<<<grid, block, 0, stream>>>(divisors, n, mismatches, checked);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif  // __CUDACC__

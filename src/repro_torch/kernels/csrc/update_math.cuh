@@ -40,18 +40,39 @@ struct Update {
   float m2, r2, p2;
 };
 
+// Adam's moments m2, r2.
+__device__ __forceinline__ void adam_moments(float g, float m, float r,
+                                             const Scalars& s, float& m2,
+                                             float& r2) {
+  m2 = __fadd_rn(__fmul_rn(s.beta1, m), __fmul_rn(s.one_minus_beta1, g));
+  r2 = __fadd_rn(__fmul_rn(s.beta2, r),
+                 __fmul_rn(__fmul_rn(s.one_minus_beta2, g), g));
+}
+
+// Adam's direction incl. decoupled weight decay from the bias-corrected
+// moments mc = m2 / c1 and rc = r2 / c2: the pre-trust-ratio u of LAMB.
+__device__ __forceinline__ float adam_direction(float p, float mc, float rc,
+                                                const Scalars& s) {
+  const float denom = __fadd_rn(__fsqrt_rn(rc), s.eps);
+  return __fadd_rn(__fdiv_rn(mc, denom), __fmul_rn(s.weight_decay, p));
+}
+
+// The new parameter of adam/adamw (p - lr u) or lamb (p - (lr ts) u).
+template <int ALGO>
+__device__ __forceinline__ float adam_param(float p, float mc, float rc,
+                                            float ts, const Scalars& s) {
+  const float step = ALGO == kLamb ? __fmul_rn(s.lr, ts) : s.lr;
+  return __fsub_rn(p, __fmul_rn(step, adam_direction(p, mc, rc, s)));
+}
+
 // Adam's moments and bias-corrected direction incl. decoupled weight
 // decay: the pre-trust-ratio u of LAMB.
 __device__ __forceinline__ Update adam_base(float p, float g, float m,
                                             float r, const Scalars& s,
                                             float* u) {
   Update o;
-  o.m2 = __fadd_rn(__fmul_rn(s.beta1, m), __fmul_rn(s.one_minus_beta1, g));
-  o.r2 = __fadd_rn(__fmul_rn(s.beta2, r),
-                   __fmul_rn(__fmul_rn(s.one_minus_beta2, g), g));
-  const float denom = __fadd_rn(__fsqrt_rn(__fdiv_rn(o.r2, s.c2)), s.eps);
-  *u = __fadd_rn(__fdiv_rn(__fdiv_rn(o.m2, s.c1), denom),
-                 __fmul_rn(s.weight_decay, p));
+  adam_moments(g, m, r, s, o.m2, o.r2);
+  *u = adam_direction(p, __fdiv_rn(o.m2, s.c1), __fdiv_rn(o.r2, s.c2), s);
   o.p2 = 0.f;
   return o;
 }

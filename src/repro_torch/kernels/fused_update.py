@@ -572,7 +572,8 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
     ``stochastic`` rounds with the counter hash seeded by ``seed`` (int32,
     every block) or ``block_seeds``, at element index ``block_offsets * B
     + col``.  CUDA tensors launch ``csrc/fused_update.cu`` (the 8-bit
-    kernel when both widths are 8, else the packed one); CPU tensors run
+    kernel when both widths are 8, else the packed one, each on the grid
+    its library picks for the card's SM count); CPU tensors run
     :func:`fused_update_plain`."""
     if algo not in KERNEL_ALGOS:
         raise ValueError(f"no fused-update kernel for algo {algo!r}; the "
@@ -637,14 +638,16 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
                 opt(block_offsets))
         ints = (int(bool(stochastic)), to_i32(seed), nb, bsz)
         lib = _lib("fused_update")
-        if packed:          # health may be null; the grid from the SM count
+        sms = build.sm_count(dev)   # the grid: CTAs that walk the blocks
+        ptrs += (opt(health),)      # may be null
+        if packed:
             entry = "fused_update_packed_grid"
-            ptrs += (opt(health),)
-            ints += (bits_m, bits_r, lib.fused_update_packed_ctas(
-                nb, bsz, build.sm_count(dev)))
+            ints += (bits_m, bits_r,
+                     lib.fused_update_packed_ctas(nb, bsz, sms))
         else:
-            entry = "fused_update" + ("_sentinel" if sentinel else "")
-            ptrs += (build.ptr(health),) if sentinel else ()
+            entry = "fused_update_grid"
+            ints += (lib.fused_update_ctas(KERNEL_ALGOS[algo],
+                                           int(sentinel), nb, bsz, sms),)
         with torch.cuda.device(dev):
             rc = getattr(lib, entry)(*ptrs, *ints, *_kernel_scalars(s),
                                      build.stream(dev))
@@ -678,6 +681,15 @@ ARGTYPES = {
                               + [_F] * 10 + [_P]),
     "fused_update_packed_sentinel": ("fused_update", [_I] + [_P] * 12
                                      + [_I] * 6 + [_F] * 10 + [_P]),
+    # the 8-bit kernel on a grid of ctas CTAs that walk the blocks:
+    # fused_update_sentinel's arguments (health may be null) with ctas
+    # after block_size; ctas from fused_update_ctas(algo, sentinel,
+    # n_blocks, block_size, SM count)
+    "fused_update_grid": ("fused_update", [_I] + [_P] * 12 + [_I] * 5
+                          + [_F] * 10 + [_P]),
+    "fused_update_ctas": ("fused_update", [_I] * 5),
+    # its dynamic shared memory per CTA: algo, block_size
+    "fused_update_smem": ("fused_update", [_I] * 2),
     # the packed kernel on a grid of ctas CTAs that walk the blocks:
     # fused_update_packed_sentinel's arguments (health may be null) with
     # ctas after bits_r; ctas from fused_update_packed_ctas(n_blocks,

@@ -775,6 +775,168 @@ def test_walk_grids_fill_an_h100(libs):
     assert rc != 0
 
 
+# ---------------------- the 8-bit update and B1 on CTAs that walk the blocks
+# WALKS, and for 8-bit rows 5 blocks of 260 over 2 CTAs: a block size of
+# 8k + 4, whose odd rows start off 8-byte boundaries and whose last group
+# is a half group of 4 elements
+WALKS_8BIT = WALKS + [(5, 260, 2)]
+
+
+@pytest.mark.parametrize("nb,bsz,ctas", WALKS_8BIT)
+@pytest.mark.parametrize("mode", ["deterministic", "stochastic", "sentinel"])
+@pytest.mark.parametrize("algo", ["adam", "lamb", "momentum", "lars",
+                                  "adagrad"])
+def test_fused_update_walk_emulated(libs, algo, mode, nb, bsz, ctas):
+    """The 8-bit kernel on fewer CTAs than blocks (each CTA walks its
+    blocks, p and g through the two-slot cp.async ring, the next block's
+    code words in registers), every algorithm, bit for bit against the
+    plain version: p, codes, absmax and, with the sentinel, the health
+    rows, with NaN / +-inf / 1e31 planted (block 0's NaN absmax sends its
+    +inf to x / scale = +inf: the capped encode)."""
+    spec = fu.ALGO_SPECS[algo]
+    two = spec.n_states == 2
+    p, grad, cm, am, cr, ar, q1, q2 = _algo_inputs(algo, nb, bsz, 19)
+    sent, stochastic = mode == "sentinel", mode == "stochastic"
+    if sent:
+        _poison(grad, am, ar)
+    s = _scalars()
+    ts = (torch.rand(nb, generator=torch.Generator().manual_seed(4)) + 0.5
+          if spec.needs_norms else None)
+    seeds = torch.tensor([-7, 2 ** 31 - 1, 12345, 3, 0][:nb],
+                         dtype=torch.int32)
+    offs = torch.tensor([5, 0, 9, 1, 2][:nb], dtype=torch.int32)
+    uniforms = (fu.block_uniforms(nb, bsz, two=two, block_seeds=seeds,
+                                  block_offsets=offs)
+                if stochastic else (None, None))
+    want = fu.fused_update_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                 algo=algo, tensor_scale=ts,
+                                 uniforms=uniforms, sentinel=sent)
+    got = [None if t is None else t.clone() for t in (p, cm, am, cr, ar)]
+    health = torch.full((nb, fu.N_HEALTH), -1.0)
+    ptr = lambda t: None if t is None else P(t.data_ptr())
+    rc = libs["fused_update"].fused_update_grid(
+        fu.KERNEL_ALGOS[algo], ptr(got[0]), ptr(grad), *map(ptr, got[1:]),
+        ptr(q1), ptr(q2 if two else None), ptr(ts), ptr(seeds), ptr(offs),
+        ptr(health if sent else None), int(stochastic), 0, nb, bsz, ctas,
+        *fu._kernel_scalars(s), None)
+    assert rc == 0
+    for name, a, b in zip(want._fields, got, want[:5]):
+        if b is not None:
+            assert _same(a, b), name
+    if sent:
+        assert torch.equal(health, want.health)
+        assert health[:, 0].sum() == 3 and health[:, 2].sum() >= 1
+    else:
+        assert (health == -1.0).all()          # no health row written
+    if stochastic:                    # the hash did move some codes
+        det = fu.fused_update_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                    algo=algo, tensor_scale=ts)
+        assert not torch.equal(det.codes_m, got[1])
+
+
+@pytest.fixture(scope="module")
+def quant_lib(libs):
+    lib = libs["blockwise_quant"]
+    for name, argtypes in bq.ARGTYPES.items():
+        getattr(lib, name).argtypes = argtypes
+    return lib
+
+
+def _quantize_walk(quant_lib, x, q, bits, seed, ctas):
+    from repro_torch.core.lowbit import packed_width
+    nb, bsz = x.shape
+    codes = torch.full((nb, packed_width(bsz, bits)), 0xAB,
+                       dtype=torch.uint8)
+    absmax = torch.full((nb,), -1.0)
+    rc = quant_lib.blockwise_quantize_grid(
+        *_ptrs(x, q, codes, absmax), nb, bsz, bits, int(seed is not None),
+        seed or 0, ctas, None)
+    assert rc == 0
+    return codes, absmax
+
+
+@pytest.mark.parametrize("bits,nb,bsz,ctas",
+                         [(8, *w) for w in WALKS_8BIT]
+                         + [(b, *w) for b in (4, 5, 6) for w in WALKS])
+@pytest.mark.parametrize("seed", [None, -3])
+def test_quantize_walk_emulated(quant_lib, bits, seed, nb, bsz, ctas):
+    """B1 on fewer CTAs than blocks (each CTA walks its blocks, x through
+    the two-slot cp.async ring, the codes packed in registers), at every
+    width, deterministic and stochastic, bit for bit against the plain
+    version; 8-bit rows also at B = 260 (half groups, rows off 8-byte
+    boundaries)."""
+    q = torch.as_tensor(qmap.get_qmap("dynamic", True, bits=bits))
+    x = _x(nb, bsz, 21)
+    codes, absmax = _quantize_walk(quant_lib, x, q, bits, seed, ctas)
+    want_c, want_a = bq.quantize_plain(x, q, bits=bits, seed=seed)
+    assert torch.equal(codes, want_c) and torch.equal(absmax, want_a)
+    if seed is not None:
+        det, _ = bq.quantize_plain(x, q, bits=bits)
+        assert not torch.equal(det, want_c)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("seed", [None, -3])
+def test_quantize_walk_poisoned_emulated(quant_lib, bits, seed):
+    """B1 on a block holding NaN, +inf and -inf (a NaN absmax, scale 1, so
+    +inf / scale = +inf reaches the capped encode, ROADMAP C3) beside a
+    clean block and an all-zero one, walked by 2 CTAs: codes and absmax
+    as the plain version's (NaN absmax where it has NaN)."""
+    q = torch.as_tensor(qmap.get_qmap("dynamic", True, bits=bits))
+    x = _x(5, 264, 23)
+    x[1, 3], x[1, 7], x[1, 11] = float("nan"), float("inf"), -float("inf")
+    codes, absmax = _quantize_walk(quant_lib, x, q, bits, seed, 2)
+    want_c, want_a = bq.quantize_plain(x, q, bits=bits, seed=seed)
+    assert torch.equal(codes, want_c) and _same(absmax, want_a)
+    assert absmax[1].isnan() and not absmax[[0, 2, 3, 4]].isnan().any()
+
+
+def test_walk_grids_of_the_8bit_update_and_quantize(libs, quant_lib):
+    """The grids the wrappers take for the 8-bit update and B1 at an H100's
+    132 SMs: 16 waves of the CTAs resident at once (at B = 2048, 5 per SM
+    for the update, 6 for B1; fewer for larger blocks), never more than
+    the blocks; 0 for a shape the kernels refuse (block sizes that are a
+    multiple of 4 at 8 bits, of 8 below); the rings' shared memory; a grid
+    of 0 CTAs is refused."""
+    adam, momentum = fu.KERNEL_ALGOS["adam"], fu.KERNEL_ALGOS["momentum"]
+    ctas = lambda *a, algo=adam, sent=0: \
+        libs["fused_update"].fused_update_ctas(algo, sent, *a)
+    waves = 16
+    assert ctas(40960, 2048, NS_SMS) == NS_SMS * 5 * waves    # 256 threads
+    assert ctas(40960, 4096, NS_SMS) == NS_SMS * 2 * waves    # 512
+    assert ctas(40960, 8192, NS_SMS) == NS_SMS * 1 * waves    # 1024
+    # the two-state instances with the sentinel: 4 CTAs of 256 per SM
+    assert ctas(40960, 2048, NS_SMS, sent=1) == NS_SMS * 4 * waves
+    assert ctas(40960, 2048, NS_SMS, algo=momentum, sent=1) == \
+        NS_SMS * 5 * waves
+    assert ctas(40960, 4096, NS_SMS, sent=1) == NS_SMS * 2 * waves
+    assert ctas(5, 260, NS_SMS) == 5 and ctas(5, 100, NS_SMS) == 5
+    assert ctas(0, 2048, NS_SMS) == 0
+    assert ctas(5, 102, NS_SMS) == 0 and ctas(5, 8196, NS_SMS) == 0
+    smem = libs["fused_update"].fused_update_smem
+    assert smem(adam, 2048) == 2 * 8 * 2048     # p and g: two-state only
+    assert smem(momentum, 2048) == 0
+    qctas = quant_lib.blockwise_quantize_ctas
+    assert qctas(40960, 2048, 8, NS_SMS) == NS_SMS * 6 * waves
+    assert qctas(25132, 2048, 8, NS_SMS) == NS_SMS * 6 * waves  # the head
+    assert qctas(40960, 4096, 4, NS_SMS) == NS_SMS * 3 * waves
+    assert qctas(40960, 8192, 8, NS_SMS) == NS_SMS * 1 * waves
+    assert qctas(5, 2048, 4, NS_SMS) == 5          # a norm stack
+    assert qctas(5, 260, 8, NS_SMS) == 5 and qctas(5, 260, 4, NS_SMS) == 0
+    assert qctas(5, 2048, 7, NS_SMS) == 0 and qctas(0, 2048, 8, NS_SMS) == 0
+    assert quant_lib.blockwise_quantize_smem(2048) == 2 * 4 * 2048
+    p, grad, cm, am, cr, ar, q1, q2 = _algo_inputs("adam", 2, 264, 1)
+    rc = libs["fused_update"].fused_update_grid(
+        fu.KERNEL_ALGOS["adam"], *_ptrs(p, grad, cm, am, cr, ar, q1, q2),
+        None, None, None, None, 0, 0, 2, 264, 0,
+        *fu._kernel_scalars(_scalars()), None)
+    assert rc != 0
+    codes = torch.zeros(2, 264, dtype=torch.uint8)
+    rc = quant_lib.blockwise_quantize_grid(*_ptrs(p, QS, codes, am), 2, 264,
+                                           8, 0, 0, 0, None)
+    assert rc != 0
+
+
 @pytest.mark.parametrize("nb,bsz", [(5, 2048), (3, 264), (1, 64)])
 @pytest.mark.parametrize("bits", [4, 5, 6, 8])
 @pytest.mark.parametrize("seed", [None, -3])
