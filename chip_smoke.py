@@ -91,7 +91,11 @@ flight recorder.  Phases, one line or more each:
    teacher-forced logit drift against the bf16 contiguous-cache
    ``decode_step``.  (The kernels phase also holds B7 against its plain
    version at the serve path's shapes, 8 and 4 bits, bf16 and f32 out, a
-   scrambled table with -1 entries: 0 mismatches.)
+   scrambled table with -1 entries: 0 mismatches; and times it warm, on
+   one pool, and cold, by raw launches over 6 copies of the pool and 2
+   outputs in rotation, more than the L2 holds: profiler device time, and
+   CUDA events around a CUDA graph of the launches.  Its JSON rows' ms is
+   the cold device time of the bf16 instance, f32_ms the f32 one's.)
 7. telemetry — the train launcher (``repro_torch.launch.train.main``) at
    full-width paper-lm-209m (the launcher's f32 compute), adamw8, 8 steps
    of seq 512 x batch 8 with ``--sentinel``, qhealth probes every 4 steps
@@ -309,7 +313,8 @@ def device_ms_split(torch, fns: dict, n: int = 20) -> dict:
     one torch.profiler session, each fn called n times in turns (in order,
     then reversed, ...): a kernel whose profiler key contains a fn's marker
     is that fn's, the kernels that match no marker belong to the fn whose
-    marker is None.  For a kernel of a few microseconds, CUDA events around
+    marker is None (with no such fn, they are left out).  For a kernel of
+    a few microseconds, CUDA events around
     back-to-back calls measure the host's launch rate instead (each wrapper
     call costs tens of microseconds of Python).  (One session for all the
     fns compared: a run of back-to-back profiler sessions can come back
@@ -331,8 +336,10 @@ def device_ms_split(torch, fns: dict, n: int = 20) -> dict:
         t = t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
         owner = next((k for k, (_, mark) in fns.items()
                       if mark is not None and mark in ev.key),
-                     next(k for k, (_, mark) in fns.items() if mark is None))
-        total[owner] += t
+                     next((k for k, (_, mark) in fns.items()
+                           if mark is None), None))
+        if owner is not None:
+            total[owner] += t
     require(all(v > 0 for v in total.values()),
             f"the profiler saw no device time for some of {list(fns)}")
     return {k: v / 1e3 / n for k, v in total.items()}
@@ -415,7 +422,9 @@ def ptxas_report(log: Path) -> list:
             # kernel<template arguments> from the mangled name
             hit = re.search(r"\d([a-z_]+_kernel)I(.+?)EEv", entry)
             plain = re.search(r"([a-z_]+_kernel)E", entry)
-            short = (f"{hit.group(1)}<" + ",".join(re.findall(
+            types = {"f": ["f32"], "1": ["bf16"]}.get(    # float or
+                hit.group(2)[:1], []) if hit else []      # __nv_bfloat16
+            short = (f"{hit.group(1)}<" + ",".join(types + re.findall(
                 r"L[ib](\d+)E", hit.group(2))) + ">") if hit else (
                 plain.group(1) if plain else entry)
             out.append(f"{short}: {line.split(':', 1)[-1].strip()}; {spill}")
@@ -925,11 +934,12 @@ def check_ns_kernels(torch, dev, shape=(1024, 50264),
     return out
 
 
-def check_gather_kernel(torch, dev) -> dict:
-    """B7 against its plain version at the serve path's shapes: a pool of
-    512 pages, 16 slots x 32 pages of 16 positions x 16 heads x 64, a
-    scrambled table with -1 entries; 8 and 4 bits, bf16 (the path's
-    dtype) and f32 out.  Exact: 0 mismatches."""
+def gather_inputs(torch, dev, bits: int):
+    """B7's inputs at the serve path's shapes: a pool of 512 pages of 16
+    positions x 16 heads x 64 (rows over many decades, two all-zero rows)
+    quantized at ``bits``, and a scrambled table of 16 slots x 32 pages
+    with -1 entries (unallocated tails, one empty slot).  Returns (codes,
+    absmax, table, distinct pages read)."""
     from repro_torch.kernels import paged_kv
     B, P_, page, KV, Dh = (SERVE_SLOTS, SERVE_PAGES_PER_SEQ, SERVE_PAGE, 16,
                            64)
@@ -944,10 +954,101 @@ def check_gather_kernel(torch, dev) -> dict:
     table[B // 4, P_ * 5 // 8:] = -1                  # unallocated tails
     table[B - 1] = -1
     pages_read = len(set(table.clamp(0, SERVE_POOL - 1).flatten().tolist()))
+    codes, absmax = paged_kv.quantize_rows(rows, bits)
+    return codes, absmax, table, pages_read
+
+
+def raw_gather(lib, codes, absmax, table, out, bits: int) -> callable:
+    """A launch of ``paged_gather`` (the wrapper's C entry) of ``lib``
+    (this tree's or another's), no wrapper in between; the stream is read
+    at each call (under a graph capture, the capture's)."""
+    from repro_torch.kernels import build, paged_kv
+    n_pages, page, KV, W = codes.shape
+    B, P_ = table.shape
+    args = (build.ptr(codes), build.ptr(absmax), build.ptr(table),
+            build.ptr(paged_kv.kv_qmap(bits, codes.device)), build.ptr(out),
+            int(out.element_size() == 2), n_pages, page * KV, W, bits, B,
+            P_)                            # 2-byte elements: bf16, else f32
+    keep = (codes, absmax, table, out)     # the tensors behind the pointers
+
+    def launch():
+        build.check(lib, lib.paged_gather(*args,
+                                          build.stream(codes.device)),
+                    "paged_gather")
+        return keep
+    return launch
+
+
+# cold timing of B7: copies of the pool and outputs taken in rotation, so a
+# launch finds its pages out of the 50 MB L2, as the decode step's 20 pools
+# (~178 MB at 8 bits) leave them
+GATHER_COPIES, GATHER_OUTS, GATHER_LAUNCHES = 6, 2, 60
+
+
+def gather_rotation(torch, make, codes, absmax, table, bits: int,
+                    dtype) -> tuple[list, object]:
+    """GATHER_LAUNCHES launches make(codes, absmax, out) over
+    GATHER_COPIES copies of the pool and GATHER_OUTS outputs in rotation
+    (~87 MB at 8 bits -> bf16, more than the L2 holds), and the first
+    output (written by the first launch, once it has run)."""
+    n_pages, page, KV, W = codes.shape
+    B, P_ = table.shape
+    pools = [(codes, absmax)] + [(codes.clone(), absmax.clone())
+                                 for _ in range(GATHER_COPIES - 1)]
+    outs = [torch.empty((B, P_ * page, KV, W * 8 // bits), dtype=dtype,
+                        device=codes.device) for _ in range(GATHER_OUTS)]
+    return [make(*pools[i % GATHER_COPIES], outs[i % GATHER_OUTS])
+            for i in range(GATHER_LAUNCHES)], outs[0]
+
+
+def gather_cold(torch, makers: dict, codes, absmax, table, bits: int,
+                dtype, reps: int = 12) -> tuple[dict, dict]:
+    """({label: ms per launch}, {label: output of pool 0}): each maker's
+    :func:`gather_rotation` captured in one CUDA graph; the graphs are
+    replayed in turns, timed by CUDA events (so a launch's time includes
+    the gap to the next launch in the graph, and no host time)."""
+    graphs, first = {}, {}
+    for label, make in makers.items():
+        seq, out0 = gather_rotation(torch, make, codes, absmax, table, bits,
+                                    dtype)
+        seq[0]()
+        torch.cuda.synchronize()
+        first[label] = out0.clone()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for launch in seq:
+                launch()
+        graphs[label] = (g, seq)            # seq keeps the tensors alive
+    ms = in_turns(torch, {k: v[0].replay for k, v in graphs.items()}, reps,
+                  1)
+    return {k: v / GATHER_LAUNCHES for k, v in ms.items()}, first
+
+
+def gather_bound(codes, table, pages_read: int, bits: int, dtype) -> tuple:
+    """B7's bound at these inputs: each page read once (codes and absmax),
+    the table and codebook once, the output written once; one multiply a
+    value."""
+    n_pages, page, KV, W = codes.shape
+    B, P_ = table.shape
+    n_out = B * P_ * page * KV * (W * 8 // bits)
+    return bound_ms(pages_read * page * KV * (W + 4) + B * P_ * 4
+                    + n_out * dtype.itemsize + (1 << bits) * 4, n_out)
+
+
+def check_gather_kernel(torch, dev) -> dict:
+    """B7 against its plain version at the serve path's shapes
+    (:func:`gather_inputs`); 8 and 4 bits, bf16 (the path's dtype) and f32
+    out.  Exact: 0 mismatches.  Timed warm (back-to-back calls on one
+    pool, profiler device time beside the plain version's) and cold (raw
+    launches of the wrapper's C entry over rotating pools,
+    :func:`gather_rotation`: profiler device time, and CUDA events around
+    a graph of them, :func:`gather_cold`)."""
+    from repro_torch.kernels import paged_kv
+    lib = paged_kv._lib()
     out = {}
     for bits in (8, 4):
-        codes, absmax = paged_kv.quantize_rows(rows, bits)
-        W = codes.shape[-1]
+        codes, absmax, table, pages_read = gather_inputs(torch, dev, bits)
+        B, P_ = table.shape
         for dt in (torch.bfloat16, torch.float32):
             got = paged_kv.gather_cuda(codes, absmax, table, bits=bits,
                                        dtype=dt)
@@ -965,21 +1066,39 @@ def check_gather_kernel(torch, dev) -> dict:
                     "paged_gather_kernel"),
                 "plain": (lambda: paged_kv._gather_torch(
                     codes, absmax, table, bits=bits, dtype=dt), None)}, 50)
-            ms, plain = split["kernel"], split["plain"]
-            n_out = B * P_ * page * KV * Dh
-            osz = 2 if dt == torch.bfloat16 else 4
-            b, by = bound_ms(pages_read * page * KV * (W + 4) + B * P_ * 4
-                             + n_out * osz + (1 << bits) * 4, n_out)
+            warm, plain = split["kernel"], split["plain"]
+            make = lambda c, a, o: raw_gather(lib, c, a, table, o, bits)
+            graph_ms, first = gather_cold(torch, {"kernel": make}, codes,
+                                          absmax, table, bits, dt)
+            require(torch.equal(first["kernel"], want), f"paged_gather "
+                    f"({bits}-bit, {dt}): the raw launch differs from the "
+                    f"plain version")
+            seq, _ = gather_rotation(torch, make, codes, absmax, table, bits,
+                                     dt)
+            it = iter(range(1 << 30))
+            cold = device_ms_split(torch, {"cold": (
+                lambda: seq[next(it) % len(seq)](),
+                "paged_gather_kernel")}, 2 * len(seq))["cold"]
+            del seq
+            b, by = gather_bound(codes, table, pages_read, bits, dt)
             print(f"kernel paged_gather ({bits}-bit -> {dt}, {B}x{P_} pages "
-                  f"of {page}x{KV}x{Dh}, {pages_read} distinct): exact, 0 "
-                  f"mismatches; {ms:.4f} ms of device time, bound {b:.4f} "
-                  f"ms ({by}), plain {plain:.4f} ms of device time; "
-                  f"{call_ms:.4f} ms per call back to back by CUDA events "
-                  f"(the host's launch rate)")
+                  f"of {SERVE_PAGE}x16x64, {pages_read} distinct): exact, 0 "
+                  f"mismatches; cold {cold:.4f} ms of device time "
+                  f"({100 * b / cold:.0f}% of the bound), "
+                  f"{graph_ms['kernel']:.4f} ms per launch in a graph; warm "
+                  f"{warm:.4f} ms of device time; bound {b:.4f} ms ({by}); "
+                  f"plain {plain:.4f} ms of device time; {call_ms:.4f} ms "
+                  f"per wrapper call back to back by CUDA events (the "
+                  f"host's launch rate)")
+            row = dict(max_abs_err=err, ms=cold, warm_ms=warm,
+                       graph_ms=graph_ms["kernel"], plain_ms=plain,
+                       bound_ms=b, bound_by=by, library_ms=None)
             if dt == torch.bfloat16:
-                out[f"paged_gather/{bits}bit"] = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-                    bound_by=by, library_ms=None)
+                out[f"paged_gather/{bits}bit"] = row
+            else:
+                out[f"paged_gather/{bits}bit"].update(
+                    {f"f32_{k}": v for k, v in row.items()
+                     if k not in ("bound_by", "library_ms")})
     return out
 
 
@@ -2114,7 +2233,10 @@ def main() -> int:
             rows[-1]["sentinel_off_ms"] = k["off_ms"]
         for key in ("f32_simt_bound_ms", "device_ms_small",   # B5, B6
                     "library_device_ms_small", "device_ms",      # B4
-                    "library_device_ms", "adamw8_in_turns_ms"):  # B3(d)
+                    "library_device_ms", "adamw8_in_turns_ms",   # B3(d)
+                    "warm_ms", "graph_ms", "f32_max_abs_err",    # B7
+                    "f32_ms", "f32_warm_ms", "f32_graph_ms", "f32_plain_ms",
+                    "f32_bound_ms"):
             if key in k:
                 rows[-1][key] = k[key]
         require(rows[-1]["launches"] > 0, f"{name}: no launch in the {run} "

@@ -2,8 +2,8 @@
 """Check and time one phase of chip_smoke.py's kernel checks on the
 kernels of a given tree, on one card.
 
-    python3 scripts/ns_bench.py [--phase ns|update|grid|turns] [--src DIR]
-                                [--old DIR]
+    python3 scripts/ns_bench.py [--phase ns|update|grid|turns|gather]
+                                [--src DIR] [--old DIR]
 
 Runs a phase of chip_smoke.py on the kernels of the ``repro_torch`` under
 ``DIR`` (default: this checkout's ``src``), so the same checks and timings
@@ -36,7 +36,14 @@ one call to compare them on one card.  Phases:
   in one process, by raw launches of every tree's C entries (the other
   trees' libraries built beside this one's, all at once); a tree older
   than the walking kernels (the parent) also runs its packed kernel at
-  (8, 8).  Outputs must agree bit for bit.
+  (8, 8); then the paged gather B7's four instances (8 and 4 bits, bf16
+  and f32 out) at the serve path's shapes in turns with the other trees',
+  cold: a CUDA graph of raw launches over 6 copies of the pool and 2
+  outputs in rotation, timed by CUDA events (:func:`gather_turns`).
+  Outputs must agree bit for bit.
+- ``gather`` (:func:`gather_phase`, with ``--old``): B7 alone — its
+  instances' registers from every tree's build log and its turns,
+  building only ``paged_gather.cu`` (seconds).
 
 Prints one JSON line with the phase, the card's name and power limit and
 the kernels' rows.  Exits 2 without CUDA, non-zero when a check fails.
@@ -156,23 +163,26 @@ def grid_sweep(torch, dev, nb: int = 40960, bsz: int = 2048) -> dict:
     return res
 
 
-def tree_libs(src: Path) -> dict:
-    """{source: ctypes library} of ``fused_update.cu`` and
-    ``blockwise_quant.cu`` of the ``repro_torch`` under ``src`` (another
-    tree's), built with this checkout's flags beside this tree's libraries;
-    the C entries this tree declares get their argtypes (an older tree may
-    lack some)."""
+def tree_libs(src: Path, names=None) -> dict:
+    """{source: ctypes library} of ``fused_update.cu``,
+    ``blockwise_quant.cu`` and ``paged_gather.cu`` (or of ``names``) of the
+    ``repro_torch`` under ``src`` (another tree's), built with this
+    checkout's flags beside this tree's libraries; the C entries this tree
+    declares get their argtypes (an older tree may lack some)."""
     import ctypes
     from repro_torch.kernels import blockwise_quant as bq
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import paged_kv
+    names = names or TURNS_SOURCES
     csrc = src / "repro_torch" / "kernels" / "csrc"
-    build.build(TURNS_SOURCES, csrc=csrc)
+    build.build(names, csrc=csrc)
     tables = {"fused_update": {k: a for k, (n, a) in fu.ARGTYPES.items()
                                if n == "fused_update"},
-              "blockwise_quant": bq.ARGTYPES}
+              "blockwise_quant": bq.ARGTYPES,
+              "paged_gather": paged_kv.ARGTYPES}
     libs = {}
-    for name in TURNS_SOURCES:
+    for name in names:
         lib = ctypes.CDLL(str(build.build_dir(csrc) / f"{name}.so"))
         lib.rq_error_string.argtypes = [ctypes.c_int]
         lib.rq_error_string.restype = ctypes.c_char_p
@@ -184,7 +194,7 @@ def tree_libs(src: Path) -> dict:
     return libs
 
 
-TURNS_SOURCES = ("fused_update", "blockwise_quant")
+TURNS_SOURCES = ("fused_update", "blockwise_quant", "paged_gather")
 
 
 def turns(torch, dev, olds: dict, nb: int = 40960, bsz: int = 2048) -> dict:
@@ -208,6 +218,7 @@ def turns(torch, dev, olds: dict, nb: int = 40960, bsz: int = 2048) -> dict:
     from repro_torch.kernels import blockwise_quant as bq
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_update as fu
+    from repro_torch.kernels import paged_kv
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(olds) + 1) as pool:   # every tree's nvcc
@@ -218,7 +229,8 @@ def turns(torch, dev, olds: dict, nb: int = 40960, bsz: int = 2048) -> dict:
     print(f"turns: built {len(olds) + 1} trees in "
           f"{time.perf_counter() - t0:.1f} s")
     trees = {"new": {"fused_update": fu._lib("fused_update"),
-                     "blockwise_quant": bq._lib()}}
+                     "blockwise_quant": bq._lib(),
+                     "paged_gather": paged_kv._lib()}}
     trees.update((k, built[k]) for k in olds)
     dirs = {"new": build.build_dir()}
     dirs.update((k, build.build_dir(d / "repro_torch" / "kernels" / "csrc"))
@@ -346,6 +358,11 @@ def turns(torch, dev, olds: dict, nb: int = 40960, bsz: int = 2048) -> dict:
                        f"turns blockwise_quant/{name}: {tree}'s codes or "
                        f"absmax differ from this tree's")
         res[f"blockwise_quant/{name}"] = cs.in_turns(torch, fns, 16, 10)
+    del x
+    torch.cuda.empty_cache()
+    res.update(gather_turns(torch, dev, {k: libs["paged_gather"]
+                                         for k, libs in trees.items()
+                                         if k != "new"}))
     for k, v in res.items():
         ref = v.get("new", v.get("new_off"))
         print(f"turns {k}: " + ", ".join(
@@ -353,13 +370,72 @@ def turns(torch, dev, olds: dict, nb: int = 40960, bsz: int = 2048) -> dict:
     return res
 
 
+GATHER_CASES = [(bits, dt) for bits in (8, 4)
+                for dt in ("bfloat16", "float32")]
+
+
+def gather_turns(torch, dev, trees: dict) -> dict:
+    """{B7 instance: {tree: ms per launch}}: this tree's B7 (the C entry
+    its wrapper calls) against other trees' ``paged_gather`` (``trees``:
+    {label: library}) at the serve path's shapes, cold and in turns
+    (``chip_smoke.gather_cold``); every tree's output must equal this
+    tree's and the plain version's bit for bit."""
+    import chip_smoke as cs
+    from repro_torch.kernels import paged_kv
+    libs = {"new": paged_kv._lib(), **trees}
+    res = {}
+    for bits, dt_name in GATHER_CASES:
+        dt = getattr(torch, dt_name)
+        codes, absmax, table, _ = cs.gather_inputs(torch, dev, bits)
+        want = paged_kv._gather_torch(codes, absmax, table, bits=bits,
+                                      dtype=dt)
+        makers = {label: (lambda c, a, o, lib=lib:
+                          cs.raw_gather(lib, c, a, table, o, bits))
+                  for label, lib in libs.items()}
+        ms, first = cs.gather_cold(torch, makers, codes, absmax, table, bits,
+                                   dt, reps=16)
+        bad = [k for k, v in first.items() if not torch.equal(v, want)]
+        cs.require(not bad, f"turns paged_gather/{bits}bit_{dt_name}: "
+                   f"{bad} differ from the plain version")
+        res[f"paged_gather/{bits}bit_{dt_name}"] = ms
+    return res
+
+
+def gather_phase(torch, dev, olds: dict) -> dict:
+    """B7 alone: the build logs' registers of every tree's instances, then
+    :func:`gather_turns` against ``olds`` ({label: the ``src`` of a ``git
+    archive``}), all trees' nvcc at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    names = ("paged_gather",)
+    with ThreadPoolExecutor(len(olds) + 1) as pool:
+        this = pool.submit(build.build, names)
+        jobs = {k: pool.submit(tree_libs, d, names) for k, d in olds.items()}
+        this.result()
+        trees = {k: job.result()["paged_gather"] for k, job in jobs.items()}
+    dirs = {"new": build.build_dir(), **{
+        k: build.build_dir(d / "repro_torch" / "kernels" / "csrc")
+        for k, d in olds.items()}}
+    for tree, d in dirs.items():
+        for line in cs.ptxas_report(d / "paged_gather.log"):
+            print(f"gather: {tree}: {line}")
+    res = gather_turns(torch, dev, trees)
+    for k, v in res.items():
+        print(f"turns {k}: " + ", ".join(
+            f"{label} {t:.4f} ms ({t / v['new']:.3f}x)"
+            for label, t in v.items()))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phase", choices=("ns", "update", "grid", "turns"),
-                    default="ns")
+    ap.add_argument("--phase", choices=("ns", "update", "grid", "turns",
+                                        "gather"), default="ns")
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--old", nargs="+", default=[],
-                    metavar="[LABEL=]DIR", help="the turns phase: the src "
+                    metavar="[LABEL=]DIR", help="the turns and gather phases: the src "
                     "directories of the trees to compare with (git "
                     "archives), each under its label (default old, old1, "
                     "...)")
@@ -375,15 +451,18 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    if args.phase == "turns":
+    if args.phase in ("turns", "gather"):
         if not args.old:
-            ap.error("--phase turns needs --old")
+            ap.error(f"--phase {args.phase} needs --old")
         olds = {}
         for i, item in enumerate(args.old):
             label, _, d = item.rpartition("=")
             olds[label or ("old" if i == 0 else f"old{i}")] = \
                 Path(d).resolve()
-        rows = turns(torch, dev, olds)
+        if args.phase == "turns":
+            rows = turns(torch, dev, olds)
+        else:
+            rows = gather_phase(torch, dev, olds)
     else:
         check = {"ns": chip_smoke.check_ns_kernels,
                  "update": chip_smoke.check_packed_and_norm_kernels,

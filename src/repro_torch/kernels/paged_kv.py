@@ -228,10 +228,19 @@ def gather_pages(pages_codes: torch.Tensor, pages_absmax: torch.Tensor,
     raise FormatError(f"unknown impl {impl!r}; have {'|'.join(IMPLS)}")
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry -> argtypes
+ARGTYPES = {
+    # codes, absmax, table, qmap, out, out_bf16, n_pages, rows, row_width,
+    # bits, n_slots, pages_per_seq, stream
+    "paged_gather": [_P] * 5 + [_I] * 7 + [_P],
+}
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("paged_gather")
-    lib.paged_gather.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
-    lib.paged_gather.restype = ctypes.c_int
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib

@@ -93,6 +93,7 @@ inline int __shfl_xor_sync(unsigned, int v, int o) {
   emu_warp_barriers[w]->arrive_and_wait();
   return r;
 }
+template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
@@ -1121,3 +1122,41 @@ def test_paged_gather_rejects_bad_bits(libs):
     rc = libs["paged_gather"].paged_gather(*_ptrs(z, z, z, z, z), 0, 1, 1, 1,
                                            5, 1, 1, None)
     assert rc != 0
+
+
+# ---------------------------------------------- B7's 16-byte mapping
+# (n_pages, page, KV, Dh, B, P) at Dh 64: 8 rows (a page holds fewer
+# vectors than a CTA has threads), and 288 rows (2 chunks of 8 vectors a
+# thread at bf16, 3 at f32, the last one ragged)
+GATHER_FAST_SHAPES = [(6, 4, 2, 64, 2, 3), (3, 16, 18, 64, 1, 2)]
+
+
+@pytest.mark.parametrize("shape", GATHER_FAST_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_paged_gather_fast_emulated(libs, bits, dtype, shape):
+    """B7's 16-byte mapping (one store of 8 bf16 or 4 f32 values a thread,
+    the row's absmax by a shift, chunks of 8 vectors loaded ahead) bit for
+    bit against the plain version: rows over many decades with an
+    all-zero row, a scrambled table holding -1 (read as page 0) and
+    n_pages (read as the last page)."""
+    n_pages, page, KV, Dh, B, P_ = shape
+    g = torch.Generator().manual_seed(13)
+    rows = torch.randn(n_pages, page, KV, Dh, generator=g) * torch.exp(
+        torch.randn(n_pages, page, KV, 1, generator=g) * 2)
+    rows[1, 0, 0] = 0.0
+    codes, absmax = paged_kv.quantize_rows(rows, bits)
+    perm = torch.randperm(n_pages, generator=g)
+    table = perm[torch.arange(B * P_) % n_pages].reshape(B, P_).int()
+    table[0, -1] = -1
+    table[-1, 0] = n_pages
+    out = torch.full((B, P_ * page, KV, Dh), float("nan"), dtype=dtype)
+    rc = libs["paged_gather"].paged_gather(
+        *_ptrs(codes, absmax, table, paged_kv.kv_qmap(bits), out),
+        int(dtype == torch.bfloat16), n_pages, page * KV, codes.shape[-1],
+        bits, B, P_, None)
+    assert rc == 0
+    want = paged_kv._gather_torch(codes, absmax, table, bits=bits,
+                                  dtype=dtype)
+    assert torch.equal(out, want)
