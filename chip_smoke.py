@@ -11,7 +11,10 @@ layers, d_model 1024, vocab 50264, bf16 compute, f32 masters) for a few
 steps on synthetic data, through the port's hand-written CUDA kernels;
 the paper LM is served from a paged quantized KV cache; and the train
 launcher runs with the numerics sentinel, the qhealth probes and the
-flight recorder.  Phases, one line or more each:
+flight recorder.  The optimizer's default is the pooled single dispatch
+(one fused launch for the arena of all 11 quantized leaves); the phases
+that count per-leaf launches pass ``pooled=False``, and the pooled runs
+are held to them bit for bit.  Phases, one line or more each:
 
 1. device  — require CUDA (exit 2 without it).
 2. build   — compile every kernel from ``src/repro_torch/kernels/csrc``
@@ -100,22 +103,42 @@ flight recorder.  Phases, one line or more each:
    full-width paper-lm-209m (the launcher's f32 compute), adamw8, 8 steps
    of seq 512 x batch 8 with ``--sentinel``, qhealth probes every 4 steps
    and the flight recorder (a host copy of the state after every healthy
-   step), under build/ (removed after).  With the counters zeroed just
-   before it: the fused update must launch 8 x 11 quantized leaves times,
-   every launch with the sentinel output (B3(e)), and B1/B2 once per leaf
-   and probe (the round-trip sample); every step's sent_* nonfinite and
-   overflow counts must be 0 and its edge-hit count above 0; the probes
-   must give 2 x 11 events at steps 3 and 7; the JSONL must pass the
+   step), under build/ (removed after), on the default pooled dispatch.
+   With the counters zeroed just before it: the fused update must launch
+   8 x 1 times (one launch per step for the arena of the 11 quantized
+   leaves), every launch with the sentinel output (B3(e)), and B1/B2 once
+   per arena segment and probe (the round-trip sample); every step's
+   sent_* nonfinite and overflow counts must be 0 and its edge-hit count
+   above 0; the probes must give 2 x 11 "arena" events at steps 3 and 7,
+   as the JAX package's arena branch does; the JSONL must pass the
    port's validator and the inspector must score the run clean.  Then the
    same 8 steps without the sentinel (ms/step on and off), and at lr 1e18:
    exit 2 with a flight dump of the step before the trigger, which
    restores into a fresh state, replays the trigger step to the recorded
    loss (or both nonfinite) and scores 1 under ``inspect --flight``.  Then
    5 steps with the sentinel of stochastic adamw8, momentum8, lamb8 and
-   adam8 at (4, 8) (SENTINEL_RUNS: the launches of their JSON rows).  The
+   adam8 at (4, 8), per leaf (SENTINEL_RUNS: the launches of their JSON
+   rows).  The
    kernels phase also holds B3(e) at the largest leaf for those five
    variants against ``health_rows`` and the sentinel-off kernel, on clean
    inputs and with NaN / +-inf / 1e31 planted in g and one block's state.
+   Pooled (tenth slice; in phases 3, 4 and 5): B3 at the arena's shape
+   (ARENA_BLOCKS = 127552 blocks of 2048 in the optimizer's own 11
+   segments, with its per-block seeds and element offsets) for adamw8,
+   stochastic adamw8, lamb8 (B4 over the arena and the 11 segments'
+   trust ratios, each checked on its own blocks) and adam8 (4, 8), against
+   the plain version and against the 11 per-leaf launches on the same
+   rows (0 mismatches), the adamw8 launch timed in turns with the 11
+   per-leaf launches; then POOLED_RUNS, each pooled and per-leaf from the
+   same weights and batches (adamw8 10 steps; stochastic adamw8, lamb8,
+   adam8 (4, 8) and muon8 5): bit-identical states, one B3 launch per step
+   for the arena (and one of B4 for lamb) where the per-leaf run launches
+   one per leaf, median step ms of both, a profiled step of each for
+   adamw8 and the gradient gather timed three ways; adamw8 through the
+   ``torch.optim.Optimizer`` face (``BlockOptimizer``) and the plain
+   PyTorch loop for 10 steps, bit-identical to the pooled run; and a
+   pooled lamb8 checkpoint restored into a pooled and a per-leaf state,
+   step 4 from each bit-identical to step 4 uninterrupted.
 8. summary — the kernels JSON line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -253,6 +276,27 @@ SENTINEL_RUNS = {"adamw8_sr": ("adamw8", dict(stochastic_rounding=True)),
                  "adam8_4_8": ("adam8", dict(state_bits=(4, 8)))}
 TEL_STEPS, TEL_EVERY = 8, 4      # the telemetry launcher's steps and probes
 
+# tenth slice: the pooled single dispatch (one B3 launch for the arena of
+# every quantized leaf).  paper-lm-209m's arena: its 11 quantized leaves
+# (wq/wk/wv/wo 5120 blocks each, w_in/w_out 40960, the four norm stacks
+# 5, the head 25132), in blocks of 2048
+ARENA_BLOCKS = 127552
+# arena variant -> (algo, bits_m, bits_r, stochastic); each JSON row
+# reports the launches of the pooled run POOLED_RUNS[variant[6:]]
+ARENA_VARIANTS = {"arena_adamw8": ("adamw", 8, 8, False),
+                  "arena_adamw8_sr": ("adamw", 8, 8, True),
+                  "arena_lamb8": ("lamb", 8, 8, False),
+                  "arena_adam8_4_8": ("adam", 4, 8, False)}
+# pooled train runs, each against its per-leaf run: label -> (optimizer,
+# kwargs, steps)
+POOLED_RUNS = {"adamw8": ("adamw8", {}, STEPS),
+               "adamw8_sr": ("adamw8", dict(stochastic_rounding=True),
+                             FAMILY_STEPS),
+               "lamb8": ("lamb8", {}, FAMILY_STEPS),
+               "adam8_4_8": ("adam8", dict(state_bits=(4, 8)),
+                             FAMILY_STEPS),
+               "muon8": ("muon8", {}, FAMILY_STEPS)}
+
 # fused-update variant -> (algo, stochastic); the optimizer name of its
 # train run is the variant without "_sr" plus stochastic rounding
 VARIANTS = {"adamw8": ("adamw", False), "adamw8_sr": ("adamw", True),
@@ -360,25 +404,30 @@ def host_us(torch, fn, n: int = 50) -> float:
 
 
 def raw_update(torch, lib, entry: str, algo: str, st, g, q1, q2, ts=None,
-               *, sr: bool = False, health=None, tail=(), hyper) -> callable:
+               *, sr: bool = False, health=None, tail=(), hyper, seeds=None,
+               offsets=None) -> callable:
     """A launch of C entry ``entry`` of ``csrc/fused_update.cu`` (of
     ``lib``, this tree's or another's) on the state st = [p, codes_m,
-    absmax_m, codes_r, absmax_r], in place, with no wrapper in between:
-    the kernel's own time.  ``tail``: the entry's ints after block_size
-    (``(ctas,)`` for fused_update_grid, ``(bits_m, bits_r, ctas)`` for
-    fused_update_packed_grid); ``health`` for the entries that take it."""
+    absmax_m, codes_r, absmax_r] (packed codes as their bytes), in place,
+    with no wrapper in between: the kernel's own time.  ``tail``: the
+    entry's ints after block_size (``(ctas,)`` for fused_update_grid,
+    ``(bits_m, bits_r, ctas)`` for fused_update_packed_grid); ``health``
+    for the entries that take it; ``seeds`` / ``offsets``: the per-block
+    int32 seeds and element offsets of a pooled arena."""
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_update as fu
     nb, bsz = st[0].shape
     ptr = lambda t: None if t is None else build.ptr(t)
     ptrs = (fu.KERNEL_ALGOS[algo], ptr(st[0]), ptr(g), *map(ptr, st[1:]),
-            ptr(q1), ptr(q2 if st[3] is not None else None), ptr(ts), None,
-            None) + (() if entry == "fused_update" else (ptr(health),))
+            ptr(q1), ptr(q2 if st[3] is not None else None), ptr(ts),
+            ptr(seeds), ptr(offsets)) + (
+                () if entry == "fused_update" else (ptr(health),))
     args = (*ptrs, int(sr), fu.to_i32(SEED), nb, bsz, *tail,
             *fu._kernel_scalars(fu.scalars(device="cpu", **hyper)),
             build.stream(st[0].device))
     fn = getattr(lib, entry)
-    keep = (st, g, q1, q2, ts, health)     # the tensors behind the pointers
+    # the tensors behind the pointers
+    keep = (st, g, q1, q2, ts, health, seeds, offsets)
 
     def launch():
         build.check(lib, fn(*args), entry)
@@ -1116,6 +1165,27 @@ def _poison(torch, g, am, ar):
     return g, am, ar
 
 
+def _differ(a, b) -> int:
+    """Values of a that differ from b (NaN matches NaN)."""
+    if not a.is_floating_point():
+        return int((a != b).sum())
+    nan = a.isnan()
+    return int((nan != b.isnan()).sum()) + int((a[~nan] != b[~nan]).sum())
+
+
+def _sentinel_bound(n: int, nb: int, bits_m: int, bits_r, sr: bool,
+                    norms: bool) -> tuple:
+    """B3(e)'s bound: B3's bytes (p read and written, g read, codes read
+    and written, absmax and the trust ratio) plus the (nb, 8) f32 health
+    rows; bits_r None for one-state algorithms."""
+    two = bits_r is not None
+    per_elem = 12 + 2 * (bits_m + (bits_r if two else 0)) / 8
+    ops_ = (56 if two else 30) + (40 if sr else 0) + 6
+    return bound_ms(n * per_elem + nb * ((16 if two else 8) + 32 +
+                                         (4 if norms else 0)) + 2048,
+                    n * ops_)
+
+
 def check_sentinel_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
                            bsz: int = 2048) -> dict:
     """B3(e), the fused update with the sentinel output, at the main path's
@@ -1148,14 +1218,6 @@ def check_sentinel_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
         else t
     out = {}
 
-    def differ(a, b) -> int:
-        """Values of a that differ from b (NaN matches NaN)."""
-        if not a.is_floating_point():
-            return int((a != b).sum())
-        nan = a.isnan()
-        return int((nan != b.isnan()).sum()) + int((a[~nan] != b[~nan])
-                                                   .sum())
-
     for variant, (algo, bits_m, bits_r, sr) in SENTINEL_VARIANTS.items():
         spec = fu.ALGO_SPECS[algo]
         two = spec.n_states == 2
@@ -1187,7 +1249,7 @@ def check_sentinel_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
             h_bad = int((health != want.health).sum())
             n_off = sum(int((bits_of(a) != bits_of(b)).sum())
                         for a, b in zip(on, off) if a is not None)
-            n_plain = sum(differ(a, b) for a, b in zip(on, want[:5])
+            n_plain = sum(_differ(a, b) for a, b in zip(on, want[:5])
                           if a is not None)
             tag = "poisoned" if poisoned else "clean"
             require(h_bad == 0, f"fused_update/sentinel_{variant} ({tag}): "
@@ -1235,13 +1297,8 @@ def check_sentinel_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
             p, g, cm, am, cr, ar if two else None, q1, q2, s, algo=algo,
             tensor_scale=ts_v, uniforms=uniforms, bits_m=bits_m,
             bits_r=bits_r, sentinel=True), 3, 2, 1)
-        # B3's bytes (p read and written, g read, codes read and written,
-        # absmax and the trust ratio) plus the (nb, 8) f32 health rows
-        per_elem = 12 + 2 * (bits_m + (bits_r if two else 0)) / 8
-        ops_ = (56 if two else 30) + (40 if sr else 0) + 6
-        b, by = bound_ms(n * per_elem + nb * ((16 if two else 8) + 32 +
-                                              (4 if spec.needs_norms else 0))
-                         + 2048, n * ops_)
+        b, by = _sentinel_bound(n, nb, bits_m, bits_r if two else None, sr,
+                                spec.needs_norms)
         out[f"fused_update/sentinel_{variant}"] = dict(
             max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
             library_ms=None, off_ms=ms_off, host_us=wrap_us)
@@ -1257,6 +1314,301 @@ def check_sentinel_kernels(torch, dev, nb: int = 10 * 1024 * 8192 // 2048,
         del st_on, st_off, cm, cr, uniforms
         torch.cuda.empty_cache()
     return out
+
+
+def arena_layout(torch, dev):
+    """The pooled arena of paper-lm-209m as ``make_optimizer("adamw8")``
+    lays it out on the full-width model: (segments ((offset, n_blocks),
+    ...), the per-block element offsets and seed terms, each segment's
+    leaf index in leaf order, the segments' paths)."""
+    from repro_torch.configs import base
+    from repro_torch.core.optim import blockopt, make_optimizer
+    from repro_torch.models import model as M
+    model = M.init_model(base.get_config("paper-lm-209m"),
+                         torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    params = model.param_dict()
+    arena = make_optimizer("adamw8", device=dev).init(params).arena
+    order = blockopt.leaf_order(params)
+    return (tuple((s.offset, s.n_blocks) for s in arena.segments),
+            arena.block_offsets.clone(), arena.leaf_seeds.clone(),
+            [order.index(s.path) for s in arena.segments],
+            [s.path for s in arena.segments])
+
+
+def check_arena_kernels(torch, dev, bsz: int = 2048) -> dict:
+    """B3 at the pooled arena's shape, as the pooled dispatch launches it:
+    ARENA_BLOCKS blocks of paper-lm-209m's 11 quantized leaves, with the
+    per-block seeds (a step's term plus each leaf's ``i * 7919``, int32)
+    and element offsets of the optimizer's own layout, and for lamb B4 over
+    the arena and the 11 segments' trust ratios.  For each of
+    ARENA_VARIANTS: the arena launch (through the wrapper, as ``apply``
+    makes it) against the plain version, 0 mismatches, and against the 11
+    per-leaf launches on the same rows (each leaf's own seed, offsets from
+    0, its own trust ratio): the rows concatenated by block must be
+    byte-identical.  The seed vector must hold each leaf's per-leaf seed,
+    and lamb's per-block scales each segment's own trust ratio.  adamw8's
+    arena launch is timed by raw launches of its C entry in turns with the
+    11 per-leaf launches on the same rows."""
+    from repro_torch.core import qmap
+    from repro_torch.core.lowbit import pack_codes
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_update as fu
+
+    segs, offsets, leaf_seeds, index, paths = arena_layout(torch, dev)
+    torch.cuda.empty_cache()
+    nb = sum(m for _, m in segs)
+    require(nb == ARENA_BLOCKS and len(segs) == 11,
+            f"arena: {nb} blocks in {len(segs)} segments, expected "
+            f"{ARENA_BLOCKS} in 11")
+    n = nb * bsz
+    base_seed = fu.to_i32(6 * 1000003)      # the seeds of the 7th step
+    seeds = torch.add(leaf_seeds, base_seed)
+    leaf_seed = [fu.to_i32(base_seed + i * 7919) for i in index]
+    for (o, m), sd in zip(segs, leaf_seed):
+        require(bool((seeds[o:o + m] == sd).all()), f"arena: the block "
+                f"seeds of segment ({o}, {m}) are not its leaf's seed {sd}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    qm = lambda bits, signed=True: torch.as_tensor(
+        qmap.get_qmap("dynamic", signed, bits=bits), device=dev)
+    p = torch.randn(nb, bsz, generator=gen, device=dev) * 0.02
+    g = torch.randn(nb, bsz, generator=gen, device=dev) * 1e-3
+    am = torch.rand(nb, generator=gen, device=dev) * 1e-3 + 1e-5
+    ar = torch.rand(nb, generator=gen, device=dev) * 1e-6 + 1e-9
+    codes = lambda bits: pack_codes(torch.randint(
+        0, 1 << bits, (nb, bsz), generator=gen, device=dev,
+        dtype=torch.uint8), bits)
+    hyper = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=WEIGHT_DECAY, step=7.0, gnorm_scale=1.0)
+    s = fu.scalars(device=dev, **hyper)
+    lib_fu, sms = fu._lib("fused_update"), build.sm_count(dev)
+    rows = lambda ts, o, m: [None if t is None else t[o:o + m] for t in ts]
+    out = {}
+    print(f"kernel arena: {nb} blocks of {bsz} ({n / 1e6:.1f} M elements) "
+          f"in {len(segs)} segments ("
+          + ", ".join(f"{p_} {m}" for p_, (_, m) in zip(paths, segs))
+          + "); the block seed vector holds each leaf's per-leaf seed")
+
+    for variant, (algo, bits_m, bits_r, sr) in ARENA_VARIANTS.items():
+        spec = fu.ALGO_SPECS[algo]
+        q1, q2 = qm(bits_m), qm(bits_r, False)
+        cm, cr = codes(bits_m), codes(bits_r)
+        kw = dict(hyper, algo=algo, stochastic=sr, bits_m=bits_m,
+                  bits_r=bits_r)
+        ts = None
+        if spec.needs_norms:
+            # B4 over the arena, exact; each segment's trust ratio lands
+            # on its own blocks
+            norm_kw = dict({k: v for k, v in hyper.items() if k != "lr"},
+                           algo=algo, bits_m=bits_m, bits_r=bits_r)
+            b4 = lambda: fu.norm_partials_cuda(p, g, cm, am, cr, ar, q1, q2,
+                                               **norm_kw)
+            partials = b4()
+            want_p = fu.norm_partials_plain(p, g, cm, am, cr, ar, q1, q2, s,
+                                            algo=algo, bits_m=bits_m,
+                                            bits_r=bits_r)
+            n_bad, err = _mismatches([partials], [want_p])
+            require(n_bad == 0, f"norm_partials/{variant}: {n_bad} partials "
+                    f"disagree with the plain version (err {err})")
+            ts = fu.segment_scales_from_partials(spec, partials, segs, nb,
+                                                 WEIGHT_DECAY, 1e-3)
+            for o, m in segs:
+                own = fu.segment_scales_from_partials(
+                    spec, partials[o:o + m], ((0, m),), m, WEIGHT_DECAY,
+                    1e-3)
+                require(torch.equal(ts[o:o + m], own), f"{variant}: the "
+                        f"trust ratio of segment ({o}, {m}) is not its own")
+            ms4 = median_ms(torch, b4, 20)
+            plain4 = median_ms(torch, lambda: fu.norm_partials_plain(
+                p, g, cm, am, cr, ar, q1, q2, s, algo=algo, bits_m=bits_m,
+                bits_r=bits_r), 3, 1, 1)
+            b, by = bound_ms(n * (8 + (bits_m + bits_r) / 8) + nb * 40,
+                             n * 26)
+            out[f"norm_partials/{variant}"] = dict(
+                max_abs_err=err, ms=ms4, plain_ms=plain4, bound_ms=b,
+                bound_by=by, library_ms=None)
+            print(f"kernel norm_partials {variant} ({nb}x{bsz}): exact, 0 "
+                  f"mismatches; the 11 segments' trust ratios each on its "
+                  f"own blocks; {ms4:.4f} ms, bound {b:.4f} ms ({by}, "
+                  f"{100 * b / ms4:.0f}% of it), plain {plain4:.3f} ms")
+            del partials, want_p
+        uniforms = (fu.block_uniforms(nb, bsz, two=True, block_seeds=seeds,
+                                      block_offsets=offsets, device=dev)
+                    if sr else (None, None))
+        want = fu.fused_update_plain(p, g, cm, am, cr, ar, q1, q2, s,
+                                     algo=algo, tensor_scale=ts,
+                                     uniforms=uniforms, bits_m=bits_m,
+                                     bits_r=bits_r)
+        del uniforms
+        # the arena launch, as the pooled dispatch makes it (lamb: B4 and
+        # the 11 segment scales inside the wrapper)
+        arena = [t.clone() for t in (p, cm, am, cr, ar)]
+        fu.fused_update_cuda(arena[0], g, *arena[1:], q1, q2,
+                             block_seeds=seeds, block_offsets=offsets,
+                             segments=segs, **kw)
+        n_bad, err = _mismatches(arena, want[:5])
+        require(n_bad == 0, f"fused_update/{variant}: {n_bad} values (p, "
+                f"codes, absmax) of the arena launch disagree with the "
+                f"plain version (err {err})")
+        del want
+        # the 11 per-leaf launches on copies of the same rows (each leaf
+        # its own tensors, as the per-leaf layout holds them: a row slice
+        # of the arena's absmax need not be 16-byte aligned)
+        leaf = [rows((p, cm, am, cr, ar, g), o, m) for o, m in segs]
+        leaf = [[t.clone() for t in st_] for st_ in leaf]
+        for st_, sd in zip(leaf, leaf_seed):
+            fu.fused_update_cuda(st_[0], st_[5], *st_[1:5], q1, q2, seed=sd,
+                                 **kw)
+        n_leaf = sum(_mismatches(rows(arena, o, m), st_[:5])[0]
+                     for (o, m), st_ in zip(segs, leaf))
+        require(n_leaf == 0, f"fused_update/{variant}: {n_leaf} values of "
+                f"the arena launch differ from the 11 per-leaf launches")
+        # the kernel's time: raw launches of the C entry the wrapper calls
+        if (bits_m, bits_r) == (8, 8):
+            entry = "fused_update_grid"
+            grid = lambda m: (lib_fu.fused_update_ctas(
+                fu.KERNEL_ALGOS[algo], 0, m, bsz, sms),)
+        else:
+            entry = "fused_update_packed_grid"
+            grid = lambda m: (bits_m, bits_r,
+                              lib_fu.fused_update_packed_ctas(m, bsz, sms))
+        launch = raw_update(torch, lib_fu, entry, algo, arena, g, q1, q2,
+                            ts, sr=sr, tail=grid(nb), hyper=hyper,
+                            seeds=seeds if sr else None,
+                            offsets=offsets if sr else None)
+        extra = {}
+        if variant == "arena_adamw8":
+            per_leaf = [raw_update(torch, lib_fu, entry, algo, st_[:5],
+                                   st_[5], q1, q2, tail=grid(m),
+                                   hyper=hyper)
+                        for (_, m), st_ in zip(segs, leaf)]
+            turns = in_turns(torch, {
+                "arena": launch,
+                "per_leaf": lambda: [f() for f in per_leaf]}, 20, 5)
+            ms = turns["arena"]
+            extra = dict(per_leaf_ms=turns["per_leaf"])
+        else:
+            ms = median_ms(torch, launch, 20)
+        plain = median_ms(torch, lambda: fu.fused_update_plain(
+            p, g, cm, am, cr, ar, q1, q2, s, algo=algo, tensor_scale=ts,
+            uniforms=(fu.block_uniforms(nb, bsz, two=True,
+                                        block_seeds=seeds,
+                                        block_offsets=offsets, device=dev)
+                      if sr else (None, None)),
+            bits_m=bits_m, bits_r=bits_r), 3, 1, 1)
+        # p read and written, g read, both states' codes read and written;
+        # per block both absmax read and written, lamb's scale, the seed
+        # and offset of a stochastic launch
+        per_elem = 12 + 2 * (bits_m + bits_r) / 8
+        per_block = 16 + (4 if ts is not None else 0) + (8 if sr else 0)
+        b, by = bound_ms(n * per_elem + nb * per_block + 2048,
+                         n * (56 + (40 if sr else 0)))
+        out[f"fused_update/{variant}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+            library_ms=None, **extra)
+        print(f"kernel fused_update {variant} ({nb}x{bsz}, 11 segments, "
+              f"bits {bits_m}/{bits_r}{', stochastic' if sr else ''}): p, "
+              f"codes and absmax exact against the plain version and "
+              f"byte-identical to the 11 per-leaf launches, 0 mismatches; "
+              f"{ms:.4f} ms ({grid(nb)[-1]} CTAs), bound {b:.4f} ms ({by}, "
+              f"{100 * b / ms:.0f}% of it), plain {plain:.3f} ms"
+              + (f"; in turns with the 11 per-leaf launches on the same "
+                 f"rows: {ms:.4f} ms vs {extra['per_leaf_ms']:.4f} ms "
+                 f"({ms / extra['per_leaf_ms']:.3f}x)" if extra else ""))
+        del arena, leaf, cm, cr, ts, launch
+        torch.cuda.empty_cache()
+    out["fused_update/arena_sentinel_adamw8"] = check_arena_sentinel(
+        torch, p, g, am, ar, codes(8), codes(8), qm(8), qm(8, False), segs,
+        offsets, hyper)
+    return out
+
+
+def check_arena_sentinel(torch, p, g, am, ar, cm, cr, q1, q2, segs, offsets,
+                         hyper) -> dict:
+    """B3(e) at the arena, as the pooled launcher launches it (adamw8, the
+    sentinel on, the layout's offsets and 11 segments), on clean inputs and
+    on inputs with NaN / +-inf / 1e31 planted (``_poison``): p, codes and
+    absmax equal the plain version's (NaN where it has NaN) and the health
+    rows ``health_rows``', 0 mismatches; the rows and the summed health
+    vector equal those of the 11 per-leaf sentinel launches on the same
+    rows.  Timed by raw launches of the C entry in turns with the
+    sentinel-off arena launch."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_update as fu
+
+    nb, bsz = p.shape
+    dev = p.device
+    s = fu.scalars(device=dev, **hyper)
+    kw = dict(hyper, algo="adamw", stochastic=False, bits_m=8, bits_r=8)
+    rows = lambda ts, o, m: [None if t is None else t[o:o + m] for t in ts]
+    sums = {}
+    for tag in ("clean", "poisoned"):
+        g_, am_, ar_ = (_poison(torch, g, am, ar) if tag == "poisoned"
+                        else (g, am, ar))
+        want = fu.fused_update_plain(p, g_, cm, am_, cr, ar_, q1, q2, s,
+                                     algo="adamw", bits_m=8, bits_r=8,
+                                     sentinel=True)
+        arena = [t.clone() for t in (p, cm, am_, cr, ar_)]
+        health = fu.fused_update_cuda(arena[0], g_, *arena[1:], q1, q2,
+                                      sentinel=True, block_offsets=offsets,
+                                      segments=segs, **kw).health
+        n_plain = sum(_differ(a, b) for a, b in zip(arena, want[:5]))
+        h_bad = int((health != want.health).sum())
+        require(n_plain == 0 and h_bad == 0, f"fused_update/arena_sentinel "
+                f"({tag}): {n_plain} values of p, codes or absmax and "
+                f"{h_bad} health counts differ from the plain version's")
+        del want
+        leaf = [[t.clone() for t in rows((p, cm, am_, cr, ar_, g_), o, m)]
+                for o, m in segs]
+        h_leaf = torch.cat([fu.fused_update_cuda(
+            st_[0], st_[5], *st_[1:5], q1, q2, sentinel=True, **kw).health
+            for st_ in leaf])
+        n_leaf = sum(_differ(a, b) for (o, m), st_ in zip(segs, leaf)
+                     for a, b in zip(rows(arena, o, m), st_[:5]))
+        h_leaf_bad = int((health != h_leaf).sum())
+        total = health.sum(dim=0)
+        require(n_leaf == 0 and h_leaf_bad == 0 and
+                torch.equal(total, h_leaf.sum(dim=0)),
+                f"fused_update/arena_sentinel ({tag}): {n_leaf} values and "
+                f"{h_leaf_bad} health counts differ from the 11 per-leaf "
+                f"sentinel launches'")
+        sums[tag] = dict(zip(fu.HEALTH_SLOTS, (int(v) for v in total)))
+        del arena, leaf, health, h_leaf
+    require(all(v == 0 for k, v in sums["clean"].items()
+                if not k.startswith("edge_hits")) and
+            sums["poisoned"]["nonfinite_grad"] == 3,
+            f"fused_update/arena_sentinel: counted {sums}")
+    lib_fu, sms = fu._lib("fused_update"), build.sm_count(dev)
+    st_on = [t.clone() for t in (p, cm, am, cr, ar)]
+    st_off = [t.clone() for t in st_on]
+    health = torch.empty(nb, fu.N_HEALTH, device=dev)
+    tail = lambda sent: (lib_fu.fused_update_ctas(
+        fu.KERNEL_ALGOS["adamw"], int(sent), nb, bsz, sms),)
+    turns = in_turns(torch, {
+        k: raw_update(torch, lib_fu, "fused_update_grid", "adamw", st_, g,
+                      q1, q2, health=h_, tail=tail(h_ is not None),
+                      hyper=hyper)
+        for k, st_, h_ in (("off", st_off, None), ("on", st_on, health))},
+        20, 5)
+    ms, ms_off = turns["on"], turns["off"]
+    plain = median_ms(torch, lambda: fu.fused_update_plain(
+        p, g, cm, am, cr, ar, q1, q2, s, algo="adamw", bits_m=8, bits_r=8,
+        sentinel=True), 3, 1, 1)
+    b, by = _sentinel_bound(nb * bsz, nb, 8, 8, False, False)
+    print(f"kernel fused_update arena_sentinel adamw8 ({nb}x{bsz}, "
+          f"{len(segs)} segments, {tail(True)[0]} CTAs): p, codes, absmax "
+          f"and health rows exact against the plain version and "
+          f"health_rows, and equal to the {len(segs)} per-leaf sentinel "
+          f"launches' "
+          f"(rows and summed health), 0 mismatches, clean and poisoned; "
+          f"poisoned counts {sums['poisoned']}; {ms:.4f} ms vs "
+          f"sentinel-off {ms_off:.4f} ms in turns ({ms / ms_off:.3f}x), "
+          f"bound {b:.4f} ms ({by}, {100 * b / ms:.0f}% of it), plain "
+          f"{plain:.3f} ms")
+    del st_on, st_off, health
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=b,
+                bound_by=by, library_ms=None, off_ms=ms_off)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1397,7 +1749,7 @@ def train_slice3(torch, dev, cfg, batches, losses32: dict,
     def counted_run(name, label, **kw):
         ops.reset_launch_counts()
         run = train(torch, dev, cfg, name, FAMILY_STEPS, batches,
-                    label=label, **kw)
+                    label=label, pooled=False, **kw)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         want = {k: v * FAMILY_STEPS
@@ -1483,7 +1835,7 @@ def train_slice3(torch, dev, cfg, batches, losses32: dict,
             ops.reset_launch_counts()
             oracle = train(torch, dev, cfg, name, FAMILY_STEPS, batches,
                            label=f"{label} (torch oracle)", impl="torch",
-                           **kw)
+                           pooled=False, **kw)
             require(not any(ops.launch_counts().values()),
                     f"{label}: the torch-oracle run launched kernels "
                     f"{ops.launch_counts()}")
@@ -1503,50 +1855,346 @@ def train_slice3(torch, dev, cfg, batches, losses32: dict,
         torch.cuda.empty_cache()
 
 
+def _same_state(torch, a, b) -> int:
+    """Arrays of two train states (their optimizer states in the per-leaf
+    canonical layout) that differ bitwise."""
+    from repro_torch.train import checkpoint as C
+    fa, fb = C._flatten(a), C._flatten(b)
+    require([k for k, _ in fa] == [k for k, _ in fb],
+            "the two states hold different arrays")
+    raw = lambda t: getattr(t, "packed", t)       # PackedCodes' bytes
+    return sum(not (x == y if isinstance(x, int)
+                    else torch.equal(raw(x), raw(y)))
+               for (_, x), (_, y) in zip(fa, fb))
+
+
+def _optimizer_device_ms(prof) -> dict:
+    """{kind: (device ms, launches)} of one profiled step's optimizer
+    work: the fused update, the clip's multiplies (in place, or into the
+    arena's gradient views) and the copies."""
+    kinds = {"fused_update": ("fused_update_kernel",
+                              "fused_update_packed_kernel"),
+             "multiply": ("MulFunctor", "mul_kernel"),
+             "copy": ("copy_kernel", "CopyKernel", "direct_copy"),
+             "fill": ("FillFunctor", "fill_kernel"),
+             "add": ("AddFunctor", "CUDAFunctor_add", "add_kernel")}
+    out = {k: (0.0, 0) for k in kinds}
+    for t, count, key in prof:
+        for k, marks in kinds.items():
+            if any(mk in key for mk in marks):
+                ms_, n_ = out[k]
+                out[k] = (ms_ + t, n_ + count)
+                break
+    return out
+
+
+def pooled_phase(torch, dev, cfg, batches, run_launches, step_launches,
+                 run_steps) -> None:
+    """The tenth slice's path: each POOLED_RUNS optimizer pooled (the
+    default) and per-leaf (``pooled=False``) from the same weights and
+    batches, each run with the launch counters zeroed just before it and
+    read just after.  The pooled run must end bit-identical to the
+    per-leaf one (params, codes, absmax, 32-bit moments, through the
+    checkpoint's canonical layout), launch B3 once per step for the arena
+    (and B4 once for lamb) where the per-leaf run launches it once per
+    quantized leaf, and launch every other kernel (Muon's) as often.
+    Printed: median step ms of both, and for adamw8 one profiled step of
+    each (the fused update, the clip's multiplies, copies) and the
+    gradient gather by copy in turns with the clip's multiply.  Then the
+    face: adamw8 through ``BlockOptimizer`` and the plain PyTorch loop for
+    STEPS steps, bit-identical to the pooled ``apply`` run."""
+    from repro_torch.kernels import ops
+
+    for label, (name, kw, steps) in POOLED_RUNS.items():
+        runs, counts, peak = {}, {}, {}
+        for layout in ("per_leaf", "pooled"):
+            ops.reset_launch_counts()
+            ops.reset_fused_update_count()
+            torch.cuda.reset_peak_memory_stats()
+            base_b = torch.cuda.memory_allocated()
+            runs[layout] = train(torch, dev, cfg, name, steps, batches,
+                                 label=f"{label} {layout}",
+                                 pooled=layout == "pooled", **kw)
+            torch.cuda.synchronize()
+            counts[layout] = ops.launch_counts()
+            peak[layout] = (torch.cuda.max_memory_allocated() - base_b) / 1e9
+        po, pl = runs["pooled"], runs["per_leaf"]
+        arena = po["state"].opt_state.arena
+        require(arena is not None and pl["state"].opt_state.arena is None,
+                f"pooled {label}: layouts")
+        n_bad = _same_state(torch, po["state"], pl["state"])
+        require(n_bad == 0, f"pooled {label}: {n_bad} arrays differ from "
+                f"the per-leaf run after {steps} steps")
+        norms = name.startswith(("lamb", "lars"))
+        want = dict(counts["per_leaf"], fused_update=steps,
+                    norm_partials=steps if norms else 0)
+        require(counts["pooled"] == want, f"pooled {label}: launches "
+                f"{counts['pooled']}, expected {want} (per-leaf "
+                f"{counts['per_leaf']})")
+        d_po = po["metrics"]["opt_fused_dispatches"]
+        d_pl = pl["metrics"]["opt_fused_dispatches"]
+        ms_po = statistics.median(po["ms"][1:])
+        ms_pl = statistics.median(pl["ms"][1:])
+        tag = f"pooled_{label}"
+        run_launches[tag] = step_launches[tag] = counts["pooled"]
+        run_steps[tag] = steps
+        print(f"pooled {label}: {steps} steps bit-identical to the per-leaf "
+              f"run (params, codes, absmax, 32-bit moments); arena "
+              f"{arena.master.shape[0]} blocks in {len(arena.segments)} "
+              f"segments; launches pooled {counts['pooled']} vs per-leaf "
+              f"{counts['per_leaf']}; opt_fused_dispatches {d_po:.0f} vs "
+              f"{d_pl:.0f} per step; median step of the runs {ms_po:.2f} ms "
+              f"vs {ms_pl:.2f} ms ({ms_po / ms_pl:.3f}x; steps "
+              f"1..{steps - 1}, per-leaf run first); peak device memory of "
+              f"the run {peak['pooled']:.2f} GB vs {peak['per_leaf']:.2f} GB")
+        if label == "adamw8":
+            face_run(torch, dev, cfg, batches, po)
+            grad_view_run(torch, dev, cfg, batches, po)
+            gather_turns(torch, po["opt"], po["state"].opt_state)
+        if label in ("adamw8", "adam8_4_8"):
+            for layout, run in (("per_leaf", pl), ("pooled", po)):
+                prof, wall = profile_step(torch, run["step"], run["state"],
+                                          batches[steps])
+                total = sum(t for t, _, _ in prof)
+                parts = _optimizer_device_ms(prof)
+                print(f"profile {label} {layout} step: {total:.2f} ms "
+                      f"device time over {wall:.2f} ms wall (device idle "
+                      f"{100 * (1 - total / wall):.1f}%); "
+                      + "; ".join(f"{k} {t:.3f} ms in {c} launches"
+                                  for k, (t, c) in parts.items()))
+        for reading in (1, 2):
+            step_turns(torch, f"{label} (reading {reading})", runs,
+                       batches[steps])
+        del runs, po, pl, arena
+        torch.cuda.empty_cache()
+
+
+def step_turns(torch, label, runs, batch, reps: int = 8) -> None:
+    """Step time of the per-leaf and the pooled run in turns (per-leaf,
+    pooled, pooled, per-leaf, ...), each step on the host clock ending in
+    a sync, on the same batch: the two layouts under the same conditions
+    (their states, compared already, move on)."""
+    times = {k: [] for k in runs}
+    for r in range(reps):
+        for k in (list(runs) if r % 2 == 0 else list(reversed(runs))):
+            run = runs[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run["state"], m = run["step"](run["state"], batch)
+            m["loss"].item()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"pooled {label} in turns ({reps} steps each): median step "
+          f"{med['pooled']:.2f} ms vs per-leaf {med['per_leaf']:.2f} ms "
+          f"({med['pooled'] / med['per_leaf']:.3f}x); pooled "
+          + ", ".join(f"{t:.1f}" for t in times["pooled"]) + "; per-leaf "
+          + ", ".join(f"{t:.1f}" for t in times["per_leaf"]))
+
+
+def gather_turns(torch, opt, opt_state) -> None:
+    """The gradient gather of the pooled step, by CUDA events in turns on
+    the same gradients: the clip's multiply written into the arena's
+    gradient views (what the train loop does), the in-place multiply of
+    the per-leaf step, a copy of each leaf's gradient into its view (what
+    ``apply`` does with gradients that are not the views), and the fill
+    of the buffer and an add into each view (what autograd does for a
+    ``.grad`` that is the view)."""
+    views = opt.grad_views(opt_state)
+    gen = torch.Generator(device=views[next(iter(views))].device)
+    grads = {k: torch.randn(v.shape, generator=gen.manual_seed(SEED),
+                            device=v.device) for k, v in views.items()}
+    one = torch.ones((), device=next(iter(grads.values())).device)
+    turns = in_turns(torch, {
+        "mul_into_views": lambda: [torch.mul(grads[k], one, out=views[k])
+                                   for k in views],
+        "mul_in_place": lambda: [grads[k].mul_(one) for k in views],
+        "copy_into_views": lambda: [views[k].copy_(grads[k])
+                                    for k in views],
+        "zero_then_add": lambda: [opt_state.arena.grad.zero_()] + [
+            views[k].add_(grads[k]) for k in views]}, 20, 5)
+    n = sum(v.numel() for v in views.values())
+    b, _ = bound_ms(n * 8, 0)
+    print(f"gather adamw8 pooled ({len(views)} leaves, {n / 1e6:.1f} M "
+          f"elements): clip's multiply into the arena's gradient views "
+          f"{turns['mul_into_views']:.4f} ms, in place (per-leaf step) "
+          f"{turns['mul_in_place']:.4f} ms, copy into the views "
+          f"{turns['copy_into_views']:.4f} ms; bound of each {b:.4f} ms "
+          f"(bytes); the zeroed buffer and autograd's add into the views "
+          f"(a .grad that is the view) {turns['zero_then_add']:.4f} ms "
+          f"(bound {bound_ms(n * 16, 0)[0]:.4f} ms, the buffer's fill "
+          f"included)")
+
+
+def grad_view_run(torch, dev, cfg, batches, ref) -> dict:
+    """The alternative to a gradient buffer beside autograd's gradients:
+    adamw8 pooled from the weights of ``ref`` (the pooled ``apply`` run),
+    for as many steps, with each pooled parameter's ``.grad`` set once to
+    its view of the arena's gradient buffer, so that autograd accumulates
+    into the buffer (``model.zero_grad(set_to_none=False)`` zeroes it in
+    place), the clip in place, ``apply`` with nothing to copy.  Printed:
+    whether it ends bit-identical to ``ref``, its median step and peak
+    device memory (above what was allocated before it), and one profiled
+    step (the step's
+    device time, the fills, adds, multiplies and copies).  Returns
+    {"profile": (rows, wall), "identical": bool}."""
+    from repro_torch.core.optim import make_optimizer
+    from repro_torch.models import model as M
+    from repro_torch.train import loop as L
+
+    steps = len(ref["losses"])
+    torch.cuda.reset_peak_memory_stats()
+    base_b = torch.cuda.memory_allocated()
+    model = M.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    params = model.param_dict()
+    opt = make_optimizer("adamw8", lr=LR, weight_decay=WEIGHT_DECAY,
+                         device=dev)
+    state = L.TrainState(opt_state=opt.init(params), step=0)
+    for path, view in opt.grad_views(state.opt_state).items():
+        params[path].grad = view
+
+    def step(state, batch):
+        model.zero_grad(set_to_none=False)
+        tokens = torch.as_tensor(batch["tokens"]).to(dev, torch.long)
+        logits, _ = M.forward(cfg, model, tokens[:, :-1])
+        loss = L.cross_entropy(logits, tokens[:, 1:])
+        loss.backward()
+        grads = {k: p.grad for k, p in params.items()}
+        L.clip_by_global_norm(grads, 1.0)
+        _, new = opt.apply(grads, state.opt_state)
+        return L.TrainState(opt_state=new, step=state.step + 1), loss
+
+    ms = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batches[i])
+        loss.item()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = (torch.cuda.max_memory_allocated() - base_b) / 1e9
+    views = opt.grad_views(state.opt_state)
+    kept = all(params[k].grad.data_ptr() == v.data_ptr()
+               for k, v in views.items())
+    n_bad = _same_state(torch, state, ref["state"])
+    prof = profile_step(torch, step, state, batches[steps])
+    total = sum(t for t, _, _ in prof[0])
+    print(f"grad views adamw8 pooled (.grad = the arena's gradient views, "
+          f"zero_grad in place, clip in place): {steps} steps "
+          + ("bit-identical to" if n_bad == 0 else f"{n_bad} arrays differ "
+             f"from") + f" the pooled apply run; the views kept as .grad: "
+          f"{kept}; median step {statistics.median(ms[1:]):.2f} ms; peak "
+          f"device memory of the run {peak:.2f} GB; profiled step "
+          f"{total:.2f} ms device time over {prof[1]:.2f} ms wall; "
+          + "; ".join(f"{k} {t:.3f} ms in {c} launches" for k, (t, c)
+                      in _optimizer_device_ms(prof[0]).items()))
+    del opt, model, params, state, views
+    torch.cuda.empty_cache()
+    return {"profile": prof, "identical": n_bad == 0}
+
+
+def face_run(torch, dev, cfg, batches, ref) -> None:
+    """adamw8 through the ``torch.optim.Optimizer`` face and the plain loop
+    (backward, the repo's global-norm clip, ``step``, ``zero_grad``) from
+    the weights of ``ref`` (the pooled ``apply`` run), for as many steps:
+    bit-identical to it, one B3 launch per step."""
+    from repro_torch.core.optim import BlockOptimizer
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.train import loop as L
+
+    steps = len(ref["losses"])
+    model = M.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    opt = BlockOptimizer(model.named_parameters(), "adamw8", lr=LR,
+                         weight_decay=WEIGHT_DECAY, device=dev)
+    ops.reset_launch_counts()
+    ms = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(batches[i]["tokens"]).to(dev, torch.long)
+        logits, _ = M.forward(cfg, model, tokens[:, :-1])
+        L.cross_entropy(logits, tokens[:, 1:]).backward()
+        L.clip_by_global_norm({k: p.grad for k, p in
+                               model.named_parameters()}, 1.0)
+        opt.step()
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    require(counts["fused_update"] == steps, f"face: launches {counts}, "
+            f"expected {steps} of fused_update")
+    n_bad = _same_state(torch, opt.opt_state, ref["state"].opt_state)
+    require(n_bad == 0, f"face: {n_bad} arrays differ from the pooled "
+            f"apply run after {steps} steps")
+    print(f"face adamw8 (BlockOptimizer, loss.backward(); clip; "
+          f"opt.step(); opt.zero_grad()): {steps} steps bit-identical to "
+          f"the pooled apply run; launches {counts}; median step "
+          f"{statistics.median(ms[1:]):.2f} ms")
+    del opt, model
+
+
 # ------------------------------------------------------------------ phase 5
-def checkpoint_roundtrip(torch, dev, cfg, batches, steps: int = 3) -> None:
-    """lamb8 for ``steps`` steps, saved with the port's checkpoint and
-    restored into a fresh state (another model, other weights); one more
-    step from both must give bit-identical params, codes and absmax.  The
-    checkpoint goes to a directory under build/ and is removed after."""
+def checkpoint_roundtrip(torch, dev, cfg, batches, pooled: bool = False,
+                         into=(False,), steps: int = 3) -> None:
+    """lamb8 (``pooled`` or per-leaf) for ``steps`` steps, saved with the
+    port's checkpoint and restored into a fresh state of each layout in
+    ``into`` (True: pooled; another model, other weights); one more step
+    from the saved and from each restored state must give bit-identical
+    params, codes and absmax.  The checkpoint goes to a directory under
+    build/ and is removed after."""
     from repro_torch.core.optim import make_optimizer
     from repro_torch.train import checkpoint as C
     from repro_torch.train import loop as L
 
-    def fresh(seed):
+    def fresh(seed, pooled_):
         opt = make_optimizer("lamb8", lr=LR, weight_decay=WEIGHT_DECAY,
-                             device=dev)
+                             pooled=pooled_, device=dev)
         state, model = L.init_train_state(
             cfg, opt, torch.Generator(device=dev).manual_seed(seed),
             device=dev)
         return state, L.make_train_step(cfg, model, opt)
 
-    state, step = fresh(SEED)
+    layout = lambda p: "pooled" if p else "per-leaf"
+    state, step = fresh(SEED, pooled)
     for i in range(steps):
         state, _ = step(state, batches[i])
     (ROOT / "build").mkdir(exist_ok=True)
     ckpt = tempfile.mkdtemp(dir=ROOT / "build", prefix="chip_smoke_ckpt_")
+    restored = []
     try:
         t0 = time.perf_counter()
         path = C.save(ckpt, steps, state)
+        save_s = time.perf_counter() - t0
         size = sum(f.stat().st_size for f in Path(path).iterdir())
-        state_b, step_b = fresh(SEED + 1)
-        state_b = C.restore(ckpt, steps, state_b)
-        secs = time.perf_counter() - t0
+        for k, p in enumerate(into):
+            t0 = time.perf_counter()
+            state_b, step_b = fresh(SEED + 1 + k, p)
+            state_b = C.restore(ckpt, steps, state_b)
+            require((state_b.opt_state.arena is not None) == p,
+                    f"checkpoint: the {layout(p)} template came back "
+                    f"{layout(not p)}")
+            restored.append((p, state_b, step_b,
+                             time.perf_counter() - t0))
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     state, _ = step(state, batches[steps])
-    state_b, _ = step_b(state_b, batches[steps])
-    torch.cuda.synchronize()
-    pairs = list(zip(C._flatten(state), C._flatten(state_b)))
-    n_bad = sum(not (a == b if isinstance(a, int) else torch.equal(a, b))
-                for (_, a), (_, b) in pairs)
-    require(n_bad == 0, f"checkpoint: {n_bad} of {len(pairs)} arrays differ "
-            f"after step {steps + 1} from the restored lamb8 state")
-    print(f"checkpoint lamb8: saved after {steps} steps ({size / 1e9:.2f} "
-          f"GB), restored into a fresh state in {secs:.1f} s; step "
-          f"{steps + 1} from both bit-identical ({len(pairs)} arrays: "
-          f"params, codes, absmax, 32-bit moments, step counts)")
+    for p, state_b, step_b, secs in restored:
+        state_b, _ = step_b(state_b, batches[steps])
+        torch.cuda.synchronize()
+        n_bad = _same_state(torch, state, state_b)
+        n_all = len(C._flatten(state))
+        require(n_bad == 0, f"checkpoint: {n_bad} of {n_all} arrays differ "
+                f"after step {steps + 1} between the {layout(pooled)} "
+                f"lamb8 state and the {layout(p)} state restored from it")
+        print(f"checkpoint lamb8 {layout(pooled)}: saved after {steps} "
+              f"steps ({size / 1e9:.2f} GB, {save_s:.1f} s), restored into "
+              f"a fresh {layout(p)} state in {secs:.1f} s; step "
+              f"{steps + 1} from both bit-identical ({n_all} arrays: "
+              f"params, codes, absmax, 32-bit moments, step counts)")
+        del state_b, step_b
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1834,18 +2482,20 @@ def telemetry_phase(torch, dev, cfg, batches, n_quant, run_launches,
     try:
         rc, counts, events, wall = launch("sentinel_on", "--sentinel")
         require(rc == 0, f"telemetry: the launcher exited {rc}")
-        want = TEL_STEPS * n_quant
+        # the launcher runs the default, pooled dispatch: one B3(e) launch
+        # per step for the arena of the n_quant quantized leaves
+        want = TEL_STEPS
         require(counts["fused_update"] == want and
                 counts["fused_update_sentinel"] == want,
                 f"telemetry: fused_update launched {counts['fused_update']} "
                 f"times ({counts['fused_update_sentinel']} with the "
-                f"sentinel), expected {TEL_STEPS} steps x {n_quant} leaves "
-                f"= {want}, all through B3(e)")
+                f"sentinel), expected {TEL_STEPS} steps x 1 arena = {want}, "
+                f"all through B3(e)")
         probes = TEL_STEPS // TEL_EVERY
         require(counts["blockwise_quant"] == probes * n_quant and
                 counts["blockwise_dequant"] == probes * n_quant,
                 f"telemetry: probe round trips launched {counts}, expected "
-                f"{probes} probes x {n_quant} leaves of B1 and B2")
+                f"{probes} probes x {n_quant} arena segments of B1 and B2")
         m = _metric_values(events)
         for i in range(TEL_STEPS):
             for slot in fu.HEALTH_SLOTS:
@@ -1857,6 +2507,9 @@ def telemetry_phase(torch, dev, cfg, batches, n_quant, run_launches,
             require(m[(i, "train/sent_edge_hits_m")] > 0,
                     f"telemetry: step {i}: no edge hit counted")
         q = [e for e in events if e["kind"] == "qhealth"]
+        require({e["target"] for e in q} == {"arena"}, f"telemetry: qhealth "
+                f"targets {sorted({e['target'] for e in q})}, expected the "
+                f"arena's segments only")
         by_step = {}
         for e in q:
             by_step.setdefault(e["step"], set()).add((e["segment"],
@@ -1950,7 +2603,8 @@ def telemetry_phase(torch, dev, cfg, batches, n_quant, run_launches,
     for variant, (name, kw) in SENTINEL_RUNS.items():
         ops.reset_launch_counts()
         run = train(torch, dev, cfg, name, FAMILY_STEPS, batches,
-                    label=f"{variant} --sentinel", sentinel=True, **kw)
+                    label=f"{variant} --sentinel", sentinel=True,
+                    pooled=False, **kw)
         torch.cuda.synchronize()
         counts = dict(ops.launch_counts(), fused_update_sentinel=fu
                       .fused_update_cuda.sentinel_launches)
@@ -2057,6 +2711,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.update(check_sentinel_kernels(torch, dev))
     torch.cuda.empty_cache()
+    kernels.update(check_arena_kernels(torch, dev))
+    torch.cuda.empty_cache()
+    # the launcher's B3(e) launches are the arena's (pooled): its row
+    # reports the arena's times, the largest leaf's beside them
+    leaf_e = kernels["fused_update/sentinel_adamw8"]
+    kernels["fused_update/sentinel_adamw8"] = dict(
+        kernels.pop("fused_update/arena_sentinel_adamw8"),
+        **{f"leaf_{k}": leaf_e[k] for k in ("ms", "off_ms", "plain_ms",
+                                             "bound_ms")})
 
     # ---- 4. train
     cfg = base.get_config("paper-lm-209m")
@@ -2066,7 +2729,7 @@ def main() -> int:
     batches = [pipe.batch_at(i) for i in range(STEPS + 1)]
     ops.reset_launch_counts()
     ops.reset_fused_update_count()
-    run8 = train(torch, dev, cfg, "adamw8", STEPS, batches)
+    run8 = train(torch, dev, cfg, "adamw8", STEPS, batches, pooled=False)
     n_quant = readback(torch, run8["opt"], run8["state"])
     torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -2127,7 +2790,7 @@ def main() -> int:
             continue
         ops.reset_launch_counts()
         run = train(torch, dev, cfg, f"{algo}8", FAMILY_STEPS, batches,
-                    label=variant, stochastic_rounding=sr)
+                    label=variant, stochastic_rounding=sr, pooled=False)
         torch.cuda.synchronize()
         counts = run_launches[variant] = ops.launch_counts()
         step_launches[variant], run_steps[variant] = counts, FAMILY_STEPS
@@ -2193,8 +2856,15 @@ def main() -> int:
     train_slice3(torch, dev, cfg, batches, losses32, run_launches,
                  step_launches, run_steps)
 
-    # ---- 5. checkpoint
+    # the pooled single dispatch against the per-leaf runs, and the face
+    pooled_phase(torch, dev, cfg, batches, run_launches, step_launches,
+                 run_steps)
+
+    # ---- 5. checkpoint: per-leaf, then pooled into both layouts
     checkpoint_roundtrip(torch, dev, cfg, batches)
+    torch.cuda.empty_cache()
+    checkpoint_roundtrip(torch, dev, cfg, batches, pooled=True,
+                         into=(True, False))
     torch.cuda.empty_cache()
 
     # ---- 6. serve
@@ -2217,6 +2887,10 @@ def main() -> int:
     meta += [(f"fused_update/sentinel_{v}", *FUSED, "fused_update_sentinel",
               "telemetry_adamw8" if v == "adamw8" else f"sentinel_{v}")
              for v in SENTINEL_VARIANTS]
+    meta += [(f"fused_update/{v}", *FUSED, "fused_update", f"pooled_{v[6:]}")
+             for v in ARENA_VARIANTS]
+    meta += [("norm_partials/arena_lamb8", *NORMS, "norm_partials",
+              "pooled_lamb8")]
     for name, source, replaces, counter, run in meta:
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -2236,7 +2910,9 @@ def main() -> int:
                     "library_device_ms", "adamw8_in_turns_ms",   # B3(d)
                     "warm_ms", "graph_ms", "f32_max_abs_err",    # B7
                     "f32_ms", "f32_warm_ms", "f32_graph_ms", "f32_plain_ms",
-                    "f32_bound_ms"):
+                    "f32_bound_ms", "per_leaf_ms",                 # arena
+                    "leaf_ms", "leaf_off_ms", "leaf_plain_ms",
+                    "leaf_bound_ms"):
             if key in k:
                 rows[-1][key] = k[key]
         require(rows[-1]["launches"] > 0, f"{name}: no launch in the {run} "

@@ -11,10 +11,13 @@ Names: ``<algo>8`` and ``<algo>32`` for adam, adamw, momentum, lamb, lars,
 adagrad and muon, and ``adafactor32``.  Sub-byte states are a config field:
 ``make_optimizer("adam8", state_bits=(4, 8))`` stores a packed 4-bit first
 moment and an 8-bit second moment; the same knob packs Muon's matrix
-momentum.  The port's ``make_optimizer`` defaults to ``pooled=False``: the
-pooled single dispatch (the JAX package's default) is ROADMAP A9, and
-per-leaf and pooled updates are bit-identical by the reference's own
-contract.
+momentum.  As in the JAX package, ``pooled=True`` (one fused dispatch for
+all quantized leaves) is the default and ``pooled=False`` the per-leaf
+dispatch; the two are bit-identical.  The same engine as a
+``torch.optim.Optimizer``::
+
+    opt = BlockOptimizer(model.named_parameters(), "adamw8", lr=1e-3)
+    loss.backward(); opt.step(); opt.zero_grad()
 """
 from __future__ import annotations
 
@@ -23,9 +26,13 @@ from typing import Callable, Optional, Union
 
 from repro_torch.core.optim.adafactor import Adafactor, AdafactorConfig
 from repro_torch.core.optim.base import (ALGOS, Full32Leaf, OptimConfig,
-                                         Quant8Leaf, default_override_32bit)
-from repro_torch.core.optim.blockopt import Block8bitOptimizer, OptState
+                                         Pool32Arena, Pool32Leaf,
+                                         PooledQuantLeaf, Quant8Leaf,
+                                         QuantArena, default_override_32bit)
+from repro_torch.core.optim.blockopt import (Block8bitOptimizer, OptState,
+                                             repool_like, unpool_state)
 from repro_torch.core.optim.muon import MuonOptimizer
+from repro_torch.core.optim.torch_optim import BlockOptimizer
 from repro_torch.errors import ConfigError
 
 # name: (algo, bits) — every algorithm gets an "<algo>8" and an "<algo>32".
@@ -51,8 +58,7 @@ def make_optimizer(name_or_config: Union[str, OptimConfig, AdafactorConfig],
     and for muon at any width; pass ``lambda p: False`` to disable).  For
     muon the override also routes matched 2-D leaves to the element-wise
     adamw fallback, so muon32 and muon8 route alike, as in the JAX
-    package.  By name, ``pooled`` defaults to False (ROADMAP A9);
-    ``adafactor32`` takes the ``AdafactorConfig`` fields among
+    package.  ``adafactor32`` takes the ``AdafactorConfig`` fields among
     ``**kwargs`` and ignores the rest, as in the JAX package."""
     if isinstance(name_or_config, AdafactorConfig):
         cfg = name_or_config
@@ -77,14 +83,14 @@ def make_optimizer(name_or_config: Union[str, OptimConfig, AdafactorConfig],
         raise ConfigError(f"unknown optimizer '{name}'; have "
                           f"{optimizer_names()}")
     algo, bits = _NAMES[name]
-    kwargs.setdefault("pooled", False)
     return make_optimizer(OptimConfig(algo=algo, bits=bits, **kwargs),
                           override_32bit=override_32bit, device=device)
 
 
 __all__ = [
     "ALGOS", "Adafactor", "AdafactorConfig", "Block8bitOptimizer",
-    "Full32Leaf", "MuonOptimizer", "OptimConfig", "OptState",
-    "Quant8Leaf", "default_override_32bit", "make_optimizer",
-    "optimizer_names",
+    "BlockOptimizer", "Full32Leaf", "MuonOptimizer", "OptimConfig",
+    "OptState", "Pool32Arena", "Pool32Leaf", "PooledQuantLeaf",
+    "Quant8Leaf", "QuantArena", "default_override_32bit", "make_optimizer",
+    "optimizer_names", "repool_like", "unpool_state",
 ]

@@ -9,11 +9,19 @@ that flat block domain; the f32 master stays in parameter shape.
 ``OptimConfig`` keeps every field of the JAX package's config, so a config
 means the same in both packages; the engine (``blockopt.py``) raises
 :class:`~repro_torch.errors.ConfigError` for the settings whose code paths
-are not ported yet, naming the ROADMAP item.  The pooled arena containers
-(``QuantArena``, ``Pool32Arena``, ...) are ROADMAP A9.  A quantized state
-slot holds plain uint8 codes at 8 bits and
+are not ported yet, naming the ROADMAP item.  A quantized state slot holds
+plain uint8 codes at 8 bits and
 :class:`~repro_torch.core.lowbit.PackedCodes` at 4, 5 and 6 bits
 (``state_bits``).
+
+The pooled layout (``pooled=True``, the default) concatenates every
+quantized leaf into one :class:`QuantArena` and every small leaf into one
+:class:`Pool32Arena`; per-leaf identity lives in the static segments and in
+the :class:`PooledQuantLeaf` / :class:`Pool32Leaf` nodes.  Unlike the JAX
+package's, the port's arenas also own the f32 masters: each parameter is a
+view into its arena's master, so the update writes the model's weights in
+place with no per-step copy.  The ZeRO-1 ``partition`` fields are ROADMAP
+A13 and are left out.
 """
 from __future__ import annotations
 
@@ -278,6 +286,80 @@ class Full32Leaf:
     master: torch.Tensor            # param shape, f32
     m: torch.Tensor                 # param shape, f32
     r: Optional[torch.Tensor]       # param shape, f32 (second moment)
+
+
+# --------------------------------------------------- pooled arena containers
+@dataclasses.dataclass(frozen=True)
+class QuantSegment:
+    """Static per-leaf slice of a QuantArena."""
+    path: str        # leaf path string
+    offset: int      # first block of this leaf in the arena
+    n_blocks: int    # whole blocks incl. shard_multiple padding
+    shape: tuple     # original param shape
+    n: int           # logical element count
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatSegment:
+    """Static per-leaf slice of a Pool32Arena (element granularity)."""
+    path: str
+    offset: int      # first element of this leaf in the flat arena
+    n: int
+    shape: tuple
+
+
+@dataclasses.dataclass
+class PooledQuantLeaf:
+    """Per-leaf node of a pooled quantized leaf: its master (a view, in
+    param shape, of the arena's master) and its blocks' place in the
+    arena."""
+    master: torch.Tensor
+    shape: tuple
+    n: int
+    offset: int
+    n_blocks: int
+
+
+@dataclasses.dataclass
+class Pool32Leaf:
+    """Per-leaf marker of a small leaf pooled into the Pool32Arena; all of
+    its state (the master included) lives in the arena."""
+    shape: tuple
+    n: int
+    offset: int
+
+
+@dataclasses.dataclass
+class QuantArena:
+    """Pooled statistics of every quantized leaf: one (total_blocks, B)
+    codes + (total_blocks,) absmax pair per state slot, segment by segment
+    in leaf order.  The port's arena also holds what the update reads in
+    the block domain: the f32 ``master`` (each parameter is a view of its
+    segment, the padding zero), the ``grad`` buffer the step's gradients
+    are gathered into (its padding never written), and per block the
+    element-index ``block_offsets`` and the stochastic-rounding seed term
+    ``leaf_seeds`` (``i * 7919`` in int32, i the leaf's index in leaf
+    order)."""
+    codes_m: Any                    # (total_blocks, B) uint8 | PackedCodes
+    absmax_m: torch.Tensor          # (total_blocks,) f32
+    codes_r: Optional[Any]
+    absmax_r: Optional[torch.Tensor]
+    segments: tuple                 # tuple[QuantSegment, ...]
+    master: torch.Tensor            # (total_blocks, B) f32
+    grad: torch.Tensor              # (total_blocks, B) f32
+    block_offsets: torch.Tensor     # (total_blocks,) int32
+    leaf_seeds: torch.Tensor        # (total_blocks,) int32
+
+
+@dataclasses.dataclass
+class Pool32Arena:
+    """Pooled f32 state (master + moments) of the sub-min_quant_size
+    leaves, flat (total_n,) element domain, one update per step; each
+    parameter is a view of its segment of ``master``."""
+    master: torch.Tensor            # (total_n,) f32
+    m: torch.Tensor                 # (total_n,) f32
+    r: Optional[torch.Tensor]       # (total_n,) f32 (second moment)
+    segments: tuple                 # tuple[FlatSegment, ...]
 
 
 def flatten_to_blocks(x: torch.Tensor, block_size: int,

@@ -53,9 +53,33 @@ for quantized leaves, the nonfinite raw-grad and new-parameter counts alone
 for 32-bit leaves — and ``apply`` returns ``(params, state, health)`` with
 their sum.  Params and state are bit-identical either way.
 
+**Pooled single dispatch** (``cfg.pooled``, the default): ``init``
+concatenates every quantized leaf's statistics into one
+:class:`~repro_torch.core.optim.base.QuantArena` and every
+sub-``min_quant_size`` leaf's f32 state into one
+:class:`~repro_torch.core.optim.base.Pool32Arena`, so ``apply`` makes
+**one** ``kops.fused_update`` call for the arena (one launch of the fused
+kernel, after one of the norm prologue for lamb/lars) instead of one per
+leaf.  The pool's leaves are updated by the per-leaf 32-bit math on their
+views of it (plain PyTorch either way).  Per-leaf seeds become a per-block seed
+vector, element indices a per-block offset vector, and lamb/lars trust
+ratios are finalized per arena segment, so pooled and per-leaf dispatch
+are bit-identical; ``pooled=False`` is kept as the parity oracle and
+serves the tensor-wise ablation and ``bits=32`` (``pooling_active``).  The
+arenas own the f32 masters: ``init`` copies each parameter into its
+segment and points the parameter's storage at it, so the model's
+parameters stay the masters that ``apply`` writes, with no per-step copy.
+The step's gradients are gathered into the arena's gradient buffer;
+:meth:`Block8bitOptimizer.grad_views` gives the buffer's per-leaf views,
+into which a caller (the train loop's clip) may write them directly.
+Stable-embedding overrides stay per-leaf ``Full32Leaf``s and Muon's matrix
+leaves per-leaf ``Quant8Leaf``s, updated beside the arena.  Checkpoints
+store the per-leaf canonical layout (:func:`unpool_state`), so pooled and
+per-leaf states share checkpoints both ways.
+
 Not ported yet, and rejected with :class:`ConfigError` naming the ROADMAP
-item: the pooled single dispatch (``pooled=True`` with quantized leaves,
-A9 — ``make_optimizer`` defaults to ``pooled=False``) and bf16 masters.
+item: bf16 masters, and the ZeRO-1/2 partitioned, bucketed and
+sharded-gradient dispatch (A13).
 """
 from __future__ import annotations
 
@@ -67,7 +91,10 @@ from repro_torch import device as device_lib
 from repro_torch.device import to_device
 from repro_torch.core.lowbit import CodeFormat, PackedCodes
 from repro_torch.core.optim import base
-from repro_torch.core.optim.base import (Full32Leaf, OptimConfig, Quant8Leaf,
+from repro_torch.core.optim.base import (FlatSegment, Full32Leaf, OptimConfig,
+                                         Pool32Arena, Pool32Leaf,
+                                         PooledQuantLeaf, Quant8Leaf,
+                                         QuantArena, QuantSegment,
                                          blocks_to_param, flatten_to_blocks)
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import fused_update as kfu
@@ -83,17 +110,25 @@ def leaf_order(leaves: Mapping[str, object]) -> list:
 
 class OptState(NamedTuple):
     step: int                  # number of updates applied
-    leaves: dict               # path string -> Quant8Leaf | Full32Leaf
+    # path string -> Quant8Leaf | Full32Leaf (per-leaf dispatch), or
+    # PooledQuantLeaf | Pool32Leaf | Full32Leaf | Quant8Leaf (pooled; the
+    # last two are the overrides and Muon's matrix leaves)
+    leaves: dict
     # (pclip_history,) f32 squared-gnorm history, or None when percentile
     # clipping is off (cfg.percentile_clipping == 100).
     gnorm_vec: Optional[torch.Tensor] = None
+    # the pooled layout's arenas; None on the per-leaf layout
+    arena: Optional[QuantArena] = None
+    pool32: Optional[Pool32Arena] = None
 
 
 def _check_ported(cfg: OptimConfig) -> None:
-    if cfg.pooling_active:
-        raise ConfigError("pooled=True (the pooled single dispatch) is not "
-                          "ported yet (ROADMAP A9); pass pooled=False — "
-                          "per-leaf and pooled updates are bit-identical")
+    if cfg.partition_active or cfg.shard_grads_active:
+        raise ConfigError("the partitioned (ZeRO-1), bucketed and "
+                          "sharded-gradient (ZeRO-2) dispatch is not ported "
+                          "yet (ROADMAP A13); leave partition, "
+                          "partition_shards, shard_grads and overlap_buckets "
+                          "at their defaults")
     if cfg.master_dtype != "float32":
         raise ConfigError(f"master_dtype={cfg.master_dtype!r}: the port keeps"
                           f" f32 masters")
@@ -165,15 +200,16 @@ class Block8bitOptimizer:
         device).  The masters alias f32 parameters; others are copied to
         f32."""
         cfg = self.cfg
-        leaves = {}
-        for path in sorted(params):
-            p = params[path]
+        for path, p in params.items():
             if p.device != self.device:
                 raise ValueError(f"{path}: on {p.device}, the optimizer is "
                                  f"on {self.device}")
-            master = p.detach()
-            if master.dtype != torch.float32:
-                master = master.to(torch.float32)
+        if cfg.pooling_active:
+            return self._init_pooled(params)
+        leaves = {}
+        for path in sorted(params):
+            p = params[path]
+            master = _f32_master(p)
             if self._leaf_class(path, p) == "matrix":
                 leaves[path] = self._init_matrix_leaf(path, p, master)
                 continue
@@ -192,12 +228,92 @@ class Block8bitOptimizer:
                               if second else None),
                     shape=tuple(p.shape), n=p.numel())
             else:
-                leaves[path] = Full32Leaf(
-                    master=master, m=torch.zeros_like(master),
-                    r=torch.zeros_like(master) if second else None)
+                leaves[path] = _full32(master, second)
         gnorm_vec = (torch.zeros(cfg.pclip_history, device=self.device)
                      if cfg.percentile_clipping < 100 else None)
         return OptState(step=0, leaves=leaves, gnorm_vec=gnorm_vec)
+
+    def _init_pooled(self, params: Mapping[str, torch.Tensor]) -> OptState:
+        """The pooled layout: quantized leaves' statistics and masters
+        concatenate into one QuantArena, small leaves' f32 state into one
+        Pool32Arena, segment offsets in leaf order (the order ``apply``
+        numbers the leaves in).  Each f32 parameter is pointed at its
+        segment of the arena's master (``p.data = view``), so the model's
+        parameters stay the masters; other dtypes are copied in."""
+        cfg = self.cfg
+        bs, dev = cfg.block_size, self.device
+        second = cfg.has_second_moment
+        order = leaf_order(params)
+        leaves, qsegs, fsegs = {}, [], []
+        for i, path in enumerate(order):
+            p = params[path]
+            shape, n = tuple(p.shape), p.numel()
+            if self._leaf_class(path, p) == "matrix":
+                # each matrix leaf is its own Newton–Schulz problem: it
+                # stays per leaf, beside the arena
+                leaves[path] = self._init_matrix_leaf(path, p,
+                                                      _f32_master(p))
+            elif self._leaf_is_quantized(path, p):
+                nb = base.n_blocks_for(shape, bs, cfg.shard_multiple)
+                off = qsegs[-1][0].offset + qsegs[-1][0].n_blocks \
+                    if qsegs else 0
+                qsegs.append((QuantSegment(path, off, nb, shape, n), i))
+            elif n < cfg.min_quant_size and not self.override_32bit(path):
+                off = fsegs[-1].offset + fsegs[-1].n if fsegs else 0
+                fsegs.append(FlatSegment(path, off, n, shape))
+            else:
+                # the stable-embedding override: a per-leaf Full32Leaf
+                leaves[path] = _full32(_f32_master(p), second)
+        arena = pool32 = None
+        if qsegs:
+            total = qsegs[-1][0].offset + qsegs[-1][0].n_blocks
+            master = torch.zeros(total, bs, device=dev)
+            for seg, _ in qsegs:
+                view = _segment_view(master, seg)
+                leaves[seg.path] = PooledQuantLeaf(
+                    master=_alias(params[seg.path], view), shape=seg.shape,
+                    n=seg.n, offset=seg.offset, n_blocks=seg.n_blocks)
+            arena = QuantArena(
+                codes_m=self._fmt1.init_codes(total, bs, dev),
+                absmax_m=torch.zeros(total, device=dev),
+                codes_r=(self._fmt2.init_codes(total, bs, dev)
+                         if second else None),
+                absmax_r=torch.zeros(total, device=dev) if second else None,
+                segments=tuple(seg for seg, _ in qsegs), master=master,
+                grad=torch.zeros(total, bs, device=dev),
+                block_offsets=torch.cat([
+                    torch.arange(seg.n_blocks, dtype=torch.int32)
+                    for seg, _ in qsegs]).to(dev),
+                leaf_seeds=torch.cat([
+                    torch.full((seg.n_blocks,), kfu.to_i32(i * 7919),
+                               dtype=torch.int32)
+                    for seg, i in qsegs]).to(dev))
+        if fsegs:
+            total = fsegs[-1].offset + fsegs[-1].n
+            master = torch.zeros(total, device=dev)
+            for seg in fsegs:
+                view = master[seg.offset:seg.offset + seg.n].view(seg.shape)
+                _alias(params[seg.path], view)
+                leaves[seg.path] = Pool32Leaf(shape=seg.shape, n=seg.n,
+                                              offset=seg.offset)
+            pool32 = Pool32Arena(
+                master=master, m=torch.zeros(total, device=dev),
+                r=torch.zeros(total, device=dev) if second else None,
+                segments=tuple(fsegs))
+        gnorm_vec = (torch.zeros(cfg.pclip_history, device=dev)
+                     if cfg.percentile_clipping < 100 else None)
+        return OptState(step=0, leaves={k: leaves[k] for k in order},
+                        gnorm_vec=gnorm_vec, arena=arena, pool32=pool32)
+
+    def grad_views(self, state: OptState) -> dict:
+        """{path: the pooled quantized leaf's view, in param shape, of the
+        arena's gradient buffer}; empty on the per-leaf layout.  A gradient
+        written into its view (``torch.mul(g, scale, out=view)``) is not
+        copied again by ``apply``."""
+        if state.arena is None:
+            return {}
+        return {seg.path: _segment_view(state.arena.grad, seg)
+                for seg in state.arena.segments}
 
     # ------------------------------------------------------------- algorithms
     def _math32(self, g, p, m, r, lr, step_f):
@@ -311,8 +427,19 @@ class Block8bitOptimizer:
         gnorm_scale, new_vec = self.percentile_clip(grads, state)
         base_seed = kfu.to_i32(state.step * 1000003)
         health_parts = []
+        if state.arena is not None:
+            health_parts.append(self._apply_arena(
+                state.arena, grads, lr_host, step_f, base_seed, gnorm_scale))
+        # the leaves outside the QuantArena, numbered in leaf order over all
+        # leaves as the per-leaf dispatch numbers them, so seed i matches;
+        # a pooled small leaf is updated as a Full32Leaf of its views of
+        # the Pool32Arena (the per-leaf math, per-tensor trust ratios)
         for i, path in enumerate(leaf_order(state.leaves)):
             leaf, g = state.leaves[path], grads[path]
+            if isinstance(leaf, PooledQuantLeaf):
+                continue
+            if isinstance(leaf, Pool32Leaf):
+                leaf = _pool32_view(state.pool32, leaf)
             if isinstance(leaf, Quant8Leaf):
                 seed = kfu.to_i32(base_seed + i * 7919)
                 h8 = self._apply_quant8(leaf, g, lr_host, step_f, seed,
@@ -320,38 +447,96 @@ class Block8bitOptimizer:
             else:
                 h8 = self._apply_full32(leaf, g, lr_dev, step_f, gnorm_scale)
             health_parts.append(h8)
-        new_state = OptState(step=state.step + 1, leaves=state.leaves,
-                             gnorm_vec=new_vec)
+        new_state = state._replace(step=state.step + 1, gnorm_vec=new_vec)
         if cfg.sentinel:
             return (self.params_view(new_state), new_state,
                     _sum_health(health_parts, self.device))
         return self.params_view(new_state), new_state
 
+    def _apply_arena(self, arena: QuantArena, grads, lr, step_f,
+                     base_seed: int, gnorm_scale) -> Optional[torch.Tensor]:
+        """One fused update over the whole QuantArena, in place.  Gradients
+        are copied into the arena's gradient buffer unless they already are
+        its views (:meth:`grad_views`); the stochastic-rounding seeds are
+        the per-block ``leaf_seeds`` plus this step's term, added on the
+        device in int32 (wrapping, as the per-leaf seeds wrap).  Returns
+        the summed health vector under ``cfg.sentinel`` (else None)."""
+        cfg = self.cfg
+        for seg in arena.segments:
+            # no copy when the gradient is the view (copy_ onto the same
+            # memory returns at once)
+            _segment_view(arena.grad, seg).copy_(grads[seg.path])
+        seeds = (torch.add(arena.leaf_seeds, base_seed)
+                 if cfg.stochastic_rounding else None)
+        res = kops.fused_update(
+            self._ew_algo, arena.master, arena.grad, arena.codes_m,
+            arena.absmax_m, arena.codes_r, arena.absmax_r, self._qmap1,
+            self._qmap2, lr=lr, beta1=cfg.beta1, beta2=cfg.beta2,
+            eps=cfg.eps, weight_decay=cfg.weight_decay, step=step_f,
+            trust_coeff=cfg.trust_coeff, gnorm_scale=gnorm_scale,
+            blockwise=True, stochastic=cfg.stochastic_rounding,
+            block_seeds=seeds, block_offsets=arena.block_offsets,
+            segments=tuple((sg.offset, sg.n_blocks)
+                           for sg in arena.segments),
+            impl=self._impl, sentinel=cfg.sentinel)
+        # the "cuda" backend updated the arena in place; the "torch" oracle
+        # returned new tensors
+        for dst, src in zip((arena.master, arena.codes_m, arena.absmax_m,
+                             arena.codes_r, arena.absmax_r), res[:5]):
+            _store(dst, src)
+        # a block's tail past its leaf's n is zero on input, as the
+        # per-leaf dispatch pads it each step
+        bsz = arena.master.shape[1]
+        flat = arena.master.view(-1)
+        for seg in arena.segments:
+            if seg.n < seg.n_blocks * bsz:
+                flat[seg.offset * bsz + seg.n:
+                     (seg.offset + seg.n_blocks) * bsz].zero_()
+        return res.health.sum(dim=0) if cfg.sentinel else None
+
     def params_view(self, state: OptState,
                     param_dtype=torch.float32) -> dict:
-        """Model-shape params: the masters themselves for f32 (no copy)."""
+        """Model-shape params: the masters themselves for f32 (no copy; a
+        pooled small leaf's is its view of the Pool32Arena)."""
         return {path: leaf.master.to(param_dtype)
-                for path, leaf in state.leaves.items()}
+                for path, leaf in unpool_state(state).leaves.items()}
 
     # ------------------------------------------------------------- utilities
     def state_bytes(self, state: OptState) -> dict:
         """Measured memory of optimizer statistics vs the masters (packed
         codes count their packed bytes)."""
         stats = master = n_params = 0
+
+        def codes_bytes(*slots):
+            return sum((c.nbytes() if isinstance(c, PackedCodes)
+                        else c.numel()) + a.numel() * 4
+                       for c, a in slots if c is not None)
+
         for leaf in state.leaves.values():
+            if isinstance(leaf, Pool32Leaf):
+                continue          # counted with the Pool32Arena below
             if isinstance(leaf, Quant8Leaf):
-                for c, a in ((leaf.codes_m, leaf.absmax_m),
-                             (leaf.codes_r, leaf.absmax_r)):
-                    if c is not None:
-                        stats += (c.nbytes() if isinstance(c, PackedCodes)
-                                  else c.numel()) + a.numel() * 4
+                stats += codes_bytes((leaf.codes_m, leaf.absmax_m),
+                                     (leaf.codes_r, leaf.absmax_r))
                 n_params += leaf.n
+            elif isinstance(leaf, PooledQuantLeaf):
+                n_params += leaf.n    # statistics counted with the arena
             else:
                 for t in (leaf.m, leaf.r):
                     if t is not None:
                         stats += t.numel() * 4
                 n_params += leaf.master.numel()
             master += leaf.master.numel() * leaf.master.element_size()
+        if state.arena is not None:
+            a = state.arena
+            stats += codes_bytes((a.codes_m, a.absmax_m),
+                                 (a.codes_r, a.absmax_r))
+        if state.pool32 is not None:
+            pool = state.pool32
+            stats += sum(t.numel() * 4 for t in (pool.m, pool.r)
+                         if t is not None)
+            master += pool.master.numel() * 4
+            n_params += pool.master.numel()
         return {"state_bytes": int(stats), "master_bytes": int(master),
                 "n_params": int(n_params)}
 
@@ -373,3 +558,152 @@ def _sum_health(parts, device) -> torch.Tensor:
     for h in parts:
         total = total + h
     return total
+
+
+def _f32_master(p: torch.Tensor) -> torch.Tensor:
+    """The parameter itself as a master when it is f32 (aliasing it), else
+    an f32 copy."""
+    master = p.detach()
+    return master if master.dtype == torch.float32 else \
+        master.to(torch.float32)
+
+
+def _full32(master: torch.Tensor, second: bool) -> Full32Leaf:
+    return Full32Leaf(master=master, m=torch.zeros_like(master),
+                      r=torch.zeros_like(master) if second else None)
+
+
+# ------------------------------------------------------------ pooled layout
+def _segment_view(blocks: torch.Tensor, seg: QuantSegment) -> torch.Tensor:
+    """Segment ``seg``'s first ``n`` elements of an arena-shaped
+    (total_blocks, B) tensor, in the leaf's param shape (a view)."""
+    start = seg.offset * blocks.shape[1]
+    return blocks.view(-1)[start:start + seg.n].view(seg.shape)
+
+
+def _alias(param: torch.Tensor, view: torch.Tensor) -> torch.Tensor:
+    """Copy ``param`` into its arena ``view`` and, when it is f32, point
+    the parameter's storage at the view, so the arena's master is the
+    parameter.  Returns the view."""
+    with torch.no_grad():
+        view.copy_(param.detach())
+    if param.dtype == torch.float32:
+        param.data = view
+    return view
+
+
+def _raw(codes):
+    return codes.packed if isinstance(codes, PackedCodes) else codes
+
+
+def _store(dst, src) -> None:
+    """Write a result into the state tensor it replaces (codes through
+    PackedCodes); no copy when the backend already wrote it there, since
+    copy_ onto the same memory returns at once."""
+    if dst is not None and src is not None:
+        _raw(dst).copy_(_raw(src))
+
+
+# ------------------------------------------------ pooled <-> per-leaf views
+# Checkpoints always store the per-leaf canonical layout: `unpool_state`
+# gives each pooled leaf back as a Quant8Leaf / Full32Leaf whose tensors
+# are views of the arenas (save side, and the in-place restore's target);
+# `repool_like` writes per-leaf tensors into a pooled template's arenas.
+
+
+def _slice_blocks(x, off: int, nb: int):
+    """Block-dim slice [off, off+nb) of an arena tensor (a view), keeping a
+    PackedCodes container."""
+    if isinstance(x, PackedCodes):
+        return PackedCodes(x.packed[off:off + nb], x.bits, x.n_codes)
+    return x[off:off + nb]
+
+
+def _pool32_view(pool: Pool32Arena, leaf: Pool32Leaf) -> Full32Leaf:
+    """A pooled small leaf as the Full32Leaf of its views of the pool."""
+    sl = lambda t: None if t is None else \
+        t[leaf.offset:leaf.offset + leaf.n].view(leaf.shape)
+    return Full32Leaf(master=sl(pool.master), m=sl(pool.m), r=sl(pool.r))
+
+
+def unpool_state(state: OptState) -> OptState:
+    """Pooled layout -> per-leaf canonical layout whose tensors are views of
+    the arenas (identity for per-leaf states): writing into the result
+    writes into ``state``."""
+    arena, pool = state.arena, state.pool32
+    if arena is None and pool is None:
+        return state
+
+    def conv(leaf):
+        if isinstance(leaf, PooledQuantLeaf):
+            o, nb = leaf.offset, leaf.n_blocks
+            return Quant8Leaf(
+                master=leaf.master,
+                codes_m=_slice_blocks(arena.codes_m, o, nb),
+                absmax_m=_slice_blocks(arena.absmax_m, o, nb),
+                codes_r=None if arena.codes_r is None
+                else _slice_blocks(arena.codes_r, o, nb),
+                absmax_r=None if arena.absmax_r is None
+                else _slice_blocks(arena.absmax_r, o, nb),
+                shape=leaf.shape, n=leaf.n)
+        if isinstance(leaf, Pool32Leaf):
+            return _pool32_view(pool, leaf)
+        return leaf
+
+    return OptState(step=state.step,
+                    leaves={k: conv(v) for k, v in state.leaves.items()},
+                    gnorm_vec=state.gnorm_vec)
+
+
+def repool_like(per_leaf: OptState, template: OptState) -> OptState:
+    """Per-leaf state -> ``template``'s pooled layout, in place: every
+    per-leaf tensor is written into the template's arenas (the parameters
+    that alias them included), unless it already is the template's own
+    view (as after an in-place restore into ``unpool_state(template)``).
+    Returns the template with ``per_leaf``'s step and clipping history;
+    identity when the template is per-leaf."""
+    if template.arena is None and template.pool32 is None:
+        return per_leaf
+    canon = unpool_state(template)
+    with torch.no_grad():
+        for path, tleaf in canon.leaves.items():
+            got = per_leaf.leaves[path]
+            for name in ("master", "codes_m", "absmax_m", "codes_r",
+                         "absmax_r", "m", "r"):
+                dst = getattr(tleaf, name, None)
+                if dst is not None:
+                    _store(dst, getattr(got, name))
+        if template.gnorm_vec is not None:
+            _store(template.gnorm_vec, per_leaf.gnorm_vec)
+    return template._replace(step=per_leaf.step)
+
+
+def map_opt_states(tree, fn):
+    """Apply ``fn`` to every OptState inside a container tree (dicts,
+    lists, (named)tuples), leaving everything else alone."""
+    if isinstance(tree, OptState):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_opt_states(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_opt_states(v, fn) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_opt_states(v, fn) for v in tree)
+    return tree
+
+
+def zip_opt_states(tree, template, fn):
+    """Parallel walk of ``tree`` and ``template``; ``fn(sub,
+    template_sub)`` wherever the template holds an OptState."""
+    if isinstance(template, OptState):
+        return fn(tree, template)
+    if isinstance(template, dict):
+        return {k: zip_opt_states(tree[k], v, fn)
+                for k, v in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(zip_opt_states(t, v, fn)
+                                for t, v in zip(tree, template)))
+    if isinstance(template, (list, tuple)):
+        return type(template)(zip_opt_states(t, v, fn)
+                              for t, v in zip(tree, template))
+    return tree

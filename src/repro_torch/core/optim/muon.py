@@ -12,7 +12,11 @@
     dequantize, B5/B6 Newton–Schulz and B1 requantize kernels.
   * **element-wise leaves** — 1-D and 3-D params, embeddings (the
     stable-embedding override), anything else — run the fused **adamw**
-    path of the base engine.
+    path of the base engine, the pooled ``QuantArena`` single dispatch
+    included: one fused launch covers all of them, and the matrix leaves
+    are dispatched per leaf beside it (each is its own Newton–Schulz
+    problem), in both layouts with the same leaf-order seeds, so pooled
+    and per-leaf Muon are bit-identical.
 
 The routing is the JAX package's: ``ndim == 2``.  On a model that stacks
 its layers (paper-lm-209m), the per-layer projections are 3-D and go to

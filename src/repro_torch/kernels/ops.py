@@ -38,7 +38,11 @@ Every kernel wrapper counts its launches; :func:`launch_counts` reads the
 counts and :func:`reset_launch_counts` zeroes them, so a run can show that
 its main path went through the kernels.  :func:`fused_update_count` counts
 dispatches through :func:`fused_update` whatever the backend (the train
-step's ``opt_fused_dispatches`` metric).
+step's ``opt_fused_dispatches`` metric): one per arena under the pooled
+dispatch, plus one per quantized leaf outside it (Muon's matrix leaves).
+The per-block ``block_seeds``, ``block_offsets`` and trust ratios stay on
+the device: the "cuda" backend passes their pointers without a host
+copy.
 """
 from __future__ import annotations
 

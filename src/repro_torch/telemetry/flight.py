@@ -25,7 +25,11 @@ references would be overwritten by the next step, and a poisoned state
 would become the resume point.  :meth:`FlightRecorder.snapshot` therefore
 copies every tensor to host memory (``snapshot_every`` thins the copies
 for large models: at paper-lm-209m's full width one snapshot is ~1.5 GB).
-An unhealthy step's output is never snapshotted.
+An unhealthy step's output is never snapshotted.  A pooled optimizer
+state is copied in the checkpoint's per-leaf canonical layout
+(``blockopt.unpool_state``), the layout the dump stores, so the arenas'
+masters are not copied twice (once as the arena, once as the parameters'
+views).
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from typing import Any, Mapping, Optional
 
 import torch
 
+from repro_torch.core.optim import blockopt
 from repro_torch.train import checkpoint as _ckpt
 
 FLIGHT_SCHEMA = "repro.flight.v1"
@@ -129,7 +134,8 @@ class FlightRecorder:
         if step % self.snapshot_every:
             return
         self._snap_step = int(step)
-        self._snap_state = host_copy(state)
+        self._snap_state = host_copy(
+            blockopt.map_opt_states(state, blockopt.unpool_state))
 
     def note_anomaly(self, event: dict) -> None:
         self.anomalies.append(dict(event))

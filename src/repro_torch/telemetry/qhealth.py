@@ -1,5 +1,4 @@
-"""Quantization-health probes (mirrors ``repro.telemetry.qhealth`` on the
-per-leaf layout).
+"""Quantization-health probes (mirrors ``repro.telemetry.qhealth``).
 
 The paper's central risk is *silent* quantization failure: saturated
 absmax blocks, dead codebook regions, state dynamics drifting outside the
@@ -8,8 +7,10 @@ optimizer state on the host's probe schedule (``--telemetry-every``),
 never inside the train step, so the step is unchanged with probing on or
 off.
 
-For every quantized leaf (``Quant8Leaf``: the element-wise leaves and Muon's
-matrix leaves, 8-bit or bit-packed) and state slot (``m``/``r``):
+For every quantized segment — each ``QuantSegment`` of the pooled
+``QuantArena`` (target "arena") and each per-leaf ``Quant8Leaf`` (target
+"leaf": the per-leaf layout's leaves, Muon's matrix leaves), 8-bit or
+bit-packed — and state slot (``m``/``r``):
 
   * ``saturation_fraction`` — fraction of the leaf's live blocks with at
     least one code on the codebook's edge, ``|qmap[c]| >= max|qmap|`` (the
@@ -25,11 +26,12 @@ matrix leaves, 8-bit or bit-packed) and state slot (``m``/``r``):
     dequantize round trip of the first ``sample_blocks`` blocks of the
     leaf's f32 master in the slot's format, through the kernel layer
     (``ops.quantize_blockwise`` / ``dequantize_blockwise``: kernels B1/B2
-    on the card).
+    on the card), one round trip per segment.
 
-Elements past a leaf's ``n`` (the block tail's padding) are masked out of
-every fraction and histogram.  The pooled arena's segments are ROADMAP A9:
-a state that holds an arena raises :class:`ConfigError`.
+Events come in the JAX package's order: the arena's segments for slot m,
+then for slot r, then each per-leaf leaf's m and r.  Elements past a
+segment's ``n`` (the block tail's padding) are masked out of every
+fraction and histogram.
 """
 from __future__ import annotations
 
@@ -42,7 +44,6 @@ from repro_torch.core.lowbit import unwrap_codes
 from repro_torch.core.lowbit.packing import unpack_codes
 from repro_torch.core.optim.base import Quant8Leaf, flatten_to_blocks
 from repro_torch.core.optim.blockopt import leaf_order
-from repro_torch.errors import ConfigError
 from repro_torch.kernels import ops
 
 DEFAULT_SAMPLE_BLOCKS = 32
@@ -89,61 +90,79 @@ class QHealthProbe:
         den = torch.sqrt(torch.mean(torch.square(blocks)))
         return float(num / (den + 1e-12))
 
-    def _slot_event(self, path: str, slot: str, codes, absmax, n: int,
-                    step: int, master=None) -> dict:
+    def _slot_events(self, target: str, slot: str, codes, absmax, segs,
+                     step: int, masters=None) -> List[dict]:
+        """Events of one state slot of an arena or a leaf.  ``segs``:
+        ((path, block offset, n_blocks, n), ...); ``masters``: {path: f32
+        (n_blocks, B) master blocks} for the round-trip sample."""
         qmap = self._qmaps[slot]
         raw, rbits, _ = unwrap_codes(codes)
         bits = rbits if rbits is not None else self._bits[slot]
         n_bins = int(qmap.shape[-1])
         c = unpack_codes(raw, bits).to(torch.uint8)       # (nb, B)
-        nb, bsz = c.shape
-        nvb = max(min(-(-n // bsz), nb), 1)               # live blocks
+        bsz = c.shape[1]
         q = qmap.abs()
-        # the live elements are the first n of the leaf's blocks
-        e = (q >= q.max())[c[:nvb].long()].reshape(-1)
-        e[n:] = False
-        counts = torch.stack([e.reshape(nvb, bsz).any(dim=1).sum(),
-                              e.sum()]).cpu().tolist()
-        amean = float(absmax[:nvb].mean())
-        codes_h = c.reshape(-1)[:n].cpu().numpy()
-        hist = np.bincount(codes_h, minlength=n_bins)[:n_bins] \
-            .astype(np.int64)
-        ev = {
-            "kind": "qhealth", "step": int(step), "target": "leaf",
-            "segment": path, "slot": slot, "bits": int(bits),
-            "n_bins": n_bins, "n_blocks": int(nb),
-            "saturation_fraction": _fraction(counts[0], nvb),
-            "edge_code_fraction": _fraction(counts[1], max(n, 1)),
-            "util_hist": hist.tolist(),
-            "util_fraction": float(np.mean(hist > 0)),
-            "absmax_mean": amean,
-            "absmax_drift": self._drift(("leaf", path, slot), amean),
-        }
-        if master is not None:
-            cfg = self.opt.cfg
-            blocks = flatten_to_blocks(master.to(torch.float32),
-                                       cfg.block_size, cfg.shard_multiple)
-            blocks = blocks[:self.sample_blocks].contiguous()
-            ev["rms_error"] = self._roundtrip_rms(blocks, qmap, bits)
-            ev["rms_sample_blocks"] = int(blocks.shape[0])
-        return ev
+        edge = q >= q.max()
+        events = []
+        for path, off, nb, n in segs:
+            nvb = max(min(-(-n // bsz), nb), 1)           # live blocks
+            cs = c[off:off + nvb]
+            # the live elements are the first n of the segment's blocks
+            e = edge[cs.long()].reshape(-1)
+            e[n:] = False
+            counts = torch.stack([e.reshape(nvb, bsz).any(dim=1).sum(),
+                                  e.sum()]).cpu().tolist()
+            amean = float(absmax[off:off + nvb].mean())
+            hist = np.bincount(cs.reshape(-1)[:n].cpu().numpy(),
+                               minlength=n_bins)[:n_bins].astype(np.int64)
+            ev = {
+                "kind": "qhealth", "step": int(step), "target": target,
+                "segment": path, "slot": slot, "bits": int(bits),
+                "n_bins": n_bins, "n_blocks": int(nb),
+                "saturation_fraction": _fraction(counts[0], nvb),
+                "edge_code_fraction": _fraction(counts[1], max(n, 1)),
+                "util_hist": hist.tolist(),
+                "util_fraction": float(np.mean(hist > 0)),
+                "absmax_mean": amean,
+                "absmax_drift": self._drift((target, path, slot), amean),
+            }
+            if masters is not None and path in masters:
+                blocks = masters[path][:self.sample_blocks].contiguous()
+                ev["rms_error"] = self._roundtrip_rms(blocks, qmap, bits)
+                ev["rms_sample_blocks"] = int(blocks.shape[0])
+            events.append(ev)
+        return events
 
     def probe(self, state, step: int = -1) -> List[dict]:
-        """Health events for every quantized leaf of ``state`` (an
-        ``OptState`` of the per-leaf engine), in the parameter tree's
-        order: slot m, then slot r where the leaf has one."""
-        if getattr(state, "arena", None) is not None:
-            raise ConfigError("qhealth probes of the pooled arena are not "
-                              "ported yet (ROADMAP A9)")
+        """Health events for every quantized segment of ``state`` (an
+        ``OptState``): the pooled arena's segments, then every per-leaf
+        ``Quant8Leaf`` in the parameter tree's order."""
         events: List[dict] = []
+        arena = getattr(state, "arena", None)
+        if arena is not None:
+            segs = tuple((sg.path, sg.offset, sg.n_blocks, sg.n)
+                         for sg in arena.segments)
+            masters = {sg.path: arena.master[sg.offset:sg.offset
+                                             + sg.n_blocks]
+                       for sg in arena.segments}
+            events += self._slot_events("arena", "m", arena.codes_m,
+                                        arena.absmax_m, segs, step, masters)
+            if arena.codes_r is not None:
+                events += self._slot_events("arena", "r", arena.codes_r,
+                                            arena.absmax_r, segs, step)
+        cfg = self.opt.cfg
         for path in leaf_order(state.leaves):
             leaf = state.leaves[path]
             if not isinstance(leaf, Quant8Leaf):
                 continue
-            events.append(self._slot_event(path, "m", leaf.codes_m,
-                                           leaf.absmax_m, leaf.n, step,
-                                           leaf.master))
+            segs = ((path, 0, int(leaf.absmax_m.shape[0]), leaf.n),)
+            # the master cut into its quantization blocks
+            masters = {path: flatten_to_blocks(leaf.master.to(torch.float32),
+                                               cfg.block_size,
+                                               cfg.shard_multiple)}
+            events += self._slot_events("leaf", "m", leaf.codes_m,
+                                        leaf.absmax_m, segs, step, masters)
             if leaf.codes_r is not None:
-                events.append(self._slot_event(path, "r", leaf.codes_r,
-                                               leaf.absmax_r, leaf.n, step))
+                events += self._slot_events("leaf", "r", leaf.codes_r,
+                                            leaf.absmax_r, segs, step)
         return events

@@ -27,14 +27,27 @@ Writes are atomic (a ``.tmp_*`` directory, then a rename), ``keep_last``
 old steps are pruned, and ``latest_step`` scans the directory.  The
 quantized states are stored as their uint8 codes and f32 absmax.
 
+Pooled optimizer states are stored **per leaf**, as the JAX package
+stores them: every ``OptState`` is read through its per-leaf canonical view
+(``blockopt.unpool_state``), so the keys are the same whether either
+package pooled, and a checkpoint restores into a pooled or a per-leaf
+template alike.  Pooled containers outside their ``OptState`` raise
+ValueError (their arena halves would be lost).
+
 ``restore`` loads **into the template's own tensors** (in place), so a
 model whose parameters are the optimizer's masters holds the restored
-weights; ints are returned anew.  It checks every key, shape, dtype and
-packing annotation before it writes anything: packed codes restore only
-into packed codes of the same width and row length, and plain codes only
-into plain codes (ValueError otherwise, as in the JAX package).  Not
-ported yet: pooled arenas (ROADMAP A9), which raise
-:class:`~repro_torch.errors.ConfigError`.
+weights; ints are returned anew.  A pooled template is loaded through its
+canonical view, whose tensors are views of its arenas, and handed back by
+``blockopt.repool_like``.  It checks every key, shape, dtype and packing
+annotation before it writes anything: packed codes restore only into
+packed codes of the same width and row length, and plain codes only into
+plain codes (ValueError otherwise, as in the JAX package).
+
+:func:`state_dict` / :func:`load_state_dict` hold the same content in
+memory, ``{"state": {key: tensor or int}, "packed": {key: {"bits",
+"n_codes"}}}``, and :func:`read` gives a checkpoint in that form (numpy
+arrays), so the optimizer face's ``state_dict`` and a checkpoint restore
+into each other.
 """
 from __future__ import annotations
 
@@ -48,10 +61,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.lowbit.packing import PackedCodes
+from repro_torch.core.optim import blockopt
 from repro_torch.core.optim.adafactor import AdafactorLeaf
-from repro_torch.core.optim.base import Full32Leaf, Quant8Leaf
-from repro_torch.core.optim.blockopt import leaf_order
-from repro_torch.errors import ConfigError
+from repro_torch.core.optim.base import (Full32Leaf, Pool32Arena, Pool32Leaf,
+                                         PooledQuantLeaf, Quant8Leaf,
+                                         QuantArena)
+from repro_torch.core.optim.blockopt import OptState, leaf_order
 
 # Children of each state leaf in the JAX package's ``tree_flatten`` order.
 LEAF_CHILDREN = {
@@ -59,7 +74,7 @@ LEAF_CHILDREN = {
     Full32Leaf: ("master", "m", "r"),
     AdafactorLeaf: ("master", "m", "v_row", "v_col", "v_full"),
 }
-POOLED_FIELDS = (".arena", ".pool32")
+POOLED = (PooledQuantLeaf, Pool32Leaf, QuantArena, Pool32Arena)
 
 
 def _is_namedtuple(x) -> bool:
@@ -73,9 +88,18 @@ def _dict_key(key: str) -> str:
 
 def _flatten(tree, prefix: str = "") -> list:
     """(key, leaf) pairs of a tree, leaves being tensors and ints, in the
-    JAX package's flatten order."""
+    JAX package's flatten order; an ``OptState`` in its per-leaf canonical
+    layout."""
     if tree is None:
         return []
+    if isinstance(tree, OptState):
+        tree = blockopt.unpool_state(tree)
+    if isinstance(tree, POOLED):
+        raise ValueError(
+            f"{prefix or 'tree'}: cannot checkpoint pooled optimizer "
+            f"containers outside their OptState (their arena/per-leaf "
+            f"halves live on sibling fields) — save the whole OptState "
+            f"(or unpool_state it) instead")
     if isinstance(tree, (torch.Tensor, PackedCodes)) or (
             isinstance(tree, int) and not isinstance(tree, bool)):
         return [(prefix, tree)]
@@ -98,22 +122,37 @@ def _to_numpy(leaf) -> np.ndarray:
         return np.asarray(leaf, dtype=np.int32)
     if isinstance(leaf, PackedCodes):
         leaf = leaf.packed
+    if isinstance(leaf, np.ndarray):
+        return leaf
     return leaf.detach().cpu().numpy()
+
+
+def state_dict(tree) -> dict:
+    """What a checkpoint of ``tree`` holds, in memory: ``{"state": {key:
+    tensor or int}, "packed": {key: {"bits", "n_codes"}}}``, the tensors
+    the tree's own (packed codes as their bytes; no copy)."""
+    state, packed = {}, {}
+    for key, leaf in _flatten(tree):
+        if isinstance(leaf, PackedCodes):
+            packed[key] = {"bits": leaf.bits, "n_codes": leaf.n_codes}
+            leaf = leaf.packed
+        state[key] = leaf
+    return {"state": state, "packed": packed}
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep_last: int = 3) -> str:
     """Atomically write the checkpoint of ``step``.  Returns its path."""
+    sd = state_dict(tree)
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         arrays, index = {}, []
-        for i, (key, leaf) in enumerate(_flatten(tree)):
+        for i, (key, leaf) in enumerate(sd["state"].items()):
             name = f"a{i}"
             entry = {"key": key, "name": name}
-            if isinstance(leaf, PackedCodes):
-                entry["packed"] = {"bits": leaf.bits,
-                                   "n_codes": leaf.n_codes}
+            if key in sd["packed"]:
+                entry["packed"] = sd["packed"][key]
             arrays[name] = _to_numpy(leaf)
             entry.update(dtype=str(arrays[name].dtype),
                          shape=list(arrays[name].shape))
@@ -170,48 +209,62 @@ def _with_ints(tree, prefix: str, values: dict):
     return tree
 
 
+def read(ckpt_dir: str, step: int) -> dict:
+    """Checkpoint ``step`` in :func:`state_dict`'s form, as numpy arrays."""
+    path = os.path.join(ckpt_dir, f"step_{step:010d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    with np.load(os.path.join(path, "leaves.npz")) as data:
+        state = {ent["key"]: data[ent["name"]] for ent in manifest["index"]}
+    return {"state": state,
+            "packed": {ent["key"]: ent["packed"] for ent in manifest["index"]
+                       if "packed" in ent}}
+
+
 def restore(ckpt_dir: str, step: int, template: Any):
     """Load checkpoint ``step`` into ``template`` (a tree of the port's
     states, such as a fresh ``TrainState``): its tensors are overwritten
     in place, its ints returned anew.  Raises KeyError for a missing key
     and ValueError for a shape or dtype that differs, before anything is
     written."""
-    path = os.path.join(ckpt_dir, f"step_{step:010d}")
-    with open(os.path.join(path, "manifest.json")) as f:
-        manifest = json.load(f)
-    meta = {ent["key"]: ent for ent in manifest["index"]}
-    pooled = [k for k in meta if any(p in k for p in POOLED_FIELDS)]
-    if pooled:
-        raise ConfigError(f"checkpoint holds pooled arenas ({pooled[0]}, "
-                          f"...): not ported yet (ROADMAP A9)")
-    pairs = _flatten(template)
-    with np.load(os.path.join(path, "leaves.npz")) as data:
-        arrays = {}
-        for key, leaf in pairs:
-            if key not in meta:
-                raise KeyError(f"checkpoint missing leaf {key}")
-            _check_packing(key, meta[key].get("packed"), leaf)
-            if isinstance(leaf, PackedCodes):
-                leaf = leaf.packed
-            arr = data[meta[key]["name"]]
-            want = _to_numpy(leaf) if isinstance(leaf, int) else None
-            shape = () if want is not None else tuple(leaf.shape)
-            dtype = want.dtype if want is not None else \
-                torch.empty((), dtype=leaf.dtype).numpy().dtype
-            if tuple(arr.shape) != shape:
-                raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
-                                 f"template {shape}")
-            if arr.dtype != dtype:
-                raise ValueError(f"{key}: checkpoint dtype {arr.dtype} != "
-                                 f"template {dtype}")
-            arrays[key] = arr
+    return load_state_dict(template, read(ckpt_dir, step))
+
+
+def load_state_dict(template: Any, sd: Mapping):
+    """Load ``sd`` (:func:`state_dict`'s or :func:`read`'s form) into
+    ``template`` in place, as :func:`restore` does."""
+    state, packed = sd["state"], sd.get("packed", {})
+    canon = blockopt.map_opt_states(template, blockopt.unpool_state)
+    pairs = _flatten(canon)
+    arrays = {}
+    for key, leaf in pairs:
+        if key not in state:
+            raise KeyError(f"checkpoint missing leaf {key}")
+        _check_packing(key, packed.get(key), leaf)
+        if isinstance(leaf, PackedCodes):
+            leaf = leaf.packed
+        arr = state[key]
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.from_numpy(_to_numpy(arr).copy())
+        if isinstance(leaf, int):
+            shape, dtype = (), torch.int32
+        else:
+            shape, dtype = tuple(leaf.shape), leaf.dtype
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{key}: checkpoint shape {tuple(arr.shape)} "
+                             f"!= template {shape}")
+        if arr.dtype != dtype:
+            raise ValueError(f"{key}: checkpoint dtype {arr.dtype} != "
+                             f"template {dtype}")
+        arrays[key] = arr
     with torch.no_grad():
         for key, leaf in pairs:
             if isinstance(leaf, PackedCodes):
                 leaf = leaf.packed
             if isinstance(leaf, torch.Tensor):
-                leaf.copy_(torch.from_numpy(np.array(arrays[key])))
-    return _with_ints(template, "", arrays)
+                leaf.copy_(arrays[key])   # at once when it is the leaf
+    restored = _with_ints(canon, "", arrays)
+    return blockopt.zip_opt_states(restored, template, blockopt.repool_like)
 
 
 def _check_packing(key: str, saved: Optional[dict], leaf) -> None:

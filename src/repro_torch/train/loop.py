@@ -8,7 +8,10 @@ accumulation, clipping, optimizer.
 
 The optimizer's masters are the model's parameters (``Block8bitOptimizer``
 updates them in place), so the step needs no params view: the forward of
-step i+1 reads what ``apply`` wrote in step i.
+step i+1 reads what ``apply`` wrote in step i.  Under the pooled layout the
+global-norm clip writes each quantized leaf's clipped gradient straight
+into the arena's gradient buffer (``optimizer.grad_views``), the same
+product the in-place clip computes, so ``apply`` gathers nothing.
 
 With the optimizer's numerics sentinel on (``OptimConfig.sentinel``), the
 step's metrics also carry the summed health counts as ``sent_<slot>``
@@ -65,15 +68,20 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack(sums).sum())
 
 
-def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float):
-    """Scale every tensor of ``tree`` **in place** so the global norm is at
-    most ``max_norm``.  Returns (tree, norm before clipping)."""
+def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float,
+                        out: Optional[Mapping[str, torch.Tensor]] = None):
+    """Scale every tensor of ``tree`` so the global norm is at most
+    ``max_norm``: **in place**, or into ``out[key]`` for the keys of
+    ``out``.  Returns (the scaled tensors by key, norm before clipping)."""
     norm = global_norm(tree)
     limit = torch.full_like(norm, max_norm)
     scale = torch.clamp(limit / torch.clamp(norm, min=1e-12), max=1.0)
-    for t in tree.values():
-        t.mul_(scale)
-    return tree, norm
+    out = out or {}
+    clipped = {}
+    for k, t in tree.items():
+        clipped[k] = (torch.mul(t, scale, out=out[k]) if k in out
+                      else t.mul_(scale))
+    return clipped, norm
 
 
 def make_train_step(cfg, model: M.Model, optimizer,
@@ -90,6 +98,7 @@ def make_train_step(cfg, model: M.Model, optimizer,
     opt_cfg = getattr(optimizer, "cfg", None)
     sentinel_on = bool(getattr(opt_cfg, "sentinel", False))
     pclip_on = getattr(opt_cfg, "percentile_clipping", 100) < 100
+    grad_views = getattr(optimizer, "grad_views", lambda opt_state: {})
 
     def compute_grads(tokens):
         model.zero_grad(set_to_none=True)
@@ -110,7 +119,8 @@ def make_train_step(cfg, model: M.Model, optimizer,
         tokens = torch.as_tensor(batch["tokens"]).to(device, torch.long)
         with tracing.annotate("forward_backward"):
             loss, grads = compute_grads(tokens)
-            grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip)
+            grads, gnorm = clip_by_global_norm(
+                grads, hyper.grad_clip, grad_views(state.opt_state))
         lr = hyper.lr_schedule(state.step) if hyper.lr_schedule else None
         dispatch0 = kops.fused_update_count()
         with tracing.annotate("optimizer_update"):

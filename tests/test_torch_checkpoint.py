@@ -21,7 +21,6 @@ from repro.train import loop as JL
 from repro_torch.configs import base as tcb
 from repro_torch.core import optim as topt
 from repro_torch.core.lowbit import PackedCodes
-from repro_torch.errors import ConfigError
 from repro_torch.train import checkpoint as TC
 from repro_torch.train import loop as TL
 
@@ -194,7 +193,8 @@ def test_atomic_no_partial_dirs(tmp_path):
 def test_shape_mismatch_rejected(tmp_path):
     _, state, _, _ = _port("adam8")
     TC.save(str(tmp_path), 1, state)
-    _, bad, _, _ = _port("adam8", min_8bit_size=10 ** 9)  # all 32-bit
+    _, bad, _, _ = _port("adam8", min_8bit_size=10 ** 9,  # all 32-bit
+                         pooled=False)
     before = [t.clone() for t in _tensors(bad) if isinstance(t, torch.Tensor)]
     with pytest.raises((ValueError, KeyError)):
         TC.restore(str(tmp_path), 1, bad)
@@ -203,7 +203,7 @@ def test_shape_mismatch_rejected(tmp_path):
     path = next(iter(bad.opt_state.leaves))
     leaf = bad.opt_state.leaves[path]
     leaf.m = torch.zeros(leaf.m.shape + (2,))
-    _, good, _, _ = _port("adam8")
+    _, good, _, _ = _port("adam8", pooled=False)
     good.opt_state.leaves[path].master = torch.zeros(3)
     with pytest.raises(ValueError):
         TC.restore(str(tmp_path), 1, good)
@@ -237,8 +237,10 @@ def test_percentile_clipping_state_roundtrip(tmp_path):
 def test_packed_and_pooled_checkpoints_raise(tmp_path):
     """Packed codes restore only into packed codes of the same width, and
     plain codes only into plain ones (ValueError, as in the JAX package);
-    pooled arenas (A9) are not ported: restoring them raises ConfigError
-    naming the item."""
+    pooled arenas are stored per leaf, so a checkpoint of a pooled state
+    (the port's default) restores into a per-leaf one, and keys past the
+    template's (such as an arena's) are ignored, as in the JAX package;
+    pooled containers outside their OptState raise."""
     _, jstate, _ = _jax_run("adam8", 0, pooled=False, state_bits=(4, 8))
     JC.save(str(tmp_path / "packed"), 0, jstate)
     _, tstate, _, _ = _port("adam8")
@@ -255,5 +257,10 @@ def test_packed_and_pooled_checkpoints_raise(tmp_path):
     m["index"].append(dict(m["index"][0], key=".opt_state.arena[0]"))
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(m, f)
-    with pytest.raises(ConfigError, match="A9"):
-        TC.restore(str(tmp_path / "plain"), 0, tstate)
+    assert tstate.opt_state.arena is not None
+    _, per_leaf, _, _ = _port("adam8", seed=5, pooled=False)
+    per_leaf = TC.restore(str(tmp_path / "plain"), 0, per_leaf)
+    assert all((a == b) if isinstance(a, int) else torch.equal(a, b)
+               for a, b in zip(_tensors(per_leaf), _tensors(tstate)))
+    with pytest.raises(ValueError, match="OptState"):
+        TC.save(str(tmp_path / "orphan"), 0, tstate.opt_state.leaves)

@@ -383,7 +383,7 @@ def test_every_algo_and_width_builds_and_steps(algo, bits_m):
     from repro.core import optim as jopt
     bits = (bits_m, 8 if bits_m == 4 else bits_m)
     opt = topt.make_optimizer(f"{algo}8", state_bits=bits, device="cpu",
-                              min_8bit_size=64)
+                              min_8bit_size=64, pooled=False)
     params = {"w": torch.randn(24, 64, generator=torch.Generator()
                                .manual_seed(0))}
     state = opt.init(params)

@@ -251,12 +251,13 @@ def _flat_torch(params):
 
 def test_muon_routing_table():
     """The per-leaf routing split as the JAX package's
-    ``test_muon_routing_table`` builds it (per-leaf layout: the port has no
-    pooled arena yet): 2-D leaves carry one quantized momentum slot,
+    ``test_muon_routing_table`` builds it (per-leaf layout, pooled=False;
+    tests/test_torch_pooled.py holds the pooled one): 2-D leaves carry one
+    quantized momentum slot,
     element-wise leaves keep adamw's two states, the override and small
     leaves f32."""
     opt = topt.make_optimizer("muon8", lr=1e-2, min_8bit_size=1024,
-                              device="cpu")
+                              pooled=False, device="cpu")
     assert isinstance(opt, MuonOptimizer) and opt._ew_algo == "adamw"
     lv = opt.init(_flat_torch(_params())).leaves
     assert isinstance(lv["dense/w"], Quant8Leaf)           # matrix
@@ -342,7 +343,8 @@ def test_engine_matches_jax_leaf_by_leaf(name, kw):
                              pooled=False, weight_decay=0.01, **kw)
     js = jo.init(jax.tree_util.tree_map(jnp.asarray, params))
     to = topt.make_optimizer(name, lr=1e-2, min_8bit_size=1024,
-                             weight_decay=0.01, device="cpu", **kw)
+                             weight_decay=0.01, pooled=False, device="cpu",
+                             **kw)
     ts = to.init(_flat_torch(params))
     rng = np.random.RandomState(9)
     for _ in range(3):
@@ -400,8 +402,8 @@ def test_loss_trace_matches_live_jax(name, kw):
     params, _ = jm.init_model(jcfg, jax.random.PRNGKey(0))
     model = convert.params_from_numpy(jax.device_get(params), _tcfg(),
                                       device="cpu")
-    to = topt.make_optimizer(name, weight_decay=0.01, lr=1e-2, device="cpu",
-                             **kw)
+    to = topt.make_optimizer(name, weight_decay=0.01, lr=1e-2, pooled=False,
+                             device="cpu", **kw)
     ts = TL.TrainState(to.init(model.param_dict()), 0)
     tstep = TL.make_train_step(model.cfg, model, to)
     tloss = []

@@ -48,7 +48,8 @@ def _run_both(name, steps, **kw):
     params = _params()
     jo = jopt.make_optimizer(name, pooled=False, block_size=BLOCK, **kw)
     js = jo.init(jax.tree_util.tree_map(jnp.asarray, params))
-    to = topt.make_optimizer(name, block_size=BLOCK, device="cpu", **kw)
+    to = topt.make_optimizer(name, block_size=BLOCK, pooled=False,
+                             device="cpu", **kw)
     tparams = {k: torch.from_numpy(v.copy())
                for k, v in convert.flatten_tree(params).items()}
     ts = to.init(tparams)
@@ -107,9 +108,13 @@ def test_percentile_clipping_matches_jax():
 def test_names_and_unported_settings():
     assert topt.optimizer_names() == jopt.optimizer_names()
     opt = topt.make_optimizer("adamw8", device="cpu")
-    assert opt.cfg.pooled is False and opt.cfg.algo == "adamw"
-    with pytest.raises(ConfigError, match="A9"):
-        topt.make_optimizer(topt.OptimConfig(algo="adamw"), device="cpu")
+    assert opt.cfg.pooled is True and opt.cfg.algo == "adamw"
+    # the pooled dispatch (A9) is ported; its partitioned forms are A13
+    topt.make_optimizer(topt.OptimConfig(algo="adamw"), device="cpu")
+    for kw in ({"partition_shards": 2}, {"partition": True},
+               {"shard_grads": True}):
+        with pytest.raises(ConfigError, match="A13"):
+            topt.make_optimizer("adamw8", device="cpu", **kw)
     # a 32-bit engine has nothing to pool
     topt.make_optimizer(topt.OptimConfig(algo="adam", bits=32), device="cpu")
     topt.make_optimizer("adam8", stochastic_rounding=True, device="cpu")

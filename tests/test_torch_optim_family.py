@@ -488,7 +488,7 @@ def test_engine_matches_jax_leaf_by_leaf(name, kw):
                              weight_decay=0.01, **kw)
     js = jo.init(jax.tree_util.tree_map(jnp.asarray, params))
     to = topt.make_optimizer(name, block_size=BLOCK, weight_decay=0.01,
-                             device="cpu", **kw)
+                             pooled=False, device="cpu", **kw)
     ts = to.init({k: torch.from_numpy(v.copy())
                   for k, v in convert.flatten_tree(params).items()})
     for i in range(3):
@@ -615,7 +615,8 @@ def test_stochastic_rounding_needs_no_key():
 
     def fresh():
         opt = topt.make_optimizer("adam8", lr=1e-2, min_8bit_size=1024,
-                                  stochastic_rounding=True, device="cpu")
+                                  stochastic_rounding=True, pooled=False,
+                                  device="cpu")
         return opt, opt.init({"dense/w": torch.from_numpy(w.copy())})
 
     opt, st = fresh()
@@ -630,7 +631,8 @@ def test_stochastic_rounding_needs_no_key():
 
 def test_adagrad_single_state():
     opt = topt.make_optimizer("adagrad8", lr=1e-2, min_8bit_size=1024,
-                              override_32bit=lambda p: False, device="cpu")
+                              override_32bit=lambda p: False, pooled=False,
+                              device="cpu")
     st = opt.init({"dense/w": torch.zeros(64, 128), "bias": torch.zeros(10)})
     leaf = st.leaves["dense/w"]
     assert leaf.codes_r is None and leaf.absmax_r is None

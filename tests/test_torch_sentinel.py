@@ -71,8 +71,8 @@ def _jopt(name, **kw):
 
 def _topt(name, **kw):
     return topt.make_optimizer(name, lr=1e-2, min_8bit_size=256,
-                               override_32bit=lambda p: False, device="cpu",
-                               **kw)
+                               override_32bit=lambda p: False, pooled=False,
+                               device="cpu", **kw)
 
 
 def _poison_state_jax(state):

@@ -30,7 +30,6 @@ from repro.train import checkpoint as JC
 from repro_torch import telemetry as tel
 from repro_torch.configs import base as tcb
 from repro_torch.core import optim as topt
-from repro_torch.errors import ConfigError
 from repro_torch.telemetry import tracing
 from repro_torch.telemetry.export import (append_json_trajectory,
                                           validate_event)
@@ -217,8 +216,8 @@ def _states(tmp_path, name, params, kw):
                      js)
     JC.save(str(tmp_path), 1, js)
     to = topt.make_optimizer(name, lr=1e-2, min_8bit_size=256,
-                             override_32bit=lambda p: False, device="cpu",
-                             **kw)
+                             override_32bit=lambda p: False, pooled=False,
+                             device="cpu", **kw)
     ts = to.init({k: torch.zeros(v.shape) for k, v in params.items()})
     return jo, js, to, TC.restore(str(tmp_path), 1, ts)
 
@@ -301,7 +300,8 @@ def test_qhealth_edge_is_the_reference_definition():
     """The probe's edge is |qmap[c]| >= max|qmap| (on the signed map the top
     code alone), not the sentinel's c in {0, 2^bits - 1}."""
     to = topt.make_optimizer("momentum8", min_8bit_size=256,
-                             override_32bit=lambda p: False, device="cpu")
+                             override_32bit=lambda p: False, pooled=False,
+                             device="cpu")
     state = to.init({"a": torch.zeros(4096)})
     leaf = state.leaves["a"]
     leaf.codes_m[0, :10] = 0                 # the lowest level, -0.993
@@ -323,13 +323,24 @@ def test_qhealth_drift_ema():
 
 
 def test_qhealth_arena_waits_for_pooling():
-    probe = tel.QHealthProbe(topt.make_optimizer("adam8", device="cpu"))
-
-    class Pooled:
-        arena = object()
-        leaves = {}
-    with pytest.raises(ConfigError, match="A9"):
-        probe.probe(Pooled())
+    """A pooled state's probe gives one "arena" event per segment and slot,
+    with the per-leaf probe's values for the same state."""
+    params = {k: torch.from_numpy(v) for k, v in _params().items()}
+    events = {}
+    for pooled in (True, False):
+        to = topt.make_optimizer("adam8", lr=1e-2, min_8bit_size=256,
+                                 override_32bit=lambda p: False,
+                                 pooled=pooled, device="cpu")
+        st = to.init({k: v.clone() for k, v in params.items()})
+        _, st = to.apply({k: v * 0.01 for k, v in params.items()}, st)
+        events[pooled] = tel.QHealthProbe(to).probe(st, step=1)
+    assert [(e["target"], e["segment"], e["slot"]) for e in events[True]] \
+        == [("arena", "a", "m"), ("arena", "b", "m"), ("arena", "a", "r"),
+            ("arena", "b", "r")]
+    leaf = {(e["segment"], e["slot"]): e for e in events[False]}
+    for e in events[True]:
+        want = dict(leaf[(e["segment"], e["slot"])], target="arena")
+        assert e == want
 
 
 # ------------------------------------------------------ tracing and timing
@@ -365,7 +376,8 @@ def test_annotate_records_events_and_profiler_ranges():
 
 def _train(steps, trace, telemetry_every=0):
     opt = topt.make_optimizer("adam8", lr=5e-3, min_8bit_size=1024,
-                              telemetry_every=telemetry_every, device="cpu")
+                              telemetry_every=telemetry_every, pooled=False,
+                              device="cpu")
     state, model = TL.init_train_state(
         _tcfg(), opt, torch.Generator().manual_seed(0), device="cpu")
     step = TL.make_train_step(model.cfg, model, opt)

@@ -92,7 +92,8 @@ def test_loss_trace_matches_live_jax(name):
 
     _, host = _jax_weights(jcfg)            # the weights JAX started from
     model = convert.params_from_numpy(host, _tcfg(), device="cpu")
-    to = topt.make_optimizer(name, weight_decay=0.01, device="cpu")
+    to = topt.make_optimizer(name, weight_decay=0.01, pooled=False,
+                             device="cpu")
     ts = TL.TrainState(to.init(model.param_dict()), 0)
     tstep = TL.make_train_step(model.cfg, model, to)
     tloss = []
