@@ -139,6 +139,19 @@ are held to them bit for bit.  Phases, one line or more each:
    PyTorch loop for 10 steps, bit-identical to the pooled run; and a
    pooled lamb8 checkpoint restored into a pooled and a per-leaf state,
    step 4 from each bit-identical to step 4 uninterrupted.
+   Partitioned (eleventh slice; in phases 3 and 4): B4 over the arena in
+   turns with the two vector norms of p and g over its rows; B3 over the
+   arena's 4 owned spans and 16 (span, bucket) pieces, each on its own
+   absmax, seeds and offsets, byte-identical to the arena launch and
+   timed in turns with it; the five POOLED_RUNS with the sentinel on,
+   pooled and partitioned at PARTITION_LAYOUTS (adamw8 also at 3 spans):
+   every state array and every step's loss, grad norm and health counts
+   bit-identical, B3 (and lamb's B4) launched once per piece and step,
+   two readings of the steps in turns; then a world of one ``nccl``
+   process (``launch/mesh.py``, a FileStore under build/): adamw8 and
+   lamb8 as ZeRO-1 and ZeRO-2 with 2 microbatches, bit-identical to the
+   pooled run, with their peak memory and ZeRO-2's grad accounting.
+   ``--phase partition`` runs phases 1-2 and these alone.
 8. summary — the kernels JSON line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -297,6 +310,15 @@ POOLED_RUNS = {"adamw8": ("adamw8", {}, STEPS),
                              FAMILY_STEPS),
                "muon8": ("muon8", {}, FAMILY_STEPS)}
 
+# the partitioned dispatch (eleventh slice): (shards, buckets) of the
+# unrolled span runs, each held to its pooled run (adamw8 also at
+# PARTITION_EXTRA: 3 shards, whose span starts are off the 4-block grid)
+PARTITION_LAYOUTS = ((4, 1), (4, 4))
+PARTITION_EXTRA = {"adamw8": ((3, 1),)}
+# the optimizers of the process-group runs (nccl, world 1: ZeRO-1 and
+# ZeRO-2, two microbatches), each held to its pooled run
+GROUP_RUNS = ("adamw8", "lamb8")
+
 # fused-update variant -> (algo, stochastic); the optimizer name of its
 # train run is the variant without "_sr" plus stochastic rounding
 VARIANTS = {"adamw8": ("adamw", False), "adamw8_sr": ("adamw", True),
@@ -362,31 +384,41 @@ def device_ms_split(torch, fns: dict, n: int = 20) -> dict:
     back-to-back calls measure the host's launch rate instead (each wrapper
     call costs tens of microseconds of Python).  (One session for all the
     fns compared: a run of back-to-back profiler sessions can come back
-    without device events.)"""
+    without device events; a session that saw none for some fn is run
+    again, up to three in all.  The result's "sessions" is how many it
+    took; the kernels line carries it as "profiler_sessions".)"""
     from torch.profiler import ProfilerActivity, profile
     for fn, _ in fns.values():
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for r in range(n):
-            for name in (list(fns) if r % 2 == 0 else list(reversed(fns))):
-                fns[name][0]()
-        torch.cuda.synchronize()
-    total = dict.fromkeys(fns, 0.0)
-    for ev in prof.key_averages():
-        if "CUDA" not in str(getattr(ev, "device_type", "")):
-            continue
-        t = getattr(ev, "self_device_time_total", None)
-        t = t if t is not None else getattr(ev, "self_cuda_time_total", 0.0)
-        owner = next((k for k, (_, mark) in fns.items()
-                      if mark is not None and mark in ev.key),
-                     next((k for k, (_, mark) in fns.items()
-                           if mark is None), None))
-        if owner is not None:
-            total[owner] += t
+    for sessions in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for r in range(n):
+                for name in (list(fns) if r % 2 == 0
+                             else list(reversed(fns))):
+                    fns[name][0]()
+            torch.cuda.synchronize()
+        total = dict.fromkeys(fns, 0.0)
+        for ev in prof.key_averages():
+            if "CUDA" not in str(getattr(ev, "device_type", "")):
+                continue
+            t = getattr(ev, "self_device_time_total", None)
+            t = t if t is not None else getattr(ev, "self_cuda_time_total",
+                                                0.0)
+            owner = next((k for k, (_, mark) in fns.items()
+                          if mark is not None and mark in ev.key),
+                         next((k for k, (_, mark) in fns.items()
+                               if mark is None), None))
+            if owner is not None:
+                total[owner] += t
+        if all(v > 0 for v in total.values()):
+            break
+        print(f"profiler: no device time for some of {list(fns)}; "
+              f"profiling again")
     require(all(v > 0 for v in total.values()),
             f"the profiler saw no device time for some of {list(fns)}")
-    return {k: v / 1e3 / n for k, v in total.items()}
+    return {**{k: v / 1e3 / n for k, v in total.items()},
+            "sessions": sessions}
 
 
 def host_us(torch, fn, n: int = 50) -> float:
@@ -769,7 +801,8 @@ def check_packed_and_norm_kernels(torch, dev,
         out[f"norm_partials/{name}"] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
             library_ms=library, device_ms=split["kernel"],
-            library_device_ms=split["library"])
+            library_device_ms=split["library"],
+            profiler_sessions=[split["sessions"]])
         print(f"kernel norm_partials {name} ({nb}x{bsz}): exact, 0 "
               f"mismatches; {ms:.4f} ms, in turns with torch.linalg."
               f"vector_norm of p and g {library:.4f} ms ({ms / library:.3f}x "
@@ -961,7 +994,8 @@ def check_ns_kernels(torch, dev, shape=(1024, 50264),
                                                 "kernel": (fn, name)})
                 ms, library = split["kernel"], split["library"]
                 out[name].update(rel_err_small=rel, device_ms_small=ms,
-                                 library_device_ms_small=library)
+                                 library_device_ms_small=library,
+                                 profiler_sessions=[split["sessions"]])
                 print(f"{checked}; device {ms:.4f} ms per call, library "
                       f"{library:.4f} ms")
                 continue
@@ -1125,9 +1159,10 @@ def check_gather_kernel(torch, dev) -> dict:
             seq, _ = gather_rotation(torch, make, codes, absmax, table, bits,
                                      dt)
             it = iter(range(1 << 30))
-            cold = device_ms_split(torch, {"cold": (
+            cold_split = device_ms_split(torch, {"cold": (
                 lambda: seq[next(it) % len(seq)](),
-                "paged_gather_kernel")}, 2 * len(seq))["cold"]
+                "paged_gather_kernel")}, 2 * len(seq))
+            cold = cold_split["cold"]
             del seq
             b, by = gather_bound(codes, table, pages_read, bits, dt)
             print(f"kernel paged_gather ({bits}-bit -> {dt}, {B}x{P_} pages "
@@ -1141,7 +1176,9 @@ def check_gather_kernel(torch, dev) -> dict:
                   f"host's launch rate)")
             row = dict(max_abs_err=err, ms=cold, warm_ms=warm,
                        graph_ms=graph_ms["kernel"], plain_ms=plain,
-                       bound_ms=b, bound_by=by, library_ms=None)
+                       bound_ms=b, bound_by=by, library_ms=None,
+                       profiler_sessions=[split["sessions"],
+                                          cold_split["sessions"]])
             if dt == torch.bfloat16:
                 out[f"paged_gather/{bits}bit"] = row
             else:
@@ -1418,7 +1455,17 @@ def check_arena_kernels(torch, dev, bsz: int = 2048) -> dict:
                     1e-3)
                 require(torch.equal(ts[o:o + m], own), f"{variant}: the "
                         f"trust ratio of segment ({o}, {m}) is not its own")
-            ms4 = median_ms(torch, b4, 20)
+            # in turns with its library call on the same rows, as the
+            # per-leaf row is timed (20 calls between the events), and by
+            # device time in one profiler session
+            library_fn = lambda: (torch.linalg.vector_norm(p, dim=1),
+                                  torch.linalg.vector_norm(g, dim=1))
+            turns = in_turns(torch, {"library": library_fn, "kernel": b4},
+                             20, 20)
+            ms4, library = turns["kernel"], turns["library"]
+            split = device_ms_split(torch, {
+                "library": (library_fn, None),
+                "kernel": (b4, "norm_partials_kernel")})
             plain4 = median_ms(torch, lambda: fu.norm_partials_plain(
                 p, g, cm, am, cr, ar, q1, q2, s, algo=algo, bits_m=bits_m,
                 bits_r=bits_r), 3, 1, 1)
@@ -1426,11 +1473,19 @@ def check_arena_kernels(torch, dev, bsz: int = 2048) -> dict:
                              n * 26)
             out[f"norm_partials/{variant}"] = dict(
                 max_abs_err=err, ms=ms4, plain_ms=plain4, bound_ms=b,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=library, device_ms=split["kernel"],
+                library_device_ms=split["library"],
+                profiler_sessions=[split["sessions"]])
             print(f"kernel norm_partials {variant} ({nb}x{bsz}): exact, 0 "
                   f"mismatches; the 11 segments' trust ratios each on its "
-                  f"own blocks; {ms4:.4f} ms, bound {b:.4f} ms ({by}, "
-                  f"{100 * b / ms4:.0f}% of it), plain {plain4:.3f} ms")
+                  f"own blocks; {ms4:.4f} ms, in turns with torch.linalg."
+                  f"vector_norm of p and g over the same rows "
+                  f"{library:.4f} ms ({ms4 / library:.3f}x its time); "
+                  f"device time {split['kernel']:.4f} ms against "
+                  f"{split['library']:.4f} ms "
+                  f"({split['kernel'] / split['library']:.3f}x); bound "
+                  f"{b:.4f} ms ({by}, {100 * b / ms4:.0f}% of it), plain "
+                  f"{plain4:.3f} ms")
             del partials, want_p
         uniforms = (fu.block_uniforms(nb, bsz, two=True, block_seeds=seeds,
                                       block_offsets=offsets, device=dev)
@@ -1611,9 +1666,112 @@ def check_arena_sentinel(torch, p, g, am, ar, cm, cr, q1, q2, segs, offsets,
                 bound_by=by, library_ms=None, off_ms=ms_off)
 
 
+def check_partition_kernels(torch, dev, bsz: int = 2048) -> dict:
+    """B3 as the partitioned dispatch launches it on paper-lm-209m's arena
+    (ARENA_BLOCKS blocks, the optimizer's own layout): the 4 owned spans
+    of ``make_partition(ARENA_BLOCKS, 4)`` and their 16 (span, bucket)
+    pieces of ``make_buckets(.., 4)``, each launch on its rows of p, g and
+    the codes (views) and its own absmax, seeds and offsets (copies, as
+    the arena's pieces hold them), for adamw8 and stochastic adamw8: the
+    rows concatenated must be byte-identical to the single arena launch.
+    The deterministic launches are timed by raw launches of the C entry,
+    the 4 span launches and the 16 piece launches in turns with the arena
+    launch."""
+    from repro_torch.core import qmap
+    from repro_torch.core.optim import base
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_update as fu
+
+    segs, offsets, leaf_seeds, _, _ = arena_layout(torch, dev)
+    torch.cuda.empty_cache()
+    nb = sum(m for _, m in segs)
+    require(nb == ARENA_BLOCKS, f"partition: arena of {nb} blocks")
+    part = base.make_partition(nb, 4)
+    plan = base.make_buckets(part, 4)
+    layouts = {
+        "spans": [(o, m) for o, m in part.spans if m],
+        "pieces": [(o + k0, min(m, k1) - k0) for o, m in part.spans
+                   for k0, k1 in plan.ranges if min(m, k1) > k0]}
+    require(len(layouts["spans"]) == 4 and len(layouts["pieces"]) == 16,
+            f"partition: {layouts}")
+    n = nb * bsz
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    q1 = torch.as_tensor(qmap.get_qmap("dynamic", True), device=dev)
+    q2 = torch.as_tensor(qmap.get_qmap("dynamic", False), device=dev)
+    p = torch.randn(nb, bsz, generator=gen, device=dev) * 0.02
+    g = torch.randn(nb, bsz, generator=gen, device=dev) * 1e-3
+    am = torch.rand(nb, generator=gen, device=dev) * 1e-3 + 1e-5
+    ar = torch.rand(nb, generator=gen, device=dev) * 1e-6 + 1e-9
+    cm = torch.randint(0, 256, (nb, bsz), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    cr = torch.randint(0, 256, (nb, bsz), generator=gen, device=dev,
+                       dtype=torch.uint8)
+    seeds = torch.add(leaf_seeds, fu.to_i32(6 * 1000003))
+    hyper = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=WEIGHT_DECAY, step=7.0, gnorm_scale=1.0)
+    lib_fu, sms = fu._lib("fused_update"), build.sm_count(dev)
+    print(f"kernel partition: the arena's {nb} blocks in 4 spans "
+          f"{layouts['spans']} (span_pad {part.span_pad}) and 16 pieces "
+          f"(bucket ranges {plan.ranges})")
+    out = {}
+    for sr in (False, True):
+        kw = dict(hyper, algo="adamw", stochastic=sr)
+        arena = [t.clone() for t in (p, cm, am, cr, ar)]
+        fu.fused_update_cuda(arena[0], g, *arena[1:], q1, q2,
+                             block_seeds=seeds, block_offsets=offsets, **kw)
+        for name, rows in layouts.items():
+            st = [t.clone() for t in (p, cm, am, cr, ar)]
+            own = [(st[0][o:o + m], st[1][o:o + m], st[2][o:o + m].clone(),
+                    st[3][o:o + m], st[4][o:o + m].clone(), g[o:o + m],
+                    seeds[o:o + m].clone(), offsets[o:o + m].clone())
+                   for o, m in rows]
+            for pp, c1, a1, c2, a2, gg, sd, of in own:
+                fu.fused_update_cuda(pp, gg, c1, a1, c2, a2, q1, q2,
+                                     block_seeds=sd, block_offsets=of, **kw)
+            got = [st[0], st[1], torch.cat([x[2] for x in own]), st[3],
+                   torch.cat([x[4] for x in own])]
+            n_bad, _ = _mismatches(got, arena)
+            require(n_bad == 0, f"partition {name}{' sr' if sr else ''}: "
+                    f"{n_bad} values differ from the arena launch")
+            if sr:
+                continue
+            grid = lambda m: (lib_fu.fused_update_ctas(
+                fu.KERNEL_ALGOS["adamw"], 0, m, bsz, sms),)
+            out[name] = [raw_update(torch, lib_fu, "fused_update_grid",
+                                    "adamw", [x[0], x[1], x[2], x[3], x[4]],
+                                    x[5], q1, q2, tail=grid(x[0].shape[0]),
+                                    hyper=hyper) for x in own]
+        if not sr:
+            out["arena"] = [raw_update(torch, lib_fu, "fused_update_grid",
+                                       "adamw", arena, g, q1, q2,
+                                       tail=grid(nb), hyper=hyper)]
+    turns = in_turns(torch, {k: (lambda fs=fs: [f() for f in fs])
+                             for k, fs in out.items()}, 20, 5)
+    per_elem, per_block = 12 + 2 * 2, 16
+    b, by = bound_ms(n * per_elem + nb * per_block + 2048, n * 56)
+    span_b = max(bound_ms(m * bsz * per_elem + m * per_block, m * bsz * 56)[0]
+                 for _, m in layouts["spans"])
+    print(f"kernel partition adamw8: the 4 span launches and the 16 piece "
+          f"launches byte-identical to the arena launch (deterministic and "
+          f"stochastic, 0 mismatches); in turns: arena {turns['arena']:.4f}"
+          f" ms, 4 spans {turns['spans']:.4f} ms "
+          f"({turns['spans'] / turns['arena']:.3f}x), 16 pieces "
+          f"{turns['pieces']:.4f} ms "
+          f"({turns['pieces'] / turns['arena']:.3f}x); bound of the arena "
+          f"{b:.4f} ms ({by}), of the largest span {span_b:.4f} ms")
+    del out
+    torch.cuda.empty_cache()
+    return dict(arena_ms=turns["arena"], span_ms=turns["spans"],
+                piece_ms=turns["pieces"], span_bound_ms=span_b)
+
+
 # ------------------------------------------------------------------ phase 4
 def train(torch, dev, cfg, name: str, steps: int, batches, label=None,
-          **opt_kw) -> dict:
+          microbatches: int = 1, **opt_kw) -> dict:
+    """``steps`` train steps of optimizer ``name`` (``opt_kw`` go to
+    ``make_optimizer``, a ``mesh`` among them) from SEED's weights.  The
+    result's ``trace`` holds each step's loss, grad norm and sent_* health
+    counts (bits of the floats, for bitwise comparisons)."""
     from repro_torch.core.optim import make_optimizer
     from repro_torch.train import loop as L
 
@@ -1622,8 +1780,9 @@ def train(torch, dev, cfg, name: str, steps: int, batches, label=None,
     opt = make_optimizer(name, lr=LR, weight_decay=WEIGHT_DECAY, device=dev,
                          **opt_kw)
     state, model = L.init_train_state(cfg, opt, gen, device=dev)
-    step = L.make_train_step(cfg, model, opt)
-    losses, ms, metrics = [], [], {}
+    step = L.make_train_step(cfg, model, opt,
+                             L.TrainHyper(microbatches=microbatches))
+    losses, ms, metrics, trace = [], [], {}, []
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1631,10 +1790,13 @@ def train(torch, dev, cfg, name: str, steps: int, batches, label=None,
         losses.append(metrics["loss"].item())
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
+        trace.append(torch.stack([metrics[k].float() for k in sorted(
+            metrics) if k in ("loss", "grad_norm") or k.startswith("sent_")])
+            .view(torch.int32).tolist())
         print(f"train {label} step {i}: loss {losses[-1]:.6f}  "
               f"{ms[-1]:.1f} ms  grad_norm {metrics['grad_norm'].item():.4f}")
     return dict(opt=opt, state=state, step=step, losses=losses, ms=ms,
-                metrics=metrics)
+                metrics=metrics, trace=trace)
 
 
 def profile_step(torch, step, state, batch, each=()):
@@ -1969,6 +2131,153 @@ def pooled_phase(torch, dev, cfg, batches, run_launches, step_launches,
         torch.cuda.empty_cache()
 
 
+def partition_phase(torch, dev, cfg, batches, run_launches, step_launches,
+                    run_steps) -> dict:
+    """The eleventh slice's unrolled span dispatch: each POOLED_RUNS
+    optimizer, with the sentinel on, pooled and then partitioned
+    (``partition=True`` at each of PARTITION_LAYOUTS, (shards, buckets),
+    and PARTITION_EXTRA), from the same weights and batches, each run with
+    the counters zeroed just before it and read just after.  Each
+    partitioned run must end bit-identical to the pooled one (params,
+    codes, absmax, 32-bit moments) with the same per-step loss, grad norm
+    and health counts, launch B3 once per piece and step (and B4 as often
+    for lamb) and every other kernel as often.  Printed: the median step
+    of each run, and the steps in turns, read twice.  Returns {layout:
+    B3 launches per step} of adamw8."""
+    from repro_torch.kernels import ops
+
+    per_step = {}
+    for label, (name, kw, steps) in POOLED_RUNS.items():
+        runs, counts = {}, {}
+        layouts = PARTITION_LAYOUTS + PARTITION_EXTRA.get(label, ())
+        for tag, more in [("pooled", {})] + [
+                (f"{s}x{b}", dict(partition=True, partition_shards=s,
+                                  overlap_buckets=b)) for s, b in layouts]:
+            ops.reset_launch_counts()
+            ops.reset_fused_update_count()
+            runs[tag] = train(torch, dev, cfg, name, steps, batches,
+                              label=f"{label} {tag}", sentinel=True,
+                              **kw, **more)
+            torch.cuda.synchronize()
+            counts[tag] = ops.launch_counts()
+        po = runs["pooled"]
+        norms = name.startswith(("lamb", "lars"))
+        for tag, run in runs.items():
+            if tag == "pooled":
+                continue
+            arena = run["state"].opt_state.arena
+            pieces = len(arena.pieces)
+            n_bad = _same_state(torch, run["state"], po["state"])
+            require(n_bad == 0, f"partition {label} {tag}: {n_bad} arrays "
+                    f"differ from the pooled run after {steps} steps")
+            require(run["trace"] == po["trace"], f"partition {label} {tag}: "
+                    f"losses, grad norms or health counts differ from the "
+                    f"pooled run's")
+            want = dict(counts["pooled"], fused_update=steps * pieces,
+                        norm_partials=steps * pieces if norms else 0)
+            require(counts[tag] == want, f"partition {label} {tag}: "
+                    f"launches {counts[tag]}, expected {want}")
+            if label == "adamw8":
+                per_step[tag] = pieces
+            sb = run["opt"].state_bytes(run["state"].opt_state)
+            print(f"partition {label} {tag}: {steps} steps bit-identical to "
+                  f"the pooled run (params, codes, absmax, 32-bit moments; "
+                  f"loss, grad norm and health counts every step); "
+                  f"{pieces} pieces ({arena.partition.spans}); launches "
+                  f"{counts[tag]} vs pooled {counts['pooled']}; "
+                  f"owned_blocks {sb['owned_blocks']}, owned_state_bytes "
+                  f"{sb['owned_state_bytes']} of {sb['state_bytes']}; "
+                  f"median step {statistics.median(run['ms'][1:]):.2f} ms "
+                  f"vs pooled {statistics.median(po['ms'][1:]):.2f} ms")
+        tags = ["pooled", "4x1", "4x4"]
+        for reading in (1, 2):
+            step_turns(torch, f"partition {label} (reading {reading})",
+                       {k: runs[k] for k in tags}, batches[steps])
+        del runs, po
+        torch.cuda.empty_cache()
+    return per_step
+
+
+def group_phase(torch, dev, cfg, batches) -> None:
+    """The process-group path on the card: a world of one process on
+    ``nccl`` (its group from a FileStore in a temporary directory, no
+    network) and a ``DeviceMesh`` over it.  For GROUP_RUNS, 5 steps of
+    two microbatches each: the pooled run without a group, then ZeRO-1
+    (``partition=True``) and ZeRO-2 (``shard_grads=True`` too) on the
+    group, whose gradients go through the reduce-scatter, the
+    all-gathers and the all-reduce on CUDA tensors.  Each must end
+    bit-identical to the pooled run with the same per-step losses and
+    grad norms.  Printed: peak_grad_bytes and replicated_grad_bytes (the
+    ZeRO-2 accounting), the peak device memory of each run, and beside
+    them the measured peak of one more step of each run above the memory
+    held before it (gradients, the ZeRO-2 buffers and packs, activations:
+    the run's own transient)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as ML
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    store = tempfile.mkdtemp(dir=ROOT / "build", prefix="chip_smoke_pg_")
+    ML.init_process_group("nccl", store_path=str(Path(store) / "store"))
+    try:
+        mesh = ML.make_mesh((1,), ("data",), "cuda")
+        for name in GROUP_RUNS:
+            runs, peak = {}, {}
+            for tag, more in (("pooled", {}),
+                              ("zero1", dict(mesh=mesh, partition=True)),
+                              ("zero2", dict(mesh=mesh, partition=True,
+                                             shard_grads=True))):
+                torch.cuda.reset_peak_memory_stats()
+                base_b = torch.cuda.memory_allocated()
+                runs[tag] = train(torch, dev, cfg, name, FAMILY_STEPS,
+                                  batches, label=f"{name} {tag}",
+                                  microbatches=2, **more)
+                torch.cuda.synchronize()
+                peak[tag] = (torch.cuda.max_memory_allocated() - base_b) / 1e9
+            for tag in ("zero1", "zero2"):
+                run = runs[tag]
+                n_bad = _same_state(torch, run["state"],
+                                    runs["pooled"]["state"])
+                require(n_bad == 0, f"group {name} {tag}: {n_bad} arrays "
+                        f"differ from the pooled run")
+                require(run["trace"] == runs["pooled"]["trace"],
+                        f"group {name} {tag}: losses or grad norms differ "
+                        f"from the pooled run's")
+                m = run["metrics"]
+                extra = (f"; peak_grad_bytes {m['peak_grad_bytes']:.0f}, "
+                         f"replicated_grad_bytes "
+                         f"{m['replicated_grad_bytes']:.0f}"
+                         if "peak_grad_bytes" in m else "")
+                print(f"group {name} {tag} (nccl, world 1, 2 microbatches):"
+                      f" {FAMILY_STEPS} steps bit-identical to the pooled run"
+                      f" (state; losses and grad norms every step){extra}; "
+                      f"peak device memory of the run {peak[tag]:.2f} GB vs "
+                      f"pooled {peak['pooled']:.2f} GB; median step "
+                      f"{statistics.median(run['ms'][1:]):.2f} ms vs "
+                      f"{statistics.median(runs['pooled']['ms'][1:]):.2f} ms")
+            step_peak = {}
+            for tag, run in runs.items():
+                torch.cuda.synchronize()
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                run["state"], m = run["step"](run["state"], batches[0])
+                torch.cuda.synchronize()
+                step_peak[tag] = torch.cuda.max_memory_allocated() - held
+            m = runs["zero2"]["metrics"]
+            print(f"group {name} measured step peak above the memory held "
+                  f"before the step (one more step, 2 microbatches): "
+                  f"pooled {step_peak['pooled'] / 1e9:.3f} GB, zero1 "
+                  f"{step_peak['zero1'] / 1e9:.3f} GB, zero2 "
+                  f"{step_peak['zero2'] / 1e9:.3f} GB; zero2's "
+                  f"peak_grad_bytes {m['peak_grad_bytes'] / 1e9:.3f} GB "
+                  f"(span + ride), replicated_grad_bytes "
+                  f"{m['replicated_grad_bytes'] / 1e9:.3f} GB")
+            del runs
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def step_turns(torch, label, runs, batch, reps: int = 8) -> None:
     """Step time of the per-leaf and the pooled run in turns (per-leaf,
     pooled, pooled, per-leaf, ...), each step on the host clock ending in
@@ -1985,11 +2294,19 @@ def step_turns(torch, label, runs, batch, reps: int = 8) -> None:
             torch.cuda.synchronize()
             times[k].append((time.perf_counter() - t0) * 1e3)
     med = {k: statistics.median(v) for k, v in times.items()}
-    print(f"pooled {label} in turns ({reps} steps each): median step "
-          f"{med['pooled']:.2f} ms vs per-leaf {med['per_leaf']:.2f} ms "
-          f"({med['pooled'] / med['per_leaf']:.3f}x); pooled "
-          + ", ".join(f"{t:.1f}" for t in times["pooled"]) + "; per-leaf "
-          + ", ".join(f"{t:.1f}" for t in times["per_leaf"]))
+    if "per_leaf" in runs:
+        print(f"pooled {label} in turns ({reps} steps each): median step "
+              f"{med['pooled']:.2f} ms vs per-leaf {med['per_leaf']:.2f} ms"
+              f" ({med['pooled'] / med['per_leaf']:.3f}x); pooled "
+              + ", ".join(f"{t:.1f}" for t in times["pooled"])
+              + "; per-leaf "
+              + ", ".join(f"{t:.1f}" for t in times["per_leaf"]))
+        return
+    print(f"{label} in turns ({reps} steps each): median step "
+          + ", ".join(f"{k} {med[k]:.2f} ms ({med[k] / med['pooled']:.3f}x)"
+                      for k in runs) + "; "
+          + "; ".join(f"{k} " + ", ".join(f"{t:.1f}" for t in v)
+                      for k, v in times.items()))
 
 
 def gather_turns(torch, opt, opt_state) -> None:
@@ -2626,7 +2943,16 @@ def telemetry_phase(torch, dev, cfg, batches, n_quant, run_launches,
         torch.cuda.empty_cache()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phase", choices=("all", "partition"), default="all",
+                    help="all (the default) or the partition phases alone "
+                         "(device, build, the arena and partition kernels, "
+                         "the span runs and the group runs), for "
+                         "iterating on them; only a run of all prints the "
+                         "kernels JSON and the last line")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2699,6 +3025,23 @@ def main() -> int:
                   f" ({lib_np.norm_partials_smem(2048, 4, 8)} B on (4, 8) "
                   f"states)" if kind == "lamb" else ""))
 
+    if args.phase == "partition":
+        cfg = base.get_config("paper-lm-209m")
+        pipe = SyntheticLMPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                              seq_len=SEQ_LEN,
+                                              global_batch=BATCH, seed=SEED))
+        batches = [pipe.batch_at(i) for i in range(STEPS + 1)]
+        check_arena_kernels(torch, dev)
+        torch.cuda.empty_cache()
+        check_partition_kernels(torch, dev)
+        partition_phase(torch, dev, cfg, batches, {}, {}, {})
+        group_phase(torch, dev, cfg, batches)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print("chip_smoke: the partition phases passed (a partial run: no "
+              "kernels JSON)")
+        return 0
+
     # ---- 3. kernels vs plain versions
     check_div_shortcut(torch, dev)
     kernels = check_kernels(torch, dev)
@@ -2713,6 +3056,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.update(check_arena_kernels(torch, dev))
     torch.cuda.empty_cache()
+    parted = check_partition_kernels(torch, dev)
+    kernels["fused_update/arena_adamw8"].update(
+        {f"partition_{k}": v for k, v in parted.items() if k != "arena_ms"})
     # the launcher's B3(e) launches are the arena's (pooled): its row
     # reports the arena's times, the largest leaf's beside them
     leaf_e = kernels["fused_update/sentinel_adamw8"]
@@ -2859,6 +3205,13 @@ def main() -> int:
     # the pooled single dispatch against the per-leaf runs, and the face
     pooled_phase(torch, dev, cfg, batches, run_launches, step_launches,
                  run_steps)
+    # the partitioned dispatch against the pooled runs, in one process and
+    # on a process group
+    per_step = partition_phase(torch, dev, cfg, batches, run_launches,
+                               step_launches, run_steps)
+    kernels["fused_update/arena_adamw8"]["partition_launches_per_step"] = \
+        per_step
+    group_phase(torch, dev, cfg, batches)
 
     # ---- 5. checkpoint: per-leaf, then pooled into both layouts
     checkpoint_roundtrip(torch, dev, cfg, batches)
@@ -2912,7 +3265,10 @@ def main() -> int:
                     "f32_ms", "f32_warm_ms", "f32_graph_ms", "f32_plain_ms",
                     "f32_bound_ms", "per_leaf_ms",                 # arena
                     "leaf_ms", "leaf_off_ms", "leaf_plain_ms",
-                    "leaf_bound_ms"):
+                    "leaf_bound_ms", "partition_span_ms",        # spans
+                    "partition_piece_ms", "partition_span_bound_ms",
+                    "partition_launches_per_step", "profiler_sessions",
+                    "f32_profiler_sessions"):
             if key in k:
                 rows[-1][key] = k[key]
         require(rows[-1]["launches"] > 0, f"{name}: no launch in the {run} "

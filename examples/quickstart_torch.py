@@ -15,6 +15,9 @@ less optimizer-state memory (more with sub-byte states).
                           # momentum + Newton-Schulz updates on 2-D leaves
     python examples/quickstart_torch.py --no-pooled  # per-leaf dispatch
                           # (one fused launch per leaf; bit-identical)
+    python examples/quickstart_torch.py --partition 4 --shard-grads \
+        --overlap 4       # ZeRO-1 spans x 4 buckets, ZeRO-2 gradients
+                          # (16 launches a step; bit-identical)
 
 ``--algo`` accepts any registered algorithm (adam/adamw/momentum/lamb/
 lars/adagrad/muon): the script compares ``<algo>32`` against ``<algo>8``.
@@ -112,16 +115,22 @@ def run(opt_name: str, steps: int = 80, device="cuda", telemetry_dir=None,
     # the pooled arena's gradient buffer (beside autograd's gradients) is
     # not optimizer state and is left out of state_bytes
     arena = getattr(opt.opt_state, "arena", None)
-    grad_bytes = 0 if arena is None else arena.grad.numel() * 4
+    grad_bytes = 0 if arena is None or arena.grad is None \
+        else arena.grad.numel() * 4
     reg.gauge("train/grad_buffer_bytes_per_param").set(grad_bytes
                                                        / sb["n_params"])
     reg.gauge("train/steady_ms").set(timer.steady_ms())
     if telemetry_dir:
         reg.flush(step=steps - 1)
         reg.close()
+    extra = ""
+    if "owned_state_bytes" in sb:
+        extra = (f"  (owned by each: {sb['owned_state_bytes'] / 1e6:.2f} MB "
+                 f"over {sb['partition_shards']} owners)")
     print(f"{opt_name:8s} final loss {m['loss']:.4f}  optimizer "
-          f"statistics: {sb['state_bytes'] / 1e6:.2f} MB  (not counted: "
-          f"the arena's gradient buffer, {grad_bytes / 1e6:.2f} MB)")
+          f"statistics: {sb['state_bytes'] / 1e6:.2f} MB{extra}  (not "
+          f"counted: the arena's gradient buffer, {grad_bytes / 1e6:.2f} "
+          f"MB)")
     return m["loss"], sb["state_bytes"], reg
 
 
@@ -150,6 +159,19 @@ def main(argv=None) -> int:
     ap.add_argument("--no-pooled", action="store_true",
                     help="per-leaf dispatch instead of the pooled arena "
                          "(one fused launch per leaf; bit-identical)")
+    ap.add_argument("--partition", type=int, default=0, metavar="N",
+                    help="ZeRO-1 partition of the pooled arena over N "
+                         "owners: the update runs once per owned block "
+                         "span (bit-identical to the unpartitioned run)")
+    ap.add_argument("--shard-grads", action="store_true",
+                    help="ZeRO-2: the gradients go through the arena's "
+                         "block-domain buffer (bit-identical)")
+    overlap = ap.add_mutually_exclusive_group()
+    overlap.add_argument("--overlap", type=int, default=1, metavar="N",
+                         help="bucketed dispatch: each owned span's update "
+                              "in N buckets (bit-identical)")
+    overlap.add_argument("--no-overlap", action="store_true",
+                         help="one update per owned span")
     ap.add_argument("--steps", type=int, default=80)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
@@ -163,6 +185,22 @@ def main(argv=None) -> int:
     opt_kw = {} if args.bits == 8 else {"state_bits": (args.bits, 8)}
     if args.no_pooled:
         opt_kw["pooled"] = False
+    if args.partition:
+        if args.no_pooled:
+            ap.error("--partition subdivides the pooled arena and cannot "
+                     "combine with --no-pooled")
+        opt_kw.update(partition=True, partition_shards=args.partition)
+    if args.shard_grads:
+        if args.no_pooled:
+            ap.error("--shard-grads accumulates gradients in the pooled "
+                     "arena's block domain and cannot combine with "
+                     "--no-pooled")
+        opt_kw["shard_grads"] = True
+    if args.overlap > 1 and not args.no_overlap:
+        if not args.partition:
+            ap.error("--overlap N buckets the span-partitioned update; it "
+                     "needs --partition N")
+        opt_kw["overlap_buckets"] = args.overlap
     kw = dict(steps=args.steps, device=args.device,
               telemetry_dir=args.telemetry_dir,
               telemetry_every=args.telemetry_every)

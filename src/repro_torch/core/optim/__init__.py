@@ -25,15 +25,19 @@ import dataclasses
 from typing import Callable, Optional, Union
 
 from repro_torch.core.optim.adafactor import Adafactor, AdafactorConfig
-from repro_torch.core.optim.base import (ALGOS, Full32Leaf, OptimConfig,
+from repro_torch.core.optim.base import (ALGOS, ArenaPartition, BucketPlan,
+                                         Full32Leaf, OptimConfig,
                                          Pool32Arena, Pool32Leaf,
                                          PooledQuantLeaf, Quant8Leaf,
-                                         QuantArena, default_override_32bit)
-from repro_torch.core.optim.blockopt import (Block8bitOptimizer, OptState,
-                                             repool_like, unpool_state)
+                                         QuantArena, default_override_32bit,
+                                         make_buckets, make_partition)
+from repro_torch.core.optim.blockopt import (Block8bitOptimizer, GradBuffer,
+                                             OptState, repool_like,
+                                             unpool_state)
 from repro_torch.core.optim.muon import MuonOptimizer
 from repro_torch.core.optim.torch_optim import BlockOptimizer
 from repro_torch.errors import ConfigError
+from repro_torch.sharding.rules import data_parallel_degree
 
 # name: (algo, bits) — every algorithm gets an "<algo>8" and an "<algo>32".
 _NAMES = {f"{algo}{bits}": (algo, bits) for algo in ALGOS
@@ -47,7 +51,7 @@ def optimizer_names() -> list:
 
 def make_optimizer(name_or_config: Union[str, OptimConfig, AdafactorConfig],
                    override_32bit: Optional[Callable[[str], bool]] = None,
-                   *, device="cuda", **kwargs):
+                   *, device="cuda", mesh=None, **kwargs):
     """Build an optimizer from a name (``adam8``, ``lars32``,
     ``adafactor32``, ...) or a config object (``OptimConfig`` /
     ``AdafactorConfig``; ``**kwargs`` then apply as
@@ -59,7 +63,15 @@ def make_optimizer(name_or_config: Union[str, OptimConfig, AdafactorConfig],
     muon the override also routes matched 2-D leaves to the element-wise
     adamw fallback, so muon32 and muon8 route alike, as in the JAX
     package.  ``adafactor32`` takes the ``AdafactorConfig`` fields among
-    ``**kwargs`` and ignores the rest, as in the JAX package."""
+    ``**kwargs`` and ignores the rest, as in the JAX package.
+
+    ``mesh``: a ``torch.distributed.DeviceMesh`` (``launch.mesh.make_mesh``)
+    whose ``partition_axes`` dims ("data"; "pod,data") form the
+    data-parallel process group: the gradients are reduced over it and the
+    partitioned arena owns one span per rank.  As in the JAX package, when
+    ``partition_shards`` was left at 1 it is derived from the mesh (the
+    product of those dims' sizes), so partitioning turns on by itself on a
+    group of more than one rank, and ``partition=False`` opts out."""
     if isinstance(name_or_config, AdafactorConfig):
         cfg = name_or_config
         if kwargs:
@@ -69,10 +81,17 @@ def make_optimizer(name_or_config: Union[str, OptimConfig, AdafactorConfig],
         cfg = name_or_config
         if kwargs:
             cfg = dataclasses.replace(cfg, **kwargs)
+        if mesh is not None and cfg.partition_shards == 1:
+            names = mesh.mesh_dim_names or ()
+            if cfg.partition_axes and all(a in names
+                                          for a in cfg.partition_axes):
+                cfg = dataclasses.replace(
+                    cfg, partition_shards=data_parallel_degree(
+                        mesh, cfg.partition_axes))
         if override_32bit is None and (cfg.bits == 8 or cfg.algo == "muon"):
             override_32bit = default_override_32bit
         engine = MuonOptimizer if cfg.algo == "muon" else Block8bitOptimizer
-        return engine(cfg, override_32bit, device=device)
+        return engine(cfg, override_32bit, device=device, mesh=mesh)
     name = name_or_config
     if name == "adafactor32":
         fields = {f.name for f in dataclasses.fields(AdafactorConfig)}
@@ -84,13 +103,15 @@ def make_optimizer(name_or_config: Union[str, OptimConfig, AdafactorConfig],
                           f"{optimizer_names()}")
     algo, bits = _NAMES[name]
     return make_optimizer(OptimConfig(algo=algo, bits=bits, **kwargs),
-                          override_32bit=override_32bit, device=device)
+                          override_32bit=override_32bit, device=device,
+                          mesh=mesh)
 
 
 __all__ = [
-    "ALGOS", "Adafactor", "AdafactorConfig", "Block8bitOptimizer",
-    "BlockOptimizer", "Full32Leaf", "MuonOptimizer", "OptimConfig",
-    "OptState", "Pool32Arena", "Pool32Leaf", "PooledQuantLeaf",
-    "Quant8Leaf", "QuantArena", "default_override_32bit", "make_optimizer",
-    "optimizer_names", "repool_like", "unpool_state",
+    "ALGOS", "Adafactor", "AdafactorConfig", "ArenaPartition",
+    "Block8bitOptimizer", "BlockOptimizer", "BucketPlan", "Full32Leaf",
+    "GradBuffer", "MuonOptimizer", "OptimConfig", "OptState", "Pool32Arena",
+    "Pool32Leaf", "PooledQuantLeaf", "Quant8Leaf", "QuantArena",
+    "default_override_32bit", "make_buckets", "make_optimizer",
+    "make_partition", "optimizer_names", "repool_like", "unpool_state",
 ]

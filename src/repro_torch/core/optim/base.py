@@ -20,8 +20,17 @@ quantized leaf into one :class:`QuantArena` and every small leaf into one
 the :class:`PooledQuantLeaf` / :class:`Pool32Leaf` nodes.  Unlike the JAX
 package's, the port's arenas also own the f32 masters: each parameter is a
 view into its arena's master, so the update writes the model's weights in
-place with no per-step copy.  The ZeRO-1 ``partition`` fields are ROADMAP
-A13 and are left out.
+place with no per-step copy.
+
+The ZeRO-1 partition (``partition`` / ``partition_shards``) splits the
+QuantArena's block dim into owned spans (:class:`ArenaPartition`,
+:func:`make_partition`) and each span into bucket ranges
+(:class:`BucketPlan`, :func:`make_buckets`), with the JAX package's
+arithmetic.  A partitioned arena holds its block-domain statistics as one
+:class:`ArenaPiece` per (span, bucket): tensors of their own, so every
+per-block vector a kernel reads starts 16-byte aligned whatever row the
+piece starts at.  One process holds every piece; a rank of a process group
+holds the pieces of its own span only.
 """
 from __future__ import annotations
 
@@ -308,6 +317,115 @@ class FlatSegment:
     shape: tuple
 
 
+@dataclasses.dataclass(frozen=True)
+class ArenaPartition:
+    """Static ZeRO-1 ownership map over an arena's leading dim: owner d's
+    span is ``spans[d] = (start, n)`` with ``start = d * span_pad`` —
+    spans tile ``[0, total)`` contiguously on a grid of ``span_pad`` rows.
+    Trailing spans may be shorter than ``span_pad`` (uneven arenas) or
+    empty.  ``matrix_owners`` routes Muon's matrix leaves whole-leaf: the
+    k-th matrix leaf (leaf order) belongs to owner ``k % n_shards``."""
+    n_shards: int
+    total: int                  # blocks (QuantArena) / elements (Pool32)
+    span_pad: int               # rows per owner in the padded domain
+    spans: tuple                # ((start, n), ...) — len == n_shards
+    matrix_owners: tuple = ()   # ((leaf_path, owner), ...)
+
+    @property
+    def padded_total(self) -> int:
+        return self.n_shards * self.span_pad
+
+    @property
+    def max_owned(self) -> int:
+        """Largest owned span (rows of real, unpadded state)."""
+        return max((n for _, n in self.spans), default=0)
+
+    def owner_of(self, row: int) -> int:
+        return min(row // self.span_pad, self.n_shards - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketPlan:
+    """Static grad-bucket layout over an ArenaPartition: bucket k covers
+    the local rows ``ranges[k] = (k0, k1)`` of *each* owner's
+    ``span_pad``-row span, i.e. global rows ``d * span_pad + [k0, k1)``
+    for every owner d.  Ranges are non-empty, disjoint and tile ``[0,
+    span_pad)``.  The k-th matrix leaf (leaf order) flushes with bucket
+    ``k % n_buckets``."""
+    n_buckets: int              # requested bucket count
+    span_pad: int               # rows per owner (ArenaPartition.span_pad)
+    ranges: tuple               # ((k0, k1), ...) local row ranges
+    matrix_buckets: tuple = ()  # ((leaf_path, bucket), ...)
+
+    def bucket_of(self, row: int, part: ArenaPartition) -> int:
+        """Bucket index owning global arena row ``row``."""
+        local = row - part.owner_of(row) * part.span_pad
+        for k, (k0, k1) in enumerate(self.ranges):
+            if k0 <= local < k1:
+                return k
+        raise ValueError((row, local, self.ranges))
+
+
+def make_buckets(part: ArenaPartition, n_buckets: int,
+                 grid: int = 1) -> BucketPlan:
+    """Chunk each owned span of ``part`` into up to ``n_buckets`` bucket
+    ranges aligned to ``grid`` (the shard_multiple block grid).  Small
+    spans yield fewer (never empty) ranges; every local row [0, span_pad)
+    is covered exactly once."""
+    if n_buckets < 1 or grid < 1:
+        raise ConfigError(f"make_buckets needs n_buckets >= 1 and grid >= 1,"
+                          f" got ({n_buckets}, {grid})")
+    span_pad = part.span_pad
+    per = -(-span_pad // n_buckets) if span_pad else 0
+    chunk = max(-(-per // grid) * grid, grid)
+    ranges = []
+    k0 = 0
+    while k0 < span_pad:
+        k1 = min(k0 + chunk, span_pad)
+        ranges.append((k0, k1))
+        k0 = k1
+    matrix_buckets = tuple((path, k % n_buckets)
+                           for k, (path, _) in enumerate(part.matrix_owners))
+    return BucketPlan(n_buckets=n_buckets, span_pad=span_pad,
+                      ranges=tuple(ranges), matrix_buckets=matrix_buckets)
+
+
+def make_partition(total: int, n_shards: int, grid: int = 1,
+                   matrix_owners: tuple = ()) -> ArenaPartition:
+    """Split ``total`` rows into ``n_shards`` contiguous owned spans padded
+    to a multiple of ``grid``.  The spans cover exactly ``[0, total)``;
+    uneven totals leave the trailing spans short or empty."""
+    if n_shards < 1 or total < 0 or grid < 1:
+        raise ConfigError(f"make_partition needs n_shards >= 1, total >= 0,"
+                          f" grid >= 1; got ({total}, {n_shards}, {grid})")
+    per = -(-total // n_shards) if total else 0
+    span_pad = max(-(-per // grid) * grid, grid)
+    spans = []
+    for d in range(n_shards):
+        start = d * span_pad
+        spans.append((start, max(0, min(span_pad, total - start))))
+    return ArenaPartition(n_shards=n_shards, total=total, span_pad=span_pad,
+                          spans=tuple(spans),
+                          matrix_owners=tuple(matrix_owners))
+
+
+@dataclasses.dataclass
+class ArenaPiece:
+    """Rows [start, start + n) of a partitioned QuantArena — one bucket
+    of owner ``owner``'s span — in tensors of their own: the codes and
+    absmax of each state slot, and the static per-block element offsets
+    and seed terms copied from the arena's layout."""
+    owner: int
+    start: int
+    n: int
+    codes_m: Any                    # (n, B) uint8 | PackedCodes
+    absmax_m: torch.Tensor          # (n,) f32
+    codes_r: Any
+    absmax_r: Optional[torch.Tensor]
+    block_offsets: torch.Tensor     # (n,) int32
+    leaf_seeds: torch.Tensor        # (n,) int32
+
+
 @dataclasses.dataclass
 class PooledQuantLeaf:
     """Per-leaf node of a pooled quantized leaf: its master (a view, in
@@ -339,16 +457,37 @@ class QuantArena:
     are gathered into (its padding never written), and per block the
     element-index ``block_offsets`` and the stochastic-rounding seed term
     ``leaf_seeds`` (``i * 7919`` in int32, i the leaf's index in leaf
-    order)."""
+    order).
+
+    Partitioned (``partition`` set), the block-domain statistics and
+    per-block vectors live in ``pieces`` (:class:`ArenaPiece`, the ones
+    this process holds, in row order) and the arena-wide fields are None;
+    ``master`` and ``grad`` then have ``partition.padded_total`` rows (the
+    rows past the last segment stay zero), and ``grad`` is None where
+    ZeRO-2 keeps only the owned span of the gradients.  ``group`` is the
+    data-parallel process group the arena's ranks share (None in one
+    process, which holds every piece).  An unpartitioned
+    arena's ``grad`` may also have more rows than blocks: the padded
+    layout of a data-parallel gradient reduction."""
     codes_m: Any                    # (total_blocks, B) uint8 | PackedCodes
-    absmax_m: torch.Tensor          # (total_blocks,) f32
+    absmax_m: Optional[torch.Tensor]    # (total_blocks,) f32
     codes_r: Optional[Any]
     absmax_r: Optional[torch.Tensor]
     segments: tuple                 # tuple[QuantSegment, ...]
     master: torch.Tensor            # (total_blocks, B) f32
-    grad: torch.Tensor              # (total_blocks, B) f32
-    block_offsets: torch.Tensor     # (total_blocks,) int32
-    leaf_seeds: torch.Tensor        # (total_blocks,) int32
+    grad: Optional[torch.Tensor]    # (rows >= total_blocks, B) f32
+    block_offsets: Optional[torch.Tensor]   # (total_blocks,) int32
+    leaf_seeds: Optional[torch.Tensor]      # (total_blocks,) int32
+    partition: Optional[ArenaPartition] = None
+    buckets: Optional[BucketPlan] = None
+    pieces: tuple = ()              # tuple[ArenaPiece, ...]
+    group: Any = None               # the data-parallel process group
+
+    @property
+    def total(self) -> int:
+        """Blocks of the arena (its segments' rows, padding excluded)."""
+        last = self.segments[-1]
+        return last.offset + last.n_blocks
 
 
 @dataclasses.dataclass
@@ -360,6 +499,9 @@ class Pool32Arena:
     m: torch.Tensor                 # (total_n,) f32
     r: Optional[torch.Tensor]       # (total_n,) f32 (second moment)
     segments: tuple                 # tuple[FlatSegment, ...]
+    # the ZeRO-1 ownership map at element granularity: accounting only,
+    # every process holds and updates the whole pool
+    partition: Optional[ArenaPartition] = None
 
 
 def flatten_to_blocks(x: torch.Tensor, block_size: int,

@@ -16,7 +16,9 @@
     included: one fused launch covers all of them, and the matrix leaves
     are dispatched per leaf beside it (each is its own Newton–Schulz
     problem), in both layouts with the same leaf-order seeds, so pooled
-    and per-leaf Muon are bit-identical.
+    and per-leaf Muon are bit-identical.  Under the partitioned dispatch
+    the k-th matrix leaf (leaf order) is updated by owner ``k % D`` and,
+    on a process group, broadcast from it (``sharding/rules.owner_routed``).
 
 The routing is the JAX package's: ``ndim == 2``.  On a model that stacks
 its layers (paper-lm-209m), the per-layer projections are 3-D and go to
@@ -47,7 +49,7 @@ class MuonOptimizer(Block8bitOptimizer):
 
     def __init__(self, config: OptimConfig,
                  override_32bit: Optional[Callable[[str], bool]] = None,
-                 *, device="cuda"):
+                 *, device="cuda", mesh=None):
         if config.algo != "muon":
             raise ConfigError(f"MuonOptimizer requires algo='muon', got "
                               f"{config.algo!r}")
@@ -55,7 +57,7 @@ class MuonOptimizer(Block8bitOptimizer):
             raise ValueError(
                 "muon serves block-wise quantization only; the tensor-wise "
                 "ablation is element-wise")
-        super().__init__(config, override_32bit, device=device)
+        super().__init__(config, override_32bit, device=device, mesh=mesh)
 
     # ------------------------------------------------------------- routing
     def _elementwise_algo(self, algo: str) -> str:

@@ -17,6 +17,10 @@ stochastic-rounding seeds and the checkpoint keys are those of
 engine's ``apply`` on every parameter's ``.grad`` with the param group's
 ``lr`` (which ``torch.optim.lr_scheduler`` may change).  The engine updates
 the parameters in place.  One param group: a second raises ConfigError.
+With ``shard_grads`` (ZeRO-2), or an engine on a mesh (``mesh=``), the
+gradients go through the engine's ``GradBuffer`` first (on a mesh they
+are averaged over its data-parallel group there), as the train loop
+sends them.
 
 ``state_dict()`` holds the optimizer state as the checkpoint holds it
 (``train/checkpoint.state_dict``: ``{key: tensor or int}`` in the per-leaf
@@ -76,8 +80,15 @@ class BlockOptimizer(torch.optim.Optimizer):
                 raise ValueError(f"{path} has no gradient: the engine "
                                  f"updates every parameter in each step")
             grads[path] = p.grad
-        self.opt_state = self.engine.apply(
-            grads, self.opt_state, lr=self.param_groups[0]["lr"])[1]
+        eng = self.engine
+        if getattr(eng.cfg, "shard_grads_active", False) or \
+                getattr(eng, "data_parallel", None) is not None:
+            buf = eng.finish_grads(eng.accumulate_grads(
+                eng.init_grad_buffer(self.opt_state), grads))
+            grads = buf if eng.cfg.shard_grads_active else \
+                eng.gather_grads(buf, self.opt_state)
+        self.opt_state = eng.apply(grads, self.opt_state,
+                                   lr=self.param_groups[0]["lr"])[1]
         return loss
 
     def state_dict(self) -> dict:

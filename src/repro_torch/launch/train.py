@@ -8,7 +8,11 @@ config-driven, fault-tolerant, with the observability stack.
 
 Trains the model (f32 parameters and compute, as the JAX launcher's
 overrides) on ``SyntheticLMPipeline`` batches through the port's optimizer
-engine, on the card unless ``--device cpu``.
+engine, on the card unless ``--device cpu``.  ``--partition N`` runs the
+8-bit update once per owned block span of N (one process), ``--shard-grads``
+accumulates the gradients in the arena's block domain (ZeRO-2) and
+``--overlap-buckets N`` splits each span's update into N buckets; every
+one of them leaves the run bit-identical.
 
 Fault tolerance: resumes from the latest checkpoint in ``--ckpt-dir``
 (the JAX package's checkpoint format, so a JAX run's checkpoint resumes
@@ -66,6 +70,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--out", default=None, help="metrics JSONL path")
+    ap.add_argument("--partition", type=int, default=0, metavar="N",
+                    help="ZeRO-1 partition of the pooled arena over N "
+                         "owners: the update runs once per owned block "
+                         "span (bit-identical to the unpartitioned run)")
+    ap.add_argument("--shard-grads", action="store_true",
+                    help="ZeRO-2: accumulate the gradients in the arena's "
+                         "block domain (bit-identical)")
+    ap.add_argument("--overlap-buckets", type=int, default=1, metavar="N",
+                    help="subdivide each owned span's update (and the "
+                         "gradients' reduce-scatter) into N buckets; needs "
+                         "--partition")
     ap.add_argument("--telemetry-dir", default=None,
                     help="emit telemetry JSONL (metrics, step phases, "
                          "qhealth probes) into this directory")
@@ -129,6 +144,12 @@ def setup(args, dev):
                 else tuple(parts)
         if args.no_32bit_embed_override:
             opt_kw["override_32bit"] = lambda p: False
+    if args.partition:
+        opt_kw.update(partition=True, partition_shards=args.partition)
+    if args.shard_grads:
+        opt_kw["shard_grads"] = True
+    if args.overlap_buckets > 1:
+        opt_kw["overlap_buckets"] = args.overlap_buckets
     if args.telemetry_every:
         opt_kw["telemetry_every"] = args.telemetry_every
     if args.sentinel:
@@ -149,7 +170,11 @@ def main(argv=None) -> int:
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import loop as train_loop
 
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.overlap_buckets > 1 and not args.partition:
+        ap.error("--overlap-buckets N buckets the span-partitioned update; "
+                 "it needs --partition N")
     dev = device_lib.resolve(args.device)
     cfg, pipe, opt, hyper = setup(args, dev)
 

@@ -130,12 +130,15 @@ class FlightRecorder:
         """Retain a host copy of ``state`` as the last healthy resume
         point.  Call AFTER the step's health verdict, with the step's
         OUTPUT state.  The copy is taken now: the port updates the state in
-        place, so a reference would hold the next step's values."""
+        place, so a reference would hold the next step's values.  A
+        partitioned state on a process group is gathered first: every rank
+        calls this."""
         if step % self.snapshot_every:
             return
         self._snap_step = int(step)
-        self._snap_state = host_copy(
-            blockopt.map_opt_states(state, blockopt.unpool_state))
+        self._snap_state = host_copy(blockopt.map_opt_states(
+            state, lambda st: blockopt.unpool_state(
+                blockopt.gathered_state(st))))
 
     def note_anomaly(self, event: dict) -> None:
         self.anomalies.append(dict(event))

@@ -31,7 +31,9 @@ bit-packed — and state slot (``m``/``r``):
 Events come in the JAX package's order: the arena's segments for slot m,
 then for slot r, then each per-leaf leaf's m and r.  Elements past a
 segment's ``n`` (the block tail's padding) are masked out of every
-fraction and histogram.
+fraction and histogram.  A partitioned arena is probed on its statistics
+gathered out of its pieces (all-gathered on a process group), so it gives
+the same events as the unpartitioned arena.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import torch
 from repro_torch.core.lowbit import unwrap_codes
 from repro_torch.core.lowbit.packing import unpack_codes
 from repro_torch.core.optim.base import Quant8Leaf, flatten_to_blocks
-from repro_torch.core.optim.blockopt import leaf_order
+from repro_torch.core.optim.blockopt import gathered_arena, leaf_order
 from repro_torch.kernels import ops
 
 DEFAULT_SAMPLE_BLOCKS = 32
@@ -138,7 +140,9 @@ class QHealthProbe:
         ``OptState``): the pooled arena's segments, then every per-leaf
         ``Quant8Leaf`` in the parameter tree's order."""
         events: List[dict] = []
-        arena = getattr(state, "arena", None)
+        # a partitioned arena is probed on its statistics gathered (on a
+        # group, all-gathered: every rank probes, and sees every segment)
+        arena = gathered_arena(getattr(state, "arena", None))
         if arena is not None:
             segs = tuple((sg.path, sg.offset, sg.n_blocks, sg.n)
                          for sg in arena.segments)

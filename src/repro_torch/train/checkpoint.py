@@ -34,6 +34,13 @@ package pooled, and a checkpoint restores into a pooled or a per-leaf
 template alike.  Pooled containers outside their ``OptState`` raise
 ValueError (their arena halves would be lost).
 
+A partitioned optimizer state saves and restores interchangeably with
+pooled and per-leaf ones: its arena's statistics are read out of (and
+written back into) its pieces.  On a process group every rank calls
+:func:`save` and rank 0 alone writes (a partitioned arena's spans
+gathered to it).
+Every rank restores from the same files, each writing its own span.
+
 ``restore`` loads **into the template's own tensors** (in place), so a
 model whose parameters are the optimizer's masters holds the restored
 weights; ints are returned anew.  A pooled template is loaded through its
@@ -141,10 +148,23 @@ def state_dict(tree) -> dict:
 
 
 def save(ckpt_dir: str, step: int, tree, *, keep_last: int = 3) -> str:
-    """Atomically write the checkpoint of ``step``.  Returns its path."""
+    """Atomically write the checkpoint of ``step``.  Returns its path.  A
+    tree holding an optimizer state on a process group is saved by every
+    rank calling this: rank 0 writes, a partitioned arena's spans
+    gathered to it."""
+    writer = [True]
+
+    def gathered(state):
+        state, w = blockopt.gather_spans(state)
+        writer[0] = writer[0] and w
+        return state
+
+    tree = blockopt.map_opt_states(tree, gathered)
+    final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    if not writer[0]:
+        return final
     sd = state_dict(tree)
     os.makedirs(ckpt_dir, exist_ok=True)
-    final = os.path.join(ckpt_dir, f"step_{step:010d}")
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_")
     try:
         arrays, index = {}, []
@@ -234,7 +254,8 @@ def load_state_dict(template: Any, sd: Mapping):
     """Load ``sd`` (:func:`state_dict`'s or :func:`read`'s form) into
     ``template`` in place, as :func:`restore` does."""
     state, packed = sd["state"], sd.get("packed", {})
-    canon = blockopt.map_opt_states(template, blockopt.unpool_state)
+    canon = blockopt.map_opt_states(
+        template, lambda st: blockopt.unpool_state(st, placeholders=True))
     pairs = _flatten(canon)
     arrays = {}
     for key, leaf in pairs:

@@ -19,6 +19,20 @@ step's metrics also carry the summed health counts as ``sent_<slot>``
 clip's scale as ``pclip_scale``.  The two phases of the step are wrapped in
 ``telemetry.tracing.annotate`` ("forward_backward", "optimizer_update"),
 a no-op unless phase tracing is on.
+
+**Data parallel and ZeRO-2.**  An optimizer built on a mesh
+(``make_optimizer(..., mesh=)``, its ``data_parallel`` group of W ranks)
+makes every rank train on its own W-th of the batch's rows; each
+microbatch's gradients are reduced by the optimizer
+(``accumulate_grads``: reduce-scattered into the padded span layout and
+divided by W, the ride-along leaves all-reduced), one way for every mode.
+ZeRO-2 (``shard_grads``, in one process too) then clips and applies from
+the accumulated :class:`~repro_torch.core.optim.blockopt.GradBuffer`, its
+norm from ``grad_buffer_norm``; the other modes all-gather the reduced
+gradient back (``gather_grads``) and clip it in place.  The loss is the
+mean over the ranks.  The metrics gain ``opt_owned_blocks`` and
+``opt_owned_state_bytes_per_param`` under a partition, and
+``peak_grad_bytes`` / ``replicated_grad_bytes`` under ZeRO-2.
 """
 from __future__ import annotations
 
@@ -68,14 +82,20 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack(sums).sum())
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that brings a global norm ``norm`` to at most
+    ``max_norm``."""
+    limit = torch.full_like(norm, max_norm)
+    return torch.clamp(limit / torch.clamp(norm, min=1e-12), max=1.0)
+
+
 def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float,
                         out: Optional[Mapping[str, torch.Tensor]] = None):
     """Scale every tensor of ``tree`` so the global norm is at most
     ``max_norm``: **in place**, or into ``out[key]`` for the keys of
     ``out``.  Returns (the scaled tensors by key, norm before clipping)."""
     norm = global_norm(tree)
-    limit = torch.full_like(norm, max_norm)
-    scale = torch.clamp(limit / torch.clamp(norm, min=1e-12), max=1.0)
+    scale = clip_scale(norm, max_norm)
     out = out or {}
     clipped = {}
     for k, t in tree.items():
@@ -99,6 +119,32 @@ def make_train_step(cfg, model: M.Model, optimizer,
     sentinel_on = bool(getattr(opt_cfg, "sentinel", False))
     pclip_on = getattr(opt_cfg, "percentile_clipping", 100) < 100
     grad_views = getattr(optimizer, "grad_views", lambda opt_state: {})
+    dp = getattr(optimizer, "data_parallel", None)
+    shard_grads = bool(getattr(opt_cfg, "shard_grads_active", False))
+    buffered = dp is not None or shard_grads
+
+    def compute_grad_buffer(tokens, opt_state):
+        """Each microbatch's gradients accumulated (and, on a group,
+        reduced) into the optimizer's GradBuffer, ``.grad`` dropped after
+        each; returns (mean loss, the buffer averaged)."""
+        buf = optimizer.init_grad_buffer(opt_state)
+        n = hyper.microbatches
+        loss_sum = torch.zeros((), device=device)
+        for mb in tokens.chunk(n, dim=0):
+            model.zero_grad(set_to_none=True)
+            logits, _ = M.forward(cfg, model, mb[:, :-1])
+            loss = cross_entropy(logits, mb[:, 1:], hyper.label_smoothing)
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+            optimizer.accumulate_grads(
+                buf, {k: p.grad for k, p in params.items()})
+        model.zero_grad(set_to_none=True)
+        optimizer.finish_grads(buf, n)
+        loss = loss_sum / n
+        if dp is not None:
+            torch.distributed.all_reduce(loss, group=dp[0])
+            loss = loss / dp[2]
+        return loss, buf
 
     def compute_grads(tokens):
         model.zero_grad(set_to_none=True)
@@ -117,10 +163,23 @@ def make_train_step(cfg, model: M.Model, optimizer,
 
     def train_step(state: TrainState, batch):
         tokens = torch.as_tensor(batch["tokens"]).to(device, torch.long)
+        if dp is not None:              # this rank's rows of the batch
+            tokens = tokens.chunk(dp[2], dim=0)[dp[1]]
         with tracing.annotate("forward_backward"):
-            loss, grads = compute_grads(tokens)
-            grads, gnorm = clip_by_global_norm(
-                grads, hyper.grad_clip, grad_views(state.opt_state))
+            if not buffered:
+                loss, grads = compute_grads(tokens)
+                grads, gnorm = clip_by_global_norm(
+                    grads, hyper.grad_clip, grad_views(state.opt_state))
+            elif shard_grads:
+                loss, grads = compute_grad_buffer(tokens, state.opt_state)
+                gnorm = optimizer.grad_buffer_norm(grads)
+                optimizer.scale_grads(grads, clip_scale(gnorm,
+                                                        hyper.grad_clip))
+            else:
+                loss, buf = compute_grad_buffer(tokens, state.opt_state)
+                grads, gnorm = clip_by_global_norm(
+                    optimizer.gather_grads(buf, state.opt_state),
+                    hyper.grad_clip)
         lr = hyper.lr_schedule(state.step) if hyper.lr_schedule else None
         dispatch0 = kops.fused_update_count()
         with tracing.annotate("optimizer_update"):
@@ -137,6 +196,17 @@ def make_train_step(cfg, model: M.Model, optimizer,
         if sb["n_params"]:
             metrics["state_bytes_per_param"] = (sb["state_bytes"]
                                                 / sb["n_params"])
+        if "owned_state_bytes" in sb:
+            # the partitioned dispatch: the largest owner's block span and
+            # its share of the statistics
+            metrics["opt_owned_blocks"] = float(sb["owned_blocks"])
+            metrics["opt_owned_state_bytes_per_param"] = (
+                sb["owned_state_bytes"] / sb["n_params"])
+        if shard_grads:
+            gbb = optimizer.grad_buffer_bytes(state.opt_state)
+            metrics["peak_grad_bytes"] = float(gbb["sharded_grad_bytes"])
+            metrics["replicated_grad_bytes"] = float(
+                gbb["replicated_grad_bytes"])
         if pclip_on:
             # percentile_clip is pure: against the pre-step state it gives
             # the scale apply used (the old state's history is not mutated)

@@ -109,12 +109,13 @@ def test_names_and_unported_settings():
     assert topt.optimizer_names() == jopt.optimizer_names()
     opt = topt.make_optimizer("adamw8", device="cpu")
     assert opt.cfg.pooled is True and opt.cfg.algo == "adamw"
-    # the pooled dispatch (A9) is ported; its partitioned forms are A13
+    # the pooled dispatch (A9) and its partitioned forms (A13a) are ported
     topt.make_optimizer(topt.OptimConfig(algo="adamw"), device="cpu")
-    for kw in ({"partition_shards": 2}, {"partition": True},
-               {"shard_grads": True}):
-        with pytest.raises(ConfigError, match="A13"):
-            topt.make_optimizer("adamw8", device="cpu", **kw)
+    for kw, on in (({"partition_shards": 2}, "partition_active"),
+                   ({"partition": True}, "partition_active"),
+                   ({"shard_grads": True}, "shard_grads_active")):
+        assert getattr(topt.make_optimizer("adamw8", device="cpu",
+                                           **kw).cfg, on), kw
     # a 32-bit engine has nothing to pool
     topt.make_optimizer(topt.OptimConfig(algo="adam", bits=32), device="cpu")
     topt.make_optimizer("adam8", stochastic_rounding=True, device="cpu")

@@ -45,7 +45,6 @@ from repro_torch.configs import base as tcb
 from repro_torch.core import optim as topt
 from repro_torch.core.lowbit import PackedCodes
 from repro_torch.core.optim import base as tbase
-from repro_torch.errors import ConfigError
 from repro_torch.kernels import ops
 from repro_torch.train import checkpoint as TC
 from repro_torch.train import loop as TL
@@ -284,11 +283,19 @@ def test_tensorwise_and_32bit_fall_back_to_per_leaf():
 
 
 def test_a13_settings_raise():
-    for kw in ({"partition_shards": 4}, {"partition": True},
-               {"shard_grads": True},
-               {"partition": True, "overlap_buckets": 2}):
-        with pytest.raises(ConfigError, match="A13"):
-            topt.make_optimizer("adamw8", device="cpu", **kw)
+    """The A13 settings are ported: each is accepted and switches on its
+    dispatch; ZeRO-2 without the pooled arena still raises, as in the JAX
+    package."""
+    for kw, on in (({"partition_shards": 4}, "partition_active"),
+                   ({"partition": True}, "partition_active"),
+                   ({"shard_grads": True}, "shard_grads_active"),
+                   ({"partition": True, "overlap_buckets": 2},
+                    "overlap_active")):
+        opt = topt.make_optimizer("adamw8", device="cpu", **kw)
+        assert getattr(opt.cfg, on), kw
+    with pytest.raises(ValueError, match="shard_grads"):
+        topt.make_optimizer("adamw8", device="cpu", shard_grads=True,
+                            pooled=False)
 
 
 # ------------------------------------------------------- dispatches per step
