@@ -152,7 +152,24 @@ are held to them bit for bit.  Phases, one line or more each:
    lamb8 as ZeRO-1 and ZeRO-2 with 2 microbatches, bit-identical to the
    pooled run, with their peak memory and ZeRO-2's grad accounting.
    ``--phase partition`` runs phases 1-2 and these alone.
-8. summary — the kernels JSON line, the card's name and power limit, and
+8. arch — the attention-model zoo (twelfth slice): stablelm-1.6b at its
+   published widths and depth (24 layers, f32 params and masters),
+   adamw8 pooled for 5 steps of seq 512 x batch 8 through the kernels and
+   through their plain versions (``impl="plain"``): every state array and
+   every step's metrics bit-identical, B3 launched once a step; adamw32
+   beside it; 4 greedy requests through the paged engine at kv 8, B7 and
+   the plain gather giving identical tokens and logits, 2 x 24 launches a
+   decode step.  Then mixtral-8x22b at its published widths with
+   MIXTRAL_LAYERS layer (bf16 params and bf16 masters, the dry run's
+   adam8 hyperparameters): adam8 and lamb8 the same way (the bf16
+   instances of B3 and B4), and one 4200-token prompt past the 4096-token
+   window with 64 new tokens.  The kernels phase holds the bf16 B3 (adam)
+   and B4 (lamb) against their plain versions at mixtral's expert leaf
+   (393,216 blocks, exact) and times them by raw launches in turns with
+   the f32 instances there and over mixtral's arena.  Peak memory and
+   wall time per architecture.  ``--phase arch`` runs phases 1-2, the
+   bf16 kernels and this phase alone, with their two JSON rows.
+9. summary — the kernels JSON line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script then exits non-zero without the last line.
@@ -318,6 +335,32 @@ PARTITION_EXTRA = {"adamw8": ((3, 1),)}
 # the optimizers of the process-group runs (nccl, world 1: ZeRO-1 and
 # ZeRO-2, two microbatches), each held to its pooled run
 GROUP_RUNS = ("adamw8", "lamb8")
+
+# the attention-model zoo (twelfth slice, phase 9 and ``--phase arch``):
+# stablelm-1.6b at its published widths and depth, mixtral-8x22b at its
+# published widths with MIXTRAL_LAYERS layers (the depth cut), bf16 params
+# and masters with the dry run's adam8 hyperparameters (and lamb8), each
+# trained ARCH_STEPS steps through the kernels and through their plain
+# versions; the bf16 instances of B3 and B4 (bf16 p, f32 g: the
+# fused_update_bf16 and norm_partials_bf16 libraries of their sources)
+# timed in turns with the f32 ones at mixtral's expert leaf and over its
+# arena
+FUSED_BF16 = ("src/repro_torch/kernels/csrc/fused_update.cu",
+              "src/repro/kernels/fused_update.py:642")
+BF16_META = {"fused_update/bf16_adam8": (*FUSED_BF16, "fused_update",
+                                         "mixtral_adam8"),
+             "norm_partials/bf16_lamb8": (*NORMS, "norm_partials",
+                                          "mixtral_lamb8")}
+ARCH_STEPS = 5
+MIXTRAL_LAYERS = 1
+MIXTRAL_OPT = dict(lr=1e-4, weight_decay=0.1)    # launch/dryrun.py's adam8
+MIXTRAL_RUNS = ("adam8", "lamb8")
+EXPERT_BLOCKS = 8 * 6144 * 16384 // 2048         # one (8, 6144, 16384) leaf
+# stablelm's serve: page, slots, prompts, new tokens; mixtral's: one
+# request whose prompt is longer than the 4096-token window
+ARCH_SERVE_PAGE, ARCH_SERVE_SLOTS = 16, 4
+STABLELM_PROMPTS, STABLELM_NEW = (64, 128, 192, 256), 16
+MIXTRAL_PROMPT, MIXTRAL_NEW = 4200, 64
 
 # fused-update variant -> (algo, stochastic); the optimizer name of its
 # train run is the variant without "_sr" plus stochastic rounding
@@ -2732,6 +2775,413 @@ def serve_phase(torch, dev, cfg, run_launches, step_launches,
           f"8-bit {drift[8] / max(drift[4], 1e-30):.3f} x the 4-bit drift)")
 
 
+# ------------------------------------------------------------------ phase 9
+def mixtral_cfg():
+    """mixtral-8x22b at its published widths, MIXTRAL_LAYERS layers."""
+    import dataclasses
+    from repro_torch.configs import base
+    return dataclasses.replace(base.get_config("mixtral-8x22b"),
+                               n_layers=MIXTRAL_LAYERS)
+
+
+def arena_blocks(torch, cfg, name: str = "adam8", **kw) -> int:
+    """Blocks of the pooled arena ``make_optimizer(name, **kw)`` lays out
+    for ``cfg`` (from the shapes of a model on the meta device)."""
+    from repro_torch.core.optim import base as ob
+    from repro_torch.core.optim import make_optimizer
+    from repro_torch.models import model as M
+    opt = make_optimizer(name, device="cpu", **kw)
+    params = M.Model(cfg, device="meta").param_dict()
+    return sum(ob.n_blocks_for(tuple(p.shape), 2048, 1)
+               for path, p in params.items()
+               if opt._leaf_is_quantized(path, p))
+
+
+def raw_norms(torch, lib, kind: str, p, g, state, out, hyper,
+              ctas: int) -> callable:
+    """A launch of B4's C entry norm_partials_grid of ``lib`` (the f32 or
+    the bf16 library: the element type of p) on 8-bit states, no wrapper
+    in between."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_update as fu
+    nb, bsz = p.shape
+    ptr = lambda t: None if t is None else build.ptr(t)
+    args = (fu.NORM_KINDS[kind], ptr(p), ptr(g), *map(ptr, state), ptr(out),
+            nb, bsz, 8, 8, ctas,
+            *fu._kernel_scalars(fu.scalars(device="cpu", lr=0.0, **hyper)),
+            build.stream(p.device))
+    keep = (p, g, state, out)
+
+    def launch():
+        build.check(lib, lib.norm_partials_grid(*args), "norm_partials_grid")
+        return keep
+    return launch
+
+
+# the bf16 instances of B3 held to their plain versions at mixtral's expert
+# leaf: variant -> (fused_update keywords, bits of the first state)
+BF16_VARIANTS = {"adam8": ({}, 8),
+                 "adam8_sr": (dict(stochastic=True, seed=SEED), 8),
+                 "adam8_sentinel": (dict(sentinel=True), 8),
+                 "adam8_4_8": ({}, 4)}
+
+
+def check_bf16_kernels(torch, dev, bsz: int = 2048) -> dict:
+    """The bf16 instances of B3 and B4 (bf16 p, f32 g, random) at
+    mixtral's expert leaf (EXPERT_BLOCKS blocks) against their plain
+    versions (exact: p, codes, absmax, health, partials): B3's 8-bit
+    kernel deterministic, stochastic and with the sentinel, its packed
+    kernel at (4, 8) (BF16_VARIANTS), and B4 for lamb.  Then adam8's and
+    B4's timed by raw launches of their C entries in turns with the f32
+    instances on the same values (p in f32), at the expert leaf and over
+    mixtral's arena (the blocks of its quantized leaves); the plain
+    versions' time and, for B4, the library's two vector norms in f32.
+    Byte bounds: bf16 B3 reads p (2 B), g (4 B) and both states' codes and
+    writes p and the codes, 12 B/element (16 for f32 p), plus 16 B of
+    absmax per block; B4 reads p, g and both codes, 8 B/element (10 for
+    f32 p), plus 40 B per block."""
+    from repro_torch.core import qmap
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_update as fu
+    sms = build.sm_count(dev)
+    lib16, lib32 = fu._lib("fused_update_bf16"), fu._lib("fused_update")
+    libn16, libn32 = fu._lib("norm_partials_bf16"), fu._lib("norm_partials")
+    hyper = dict(lr=LR, beta1=0.9, beta2=0.999, eps=1e-8,
+                 weight_decay=WEIGHT_DECAY, step=7.0, gnorm_scale=1.0)
+    norm_hyper = {k: v for k, v in hyper.items() if k != "lr"}
+    qm = lambda bits, signed: torch.as_tensor(
+        qmap.get_qmap("dynamic", signed, bits=bits), device=dev)
+    q1, q2 = qm(8, True), qm(8, False)
+    n_arena = arena_blocks(torch, mixtral_cfg(), master_dtype="bfloat16")
+    rows = {"fused_update/bf16_adam8": {}, "norm_partials/bf16_lamb8": {}}
+    for where, nb in (("expert", EXPERT_BLOCKS), ("arena", n_arena)):
+        n = nb * bsz
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        p = torch.empty(nb, bsz, dtype=torch.bfloat16, device=dev) \
+            .normal_(generator=gen).mul_(0.02)
+        g = torch.empty(nb, bsz, device=dev).normal_(generator=gen) \
+            .mul_(1e-3)
+        code = lambda w: torch.randint(0, 256, (nb, w), generator=gen,
+                                       device=dev, dtype=torch.uint8)
+        cm, cr = code(bsz), code(bsz)
+        am = torch.rand(nb, generator=gen, device=dev) * 1e-3 + 1e-5
+        ar = torch.rand(nb, generator=gen, device=dev) * 1e-6 + 1e-9
+        st16 = [p, cm, am, cr, ar]
+        b3, b4 = (rows["fused_update/bf16_adam8"],
+                  rows["norm_partials/bf16_lamb8"])
+        if where == "expert":
+            # exact against the plain versions (fused_update_cuda and
+            # fused_update_chunked, each on copies)
+            err = 0.0
+            for variant, (kw, bits_m) in BF16_VARIANTS.items():
+                st = st16 if bits_m == 8 else \
+                    [p, code(bsz * bits_m // 8), am, cr, ar]
+                qs = (q1 if bits_m == 8 else qm(bits_m, True), q2)
+                got = [t.clone() for t in st]
+                res = fu.fused_update_cuda(got[0], g, *got[1:], *qs,
+                                           algo="adam", bits_m=bits_m,
+                                           **kw, **hyper)
+                want = [t.clone() for t in st]
+                ref = fu.fused_update_chunked(want[0], g, *want[1:], *qs,
+                                              algo="adam", bits_m=bits_m,
+                                              **kw, **hyper)
+                n_bad, e = _mismatches(got + [res.health],
+                                       want + [ref.health])
+                require(n_bad == 0, f"fused_update/bf16_{variant}: {n_bad} "
+                        f"values (p, codes, absmax, health) disagree with "
+                        f"the plain version")
+                err = max(err, e)
+                print(f"kernel fused_update bf16_{variant} at mixtral's "
+                      f"expert ({nb}x{bsz}, bits {bits_m}/8): p, codes, "
+                      f"absmax{' and health rows' if res.health is not None else ''} "
+                      f"exact against the plain version, 0 mismatches")
+                del got, want, res, ref
+            kw = dict(norm_hyper, algo="lamb")
+            part = fu.norm_partials_cuda(p, g, cm, am, cr, ar, q1, q2, **kw)
+            part_p = fu.norm_partials_chunked(p, g, cm, am, cr, ar, q1, q2,
+                                              **kw)
+            n_bad4, err4 = _mismatches([part], [part_p])
+            require(n_bad4 == 0, f"norm_partials/bf16_lamb8: {n_bad4} "
+                    f"partials disagree with the plain version")
+            del part, part_p
+            work = [t.clone() for t in st16]
+            b3["plain_ms"] = median_ms(torch, lambda: fu.fused_update_chunked(
+                work[0], g, *work[1:], q1, q2, algo="adam", **hyper), 3, 1, 1)
+            b4["plain_ms"] = median_ms(torch, lambda: fu.norm_partials_chunked(
+                p, g, cm, am, cr, ar, q1, q2, **kw), 3, 1, 1)
+            del work
+            b3["max_abs_err"], b4["max_abs_err"] = err, err4
+        p32 = p.float()
+        st32 = [p32, cm.clone(), am.clone(), cr.clone(), ar.clone()]
+        ctas = lib16.fused_update_ctas(fu.KERNEL_ALGOS["adam"], 0, nb, bsz,
+                                       sms)
+        t3 = in_turns(torch, {
+            "bf16": raw_update(torch, lib16, "fused_update_grid", "adam",
+                               st16, g, q1, q2, tail=(ctas,), hyper=hyper),
+            "f32": raw_update(torch, lib32, "fused_update_grid", "adam",
+                              st32, g, q1, q2, tail=(ctas,),
+                              hyper=hyper)}, 10, 3)
+        out = torch.empty(nb, fu.N_PARTIALS, device=dev)
+        state = (cm, am, cr, ar, q1, q2)
+        nctas = libn16.norm_partials_ctas(fu.NORM_KINDS["lamb"], nb, bsz,
+                                          sms)
+        t4 = in_turns(torch, {
+            "bf16": raw_norms(torch, libn16, "lamb", p, g, state, out,
+                              norm_hyper, nctas),
+            "f32": raw_norms(torch, libn32, "lamb", p32, g, state, out,
+                             norm_hyper, nctas),
+            "library": lambda: (
+                torch.linalg.vector_norm(p, dim=1, dtype=torch.float32),
+                torch.linalg.vector_norm(g, dim=1))},
+            10, 3)
+        bb3 = bound_ms(n * 12 + nb * 16, n * 56)
+        bf3 = bound_ms(n * 16 + nb * 16, n * 56)
+        bb4 = bound_ms(n * 8 + nb * 40, n * 26)
+        bf4 = bound_ms(n * 10 + nb * 40, n * 26)
+        tag = "" if where == "expert" else "arena_"
+        b3.update({f"{tag}ms": t3["bf16"], f"{tag}f32_ms": t3["f32"],
+                   f"{tag}bound_ms": bb3[0], f"{tag}f32_bound_ms": bf3[0]})
+        b4.update({f"{tag}ms": t4["bf16"], f"{tag}f32_ms": t4["f32"],
+                   f"{tag}library_ms": t4["library"],
+                   f"{tag}bound_ms": bb4[0], f"{tag}f32_bound_ms": bf4[0]})
+        if where == "expert":
+            b3.update(bound_by=bb3[1], library_ms=None)
+            b4.update(bound_by=bb4[1])
+        print(f"kernel fused_update bf16_adam8 at mixtral's {where} "
+              f"({nb}x{bsz}{', exact against the plain version' if where == 'expert' else ''}): "
+              f"{t3['bf16']:.4f} ms ({ctas} CTAs), in turns with the f32 "
+              f"instance {t3['f32']:.4f} ms ({t3['bf16'] / t3['f32']:.3f}x); "
+              f"bound {bb3[0]:.4f} ms ({bb3[1]}, {100 * bb3[0] / t3['bf16']:.0f}"
+              f"% of it; f32 {bf3[0]:.4f} ms, "
+              f"{100 * bf3[0] / t3['f32']:.0f}%)"
+              + (f", plain {b3['plain_ms']:.3f} ms" if where == "expert"
+                 else ""))
+        print(f"kernel norm_partials bf16_lamb8 at mixtral's {where} "
+              f"({nb}x{bsz}{', exact' if where == 'expert' else ''}): "
+              f"{t4['bf16']:.4f} ms, f32 instance {t4['f32']:.4f} ms, "
+              f"vector_norm of p and g (f32) {t4['library']:.4f} ms; bound "
+              f"{bb4[0]:.4f} ms ({bb4[1]}, {100 * bb4[0] / t4['bf16']:.0f}% "
+              f"of it; f32 {bf4[0]:.4f} ms, {100 * bf4[0] / t4['f32']:.0f}%)"
+              + (f", plain {b4['plain_ms']:.3f} ms" if where == "expert"
+                 else ""))
+        del p, g, cm, cr, am, ar, st16, st32, p32, out, state
+        torch.cuda.empty_cache()
+    return rows
+
+
+def arch_train(torch, dev, cfg, name: str, steps: int, batches, label: str,
+               **opt_kw) -> dict:
+    """``steps`` train steps of ``name`` on ``cfg`` from SEED's weights;
+    the trace holds each step's metrics as bits (bitwise comparisons).
+    The model's gradients are dropped after the last step."""
+    from repro_torch.core.optim import make_optimizer
+    from repro_torch.train import loop as L
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    opt = make_optimizer(name, device=dev, **opt_kw)
+    state, model = L.init_train_state(cfg, opt, gen, device=dev)
+    step = L.make_train_step(cfg, model, opt)
+    ms, trace = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        trace.append(torch.stack([m[k].float().reshape(()) for k in sorted(m)
+                                  if torch.is_tensor(m[k])])
+                     .view(torch.int32).tolist())
+        moe = "".join(f"  {k} {m[k].item():.5f}" for k in sorted(m)
+                      if k.startswith("moe_"))
+        print(f"train {label} step {i}: loss {loss:.6f}  {ms[-1]:.1f} ms  "
+              f"grad_norm {m['grad_norm'].item():.4f}{moe}")
+        require(math.isfinite(loss), f"{label}: non-finite loss")
+    model.zero_grad(set_to_none=True)
+    return dict(opt=opt, state=state, model=model, ms=ms, trace=trace,
+                metrics=m)
+
+
+def arch_pair(torch, dev, cfg, name, batches, label, **opt_kw) -> tuple:
+    """``name`` through the kernels and through their plain versions
+    (``impl="plain"``) from the same weights and batches, each with the
+    launch counters zeroed just before it and read just after: every state
+    array and every step's metrics must be bit-identical, the plain run
+    must launch nothing.  Returns (the kernel run's launches, its median
+    step ms, the plain run's, its peak device memory in GB)."""
+    from repro_torch.kernels import ops
+    runs, counts, peak = {}, {}, {}
+    for impl in ("cuda", "plain"):
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base_b = torch.cuda.memory_allocated()
+        runs[impl] = arch_train(torch, dev, cfg, name, ARCH_STEPS, batches,
+                                f"{label} {impl}", impl=impl, **opt_kw)
+        torch.cuda.synchronize()
+        counts[impl] = ops.launch_counts()
+        peak[impl] = (torch.cuda.max_memory_allocated() - base_b) / 1e9
+        if impl == "cuda":
+            runs[impl]["model"] = None    # the state still holds its masters
+    n_bad = _same_state(torch, runs["cuda"]["state"], runs["plain"]["state"])
+    require(n_bad == 0, f"{label}: {n_bad} state arrays of the kernel run "
+            f"differ from the plain versions' run after {ARCH_STEPS} steps")
+    require(runs["cuda"]["trace"] == runs["plain"]["trace"],
+            f"{label}: per-step metrics differ between the kernel and the "
+            f"plain run")
+    require(not any(counts["plain"].values()), f"{label}: the plain run "
+            f"launched {counts['plain']}")
+    ms = [statistics.median(runs[k]["ms"][1:]) for k in ("cuda", "plain")]
+    return counts["cuda"], ms[0], ms[1], peak["cuda"]
+
+
+def arch_serve(torch, cfg, model, reqs, n_slots, pages_per_seq, impl):
+    """One ``serve`` of ``reqs`` through the paged engine at kv 8 with B7's
+    counter zeroed just before it and read just after: (tokens, decode
+    steps, launches, last-step logits, wall s)."""
+    from repro_torch.kernels import paged_kv
+    from repro_torch.serve.kvcache import PagedKVConfig
+    from repro_torch.serve.scheduler import (ContinuousBatchingEngine,
+                                             SchedulerConfig)
+    kv = PagedKVConfig(page_size=ARCH_SERVE_PAGE,
+                       n_pages=n_slots * pages_per_seq, n_slots=n_slots,
+                       max_pages_per_seq=pages_per_seq, kv_bits=8)
+    eng = ContinuousBatchingEngine(cfg, model, SchedulerConfig(
+        kv=kv, impl=impl))
+    torch.cuda.synchronize()
+    paged_kv.gather_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(all(len(out[r.rid]) == r.max_new_tokens for r in reqs),
+            f"{cfg.arch_id} serve {impl}: a request came back short")
+    eng.kv.check_invariants()
+    require(bool(torch.isfinite(eng.last_logits).all()),
+            f"{cfg.arch_id} serve {impl}: non-finite logits")
+    return (out, eng.decode_steps, paged_kv.gather_cuda.launches,
+            eng.last_logits.clone(), wall)
+
+
+def arch_serve_pair(torch, dev, cfg, reqs, n_slots, pages_per_seq,
+                    run_launches, step_launches, run_steps, label) -> None:
+    """The paged engine through B7 and through its plain gather on the
+    same weights (SEED) and requests: identical tokens and bit-identical
+    last-step logits; B7 launched 2 x layers per decode step."""
+    import numpy as np
+    from repro_torch.models import model as M
+    model = M.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    got = {impl: arch_serve(torch, cfg, model, reqs, n_slots, pages_per_seq,
+                            impl) for impl in ("cuda", "torch")}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    (out, steps, launches, last, wall), ref = got["cuda"], got["torch"]
+    require(launches == 2 * cfg.n_layers * steps, f"{label}: B7 launched "
+            f"{launches} times in {steps} decode steps, expected 2 x "
+            f"{cfg.n_layers} layers per step")
+    require(ref[2] == 0, f"{label}: the plain gather launched B7")
+    require(all(np.array_equal(out[r.rid], ref[0][r.rid]) for r in reqs)
+            and torch.equal(last, ref[3]), f"{label}: the kernel and the "
+            f"plain gather gave other tokens or last-step logits")
+    run_launches[label] = step_launches[label] = {"paged_gather": launches}
+    run_steps[label] = steps
+    n_tok = sum(r.max_new_tokens for r in reqs)
+    print(f"serve {label}: {len(reqs)} requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}), {n_tok} tokens in {steps} "
+          f"decode steps, {wall:.3f} s ({n_tok / wall:.1f} tokens/s); B7 "
+          f"{launches} launches, {launches / steps:.0f} per decode step "
+          f"(2 x {cfg.n_layers} layers); tokens identical and last-step "
+          f"logits bit-identical to the plain gather ({ref[4]:.3f} s); "
+          f"peak device memory {peak:.2f} GB")
+    del model, got
+    torch.cuda.empty_cache()
+
+
+def arch_phase(torch, dev, run_launches, step_launches, run_steps) -> None:
+    """stablelm-1.6b at its published widths and depth: adamw8 (pooled)
+    ARCH_STEPS steps through the kernels and through their plain versions
+    (bit-identical), adamw32 beside it, and greedy requests through the
+    paged engine at kv 8; mixtral-8x22b at its published widths,
+    MIXTRAL_LAYERS layer(s), bf16 params and bf16 masters: adam8 and
+    lamb8 (the bf16 B3 and B4) the same way, and one request whose prompt
+    and new tokens cross the 4096-token window (the ring and the paged
+    window mask)."""
+    import numpy as np
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.serve.scheduler import Request
+    t_phase = time.perf_counter()
+    for arch in ("stablelm-1.6b", "mixtral-8x22b"):
+        t_arch = time.perf_counter()
+        bf16 = arch == "mixtral-8x22b"
+        cfg = mixtral_cfg() if bf16 else base.get_config(arch)
+        pipe = SyntheticLMPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                              seq_len=SEQ_LEN,
+                                              global_batch=BATCH, seed=SEED))
+        batches = [pipe.batch_at(i) for i in range(ARCH_STEPS)]
+        print(f"arch {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads (kv {cfg.n_kv_heads}), d_ff "
+              f"{cfg.moe_dff or cfg.d_ff}"
+              + (f", {cfg.n_experts} experts top-{cfg.top_k}, window "
+                 f"{cfg.window}" if bf16 else "")
+              + f", vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.3f} B "
+              f"parameters, {cfg.param_dtype} params, "
+              f"{'bf16' if bf16 else 'f32'} masters; seq {SEQ_LEN} x batch "
+              f"{BATCH}")
+        names = MIXTRAL_RUNS if bf16 else ("adamw8",)
+        for name in names:
+            kw = dict(master_dtype="bfloat16", **MIXTRAL_OPT) if bf16 else \
+                dict(lr=LR, weight_decay=WEIGHT_DECAY)
+            label = f"{arch.split('-')[0]}_{name}"
+            counts, ms_k, ms_p, peak = arch_pair(torch, dev, cfg, name,
+                                                 batches, label, **kw)
+            norms = name.startswith("lamb")
+            require(counts["fused_update"] == ARCH_STEPS and
+                    counts["norm_partials"] == (ARCH_STEPS if norms else 0),
+                    f"{label}: launches {counts}, expected B3 once per step "
+                    f"(the arena){' and B4 once' if norms else ''}")
+            run_launches[label] = step_launches[label] = counts
+            run_steps[label] = ARCH_STEPS
+            print(f"arch {label}: {ARCH_STEPS} steps, every state array and "
+                  f"step metric bit-identical to the plain versions' run; "
+                  f"launches {counts}; median step {ms_k:.1f} ms (plain "
+                  f"versions {ms_p:.1f} ms); peak device memory "
+                  f"{peak:.2f} GB")
+            torch.cuda.empty_cache()
+        if not bf16:
+            torch.cuda.reset_peak_memory_stats()
+            run32 = arch_train(torch, dev, cfg, "adamw32", ARCH_STEPS,
+                               batches, f"{label.split('_')[0]} adamw32",
+                               lr=LR, weight_decay=WEIGHT_DECAY)
+            print(f"arch stablelm adamw32: median step "
+                  f"{statistics.median(run32['ms'][1:]):.1f} ms; peak device "
+                  f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            del run32
+            torch.cuda.empty_cache()
+            rng = np.random.RandomState(SEED)
+            reqs = [Request(rid=i, prompt=tuple(rng.randint(
+                0, cfg.vocab_size, P).tolist()), max_new_tokens=STABLELM_NEW)
+                for i, P in enumerate(STABLELM_PROMPTS)]
+            per_seq = -(-(max(STABLELM_PROMPTS) + STABLELM_NEW)
+                        // ARCH_SERVE_PAGE)
+            arch_serve_pair(torch, dev, cfg, reqs, ARCH_SERVE_SLOTS, per_seq,
+                            run_launches, step_launches, run_steps,
+                            "stablelm_serve_kv8")
+        else:
+            total = MIXTRAL_PROMPT + MIXTRAL_NEW
+            # the prefill's ring keeps the prompt's last `window` rows, the
+            # paged decode masks the rows that fall out of the window
+            require(MIXTRAL_PROMPT > cfg.window, "mixtral serve: the prompt "
+                    "must be longer than the window")
+            reqs = [Request(rid=0, prompt=tuple(np.random.RandomState(
+                SEED).randint(0, cfg.vocab_size, MIXTRAL_PROMPT).tolist()),
+                max_new_tokens=MIXTRAL_NEW)]
+            arch_serve_pair(torch, dev, cfg, reqs, 1,
+                            -(-total // ARCH_SERVE_PAGE), run_launches,
+                            step_launches, run_steps, "mixtral_serve_kv8")
+        print(f"arch {arch}: {time.perf_counter() - t_arch:.1f} s")
+    print(f"arch phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 # ------------------------------------------------------------------ phase 7
 def _metric_values(events) -> dict:
     """{(step, name): value} of a run's "metric" events."""
@@ -2946,12 +3396,15 @@ def telemetry_phase(torch, dev, cfg, batches, n_quant, run_launches,
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "partition"), default="all",
-                    help="all (the default) or the partition phases alone "
+    ap.add_argument("--phase", choices=("all", "partition", "arch"),
+                    default="all",
+                    help="all (the default), the partition phases alone "
                          "(device, build, the arena and partition kernels, "
-                         "the span runs and the group runs), for "
-                         "iterating on them; only a run of all prints the "
-                         "kernels JSON and the last line")
+                         "the span runs and the group runs) or the arch "
+                         "phase alone (device, build, the bf16 kernels and "
+                         "the stablelm and mixtral runs, with their kernels "
+                         "JSON rows), for iterating on them; only a run of "
+                         "all prints the last line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2980,7 +3433,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.1f} s wall "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}) "
           f"into {build.build_dir().relative_to(ROOT)}")
-    for name in build.SOURCES:
+    for name in build.LIBRARIES:
         for line in ptxas_report(build.build_dir() / f"{name}.log"):
             print(f"build: {name}: {line}")
 
@@ -3041,6 +3494,19 @@ def main(argv=None) -> int:
         print("chip_smoke: the partition phases passed (a partial run: no "
               "kernels JSON)")
         return 0
+    if args.phase == "arch":
+        kernels = check_bf16_kernels(torch, dev)
+        torch.cuda.empty_cache()
+        run_launches, step_launches, run_steps = {}, {}, {}
+        arch_phase(torch, dev, run_launches, step_launches, run_steps)
+        rows = kernel_rows(kernels, [(n, *m) for n, m in BF16_META.items()],
+                           run_launches, step_launches, run_steps)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": rows}))
+        print(card)
+        print("chip_smoke: the arch phase passed (a partial run: no last "
+              "line)")
+        return 0
 
     # ---- 3. kernels vs plain versions
     check_div_shortcut(torch, dev)
@@ -3066,6 +3532,9 @@ def main(argv=None) -> int:
         kernels.pop("fused_update/arena_sentinel_adamw8"),
         **{f"leaf_{k}": leaf_e[k] for k in ("ms", "off_ms", "plain_ms",
                                              "bound_ms")})
+    torch.cuda.empty_cache()
+    kernels.update(check_bf16_kernels(torch, dev))
+    torch.cuda.empty_cache()
 
     # ---- 4. train
     cfg = base.get_config("paper-lm-209m")
@@ -3227,8 +3696,10 @@ def main(argv=None) -> int:
     telemetry_phase(torch, dev, cfg, batches, n_quant, run_launches,
                     step_launches, run_steps)
 
-    # ---- 8. summary
-    rows = []
+    # ---- 8. the attention-model zoo: stablelm-1.6b, mixtral-8x22b
+    arch_phase(torch, dev, run_launches, step_launches, run_steps)
+
+    # ---- 9. summary
     meta = [(name, source, replaces, counter,
              {"lars": "lars8", "lamb": "lamb8"}.get(
                  name.split("/")[-1], name.split("/")[-1])
@@ -3244,6 +3715,23 @@ def main(argv=None) -> int:
              for v in ARENA_VARIANTS]
     meta += [("norm_partials/arena_lamb8", *NORMS, "norm_partials",
               "pooled_lamb8")]
+    meta += [(name, *m) for name, m in BF16_META.items()]
+    rows = kernel_rows(kernels, meta, run_launches, step_launches, run_steps)
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernel_rows(kernels, meta, run_launches, step_launches,
+                run_steps) -> list:
+    """The kernels JSON line's rows: one per (name, source, replaced TPU
+    kernel, launch counter, run) of ``meta``, its numbers from
+    ``kernels[name]`` and its launches from the run's counters."""
+    rows = []
     for name, source, replaces, counter, run in meta:
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -3268,18 +3756,14 @@ def main(argv=None) -> int:
                     "leaf_bound_ms", "partition_span_ms",        # spans
                     "partition_piece_ms", "partition_span_bound_ms",
                     "partition_launches_per_step", "profiler_sessions",
-                    "f32_profiler_sessions"):
+                    "f32_profiler_sessions",
+                    "arena_ms", "arena_f32_ms", "arena_bound_ms",   # bf16
+                    "arena_f32_bound_ms", "arena_library_ms"):
             if key in k:
                 rows[-1][key] = k[key]
         require(rows[-1]["launches"] > 0, f"{name}: no launch in the {run} "
                 f"run")
-    print(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": rows}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return rows
 
 
 if __name__ == "__main__":

@@ -3,8 +3,9 @@
 
 ``ModelConfig`` keeps every field of the JAX package's config so a config
 means the same in both packages.  The port registers the paper's own
-language models (``paper_lm.py``); the other architectures, and the model
-features they need, are ROADMAP A14.
+language models (``paper_lm.py``) and the attention-family architectures,
+one module each with the JAX package's values; the recurrent ones
+(recurrentgemma-9b, xlstm-350m) are ROADMAP A14b-2.
 """
 from __future__ import annotations
 
@@ -14,7 +15,11 @@ from typing import Optional
 
 _REGISTRY: dict[str, "ModelConfig"] = {}
 
-_ARCH_MODULES = ["paper_lm"]
+_ARCH_MODULES = [
+    "qwen1_5_32b", "stablelm_1_6b", "granite_3_8b", "command_r_35b",
+    "llava_next_34b", "musicgen_medium", "mixtral_8x22b", "kimi_k2_1t_a32b",
+    "paper_lm",
+]
 
 
 @dataclasses.dataclass(frozen=True)

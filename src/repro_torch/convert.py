@@ -1,7 +1,7 @@
 """Carry the JAX package's model weights into the port.
 
 ``params_from_numpy(tree, cfg, device)`` takes the JAX parameter tree as
-nested dicts of numpy arrays — the caller runs ``jax.device_get`` first, so
+nested dicts (and, for ``blocks_list``, lists) of numpy arrays — the caller runs ``jax.device_get`` first, so
 this module never imports JAX — and returns the port's ``Model`` holding
 exactly those values.  The differential tests use it to start both packages
 from identical weights.
@@ -17,12 +17,14 @@ from repro_torch.errors import FormatError
 from repro_torch.models.model import Model
 
 
-def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
-    """Nested dicts -> {'a/b/c': leaf}."""
+def flatten_tree(tree, prefix: str = "") -> dict:
+    """Nested dicts and lists -> {'a/b/0/c': leaf} (a list's items keyed by
+    their index, as the JAX package's ``path_str`` names them)."""
     out = {}
-    for key, value in tree.items():
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    for key, value in items:
         path = f"{prefix}{key}"
-        if isinstance(value, Mapping):
+        if isinstance(value, (Mapping, list, tuple)):
             out.update(flatten_tree(value, path + "/"))
         else:
             out[path] = value
@@ -31,8 +33,10 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
 
 def params_from_numpy(tree: Mapping, cfg, device="cuda") -> Model:
     """The port's model for ``cfg`` with the weights of ``tree`` (nested
-    dicts of numpy arrays, keyed as the JAX package's ``init_model``
-    returns them)."""
+    dicts and lists of numpy arrays, keyed as the JAX package's
+    ``init_model`` returns them).  Every leaf is stored in
+    ``cfg.param_dtype``, rounded to nearest even as the JAX package's
+    ``astype`` rounds its f32 masters for the forward."""
     model = Model(cfg, device=device)
     flat = flatten_tree(tree)
     params = model.param_dict()
@@ -46,5 +50,5 @@ def params_from_numpy(tree: Mapping, cfg, device="cuda") -> Model:
             if value.shape != tuple(p.shape):
                 raise FormatError(f"{path}: shape {value.shape}, the model "
                                   f"has {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(value.copy()))
+            p.copy_(torch.from_numpy(value.copy()))   # RNE to p.dtype
     return model

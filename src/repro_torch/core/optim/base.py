@@ -86,7 +86,7 @@ class OptimConfig:
     # implementation, which updates the 16-bit weights in place (update math
     # is always f32 in registers). Huge archs use bf16 (DESIGN.md §6).
     master_dtype: str = "float32"
-    impl: Optional[str] = None       # fused-update backend: cuda|torch
+    impl: Optional[str] = None       # fused-update backend: cuda|torch|plain
     # LARS/LAMB trust-ratio hyper
     trust_coeff: float = 0.001
     # Muon: Newton–Schulz iteration count for the matrix-class leaves
@@ -452,9 +452,11 @@ class QuantArena:
     """Pooled statistics of every quantized leaf: one (total_blocks, B)
     codes + (total_blocks,) absmax pair per state slot, segment by segment
     in leaf order.  The port's arena also holds what the update reads in
-    the block domain: the f32 ``master`` (each parameter is a view of its
-    segment, the padding zero), the ``grad`` buffer the step's gradients
-    are gathered into (its padding never written), and per block the
+    the block domain: the ``master`` (f32, or bf16 with
+    ``master_dtype="bfloat16"``; each parameter of that dtype is a view of
+    its segment, the padding zero), the f32 ``grad`` buffer the step's
+    gradients are gathered into (its padding never written), and per
+    block the
     element-index ``block_offsets`` and the stochastic-rounding seed term
     ``leaf_seeds`` (``i * 7919`` in int32, i the leaf's index in leaf
     order).
@@ -474,7 +476,7 @@ class QuantArena:
     codes_r: Optional[Any]
     absmax_r: Optional[torch.Tensor]
     segments: tuple                 # tuple[QuantSegment, ...]
-    master: torch.Tensor            # (total_blocks, B) f32
+    master: torch.Tensor            # (total_blocks, B) master dtype
     grad: Optional[torch.Tensor]    # (rows >= total_blocks, B) f32
     block_offsets: Optional[torch.Tensor]   # (total_blocks,) int32
     leaf_seeds: Optional[torch.Tensor]      # (total_blocks,) int32
@@ -505,11 +507,14 @@ class Pool32Arena:
 
 
 def flatten_to_blocks(x: torch.Tensor, block_size: int,
-                      shard_multiple: int) -> torch.Tensor:
-    """Param -> (n_blocks, B) f32 with zero padding (elements & block dim).
-    A view of ``x`` when ``x`` is contiguous f32 and no padding is needed,
-    so a kernel that updates the blocks in place updates ``x``."""
-    flat = x.reshape(-1).to(torch.float32)
+                      shard_multiple: int,
+                      dtype=torch.float32) -> torch.Tensor:
+    """Param -> (n_blocks, B) of ``dtype`` (f32 by default, as in the JAX
+    package; a bf16 master's blocks stay bf16) with zero padding (elements
+    & block dim).  A view of ``x`` when ``x`` is contiguous, of ``dtype``
+    and no padding is needed, so a kernel that updates the blocks in place
+    updates ``x``."""
+    flat = x.reshape(-1).to(dtype)
     blocks = blockwise.pad_to_blocks(flat, block_size)
     nb = blocks.shape[0]
     target = -(-nb // shard_multiple) * shard_multiple

@@ -107,8 +107,19 @@ bit-identical.  ZeRO-2 (``shard_grads``) keeps only the owned span and
 applies from the buffer; the other modes all-gather it back
 (:meth:`Block8bitOptimizer.gather_grads`).
 
-Not ported yet, and rejected with :class:`ConfigError` naming the ROADMAP
-item: bf16 masters.
+**bf16 masters** (``master_dtype="bfloat16"``): the quantized leaves'
+masters are bf16 (the arena's master too), the update math stays f32 in
+registers, and the new master is the f32 result rounded to nearest even,
+as the JAX package's ``astype`` rounds it.  Gradients stay f32 whatever
+the master's dtype, as the JAX package keeps them: the arena's gradient
+buffer and a GradBuffer's blocks are f32, and a per-leaf gradient is
+flattened to f32 blocks, so the fused update reads bf16 p and f32 g.
+32-bit leaves (the stable-embedding override, the small
+pooled leaves) keep f32 masters.  A parameter whose dtype differs from its
+master's is not aliased: ``apply`` (and a checkpoint restore) writes the
+master back into it, rounded to the parameter's dtype (``OptState.casts``),
+as the JAX package's forward sees ``master.astype(param_dtype)``.  Muon
+with bf16 masters is ROADMAP A14b-2 and raises :class:`ConfigError`.
 """
 from __future__ import annotations
 
@@ -144,8 +155,10 @@ RIDE_ALIGN = 128
 def leaf_order(leaves: Mapping[str, object]) -> list:
     """Path strings in the JAX package's tree order: nested dict keys
     sorted level by level (which plain string order is not: '-' sorts
-    before '/')."""
-    return sorted(leaves, key=lambda path: path.split("/"))
+    before '/'), a list's items (``blocks_list/<i>``) by their index."""
+    return sorted(leaves, key=lambda path: [
+        (0, int(k), "") if k.isdigit() else (1, 0, k)
+        for k in path.split("/")])
 
 
 class OptState(NamedTuple):
@@ -160,6 +173,10 @@ class OptState(NamedTuple):
     # the pooled layout's arenas; None on the per-leaf layout
     arena: Optional[QuantArena] = None
     pool32: Optional[Pool32Arena] = None
+    # (parameter, master) pairs whose dtypes differ (a bf16 parameter of
+    # an f32 master, or the reverse): ``apply`` writes each master into its
+    # parameter; None when every parameter is its master
+    casts: Optional[tuple] = None
 
 
 @dataclasses.dataclass
@@ -194,9 +211,12 @@ class GradBuffer:
 
 
 def _check_ported(cfg: OptimConfig) -> None:
-    if cfg.master_dtype != "float32":
-        raise ConfigError(f"master_dtype={cfg.master_dtype!r}: the port keeps"
-                          f" f32 masters")
+    if cfg.master_dtype not in ("float32", "bfloat16"):
+        raise ConfigError(f"master_dtype={cfg.master_dtype!r}: float32 or "
+                          f"bfloat16")
+    if cfg.master_dtype != "float32" and cfg.algo == "muon":
+        raise ConfigError("muon with bf16 masters is not ported yet "
+                          "(ROADMAP A14b-2)")
     if cfg.impl not in (None, *kops.IMPLS):
         raise ConfigError(f"impl={cfg.impl!r}; one of {kops.IMPLS}")
 
@@ -246,6 +266,7 @@ class Block8bitOptimizer:
         self._qmap2 = torch.as_tensor(self._fmt2.codebook(),
                                       device=self.device)
         self._impl = config.impl or kops.DEFAULT_IMPL
+        self._mdt = getattr(torch, config.master_dtype)
 
     # ------------------------------------------------------------------ init
     def _leaf_is_quantized(self, path: str, param: torch.Tensor) -> bool:
@@ -279,8 +300,10 @@ class Block8bitOptimizer:
 
     def init(self, params: Mapping[str, torch.Tensor]) -> OptState:
         """State for ``params`` (path string -> tensor on the optimizer's
-        device).  The masters alias f32 parameters; others are copied to
-        f32."""
+        device).  The masters alias the parameters of their dtype (f32, or
+        bf16 for the quantized leaves with ``master_dtype="bfloat16"``);
+        others are copied, and ``apply`` writes them back
+        (``OptState.casts``)."""
         cfg = self.cfg
         for path, p in params.items():
             if p.device != self.device:
@@ -288,15 +311,18 @@ class Block8bitOptimizer:
                                  f"on {self.device}")
         if cfg.pooling_active:
             return self._init_pooled(params)
-        leaves = {}
+        leaves, casts = {}, []
         for path in sorted(params):
             p = params[path]
-            master = _f32_master(p)
+            quant = self._leaf_class(path, p) == "ew" and \
+                self._leaf_is_quantized(path, p)
+            master = _master(p, self._mdt if quant else torch.float32,
+                             casts)
             if self._leaf_class(path, p) == "matrix":
                 leaves[path] = self._init_matrix_leaf(path, p, master)
                 continue
             second = cfg.has_second_moment
-            if self._leaf_is_quantized(path, p):
+            if quant:
                 nb = base.n_blocks_for(tuple(p.shape), cfg.block_size,
                                        cfg.shard_multiple)
                 bs = cfg.block_size
@@ -313,20 +339,22 @@ class Block8bitOptimizer:
                 leaves[path] = _full32(master, second)
         gnorm_vec = (torch.zeros(cfg.pclip_history, device=self.device)
                      if cfg.percentile_clipping < 100 else None)
-        return OptState(step=0, leaves=leaves, gnorm_vec=gnorm_vec)
+        return OptState(step=0, leaves=leaves, gnorm_vec=gnorm_vec,
+                        casts=tuple(casts) or None)
 
     def _init_pooled(self, params: Mapping[str, torch.Tensor]) -> OptState:
         """The pooled layout: quantized leaves' statistics and masters
         concatenate into one QuantArena, small leaves' f32 state into one
         Pool32Arena, segment offsets in leaf order (the order ``apply``
         numbers the leaves in).  Each f32 parameter is pointed at its
-        segment of the arena's master (``p.data = view``), so the model's
-        parameters stay the masters; other dtypes are copied in."""
+        segment of the arena's master (``p.data = view``) when their dtypes
+        agree, so the model's parameters stay the masters; others are
+        copied in and written back by ``apply`` (``OptState.casts``)."""
         cfg = self.cfg
         bs, dev = cfg.block_size, self.device
         second = cfg.has_second_moment
         order = leaf_order(params)
-        leaves, qsegs, fsegs, matrix_paths = {}, [], [], []
+        leaves, qsegs, fsegs, matrix_paths, casts = {}, [], [], [], []
         for i, path in enumerate(order):
             p = params[path]
             shape, n = tuple(p.shape), p.numel()
@@ -334,8 +362,8 @@ class Block8bitOptimizer:
                 # each matrix leaf is its own Newton–Schulz problem: it
                 # stays per leaf, beside the arena (partitioned, whole-leaf
                 # on its owner)
-                leaves[path] = self._init_matrix_leaf(path, p,
-                                                      _f32_master(p))
+                leaves[path] = self._init_matrix_leaf(
+                    path, p, _master(p, torch.float32, casts))
                 if isinstance(leaves[path], Quant8Leaf):
                     matrix_paths.append(path)
             elif self._leaf_is_quantized(path, p):
@@ -348,7 +376,8 @@ class Block8bitOptimizer:
                 fsegs.append(FlatSegment(path, off, n, shape))
             else:
                 # the stable-embedding override: a per-leaf Full32Leaf
-                leaves[path] = _full32(_f32_master(p), second)
+                leaves[path] = _full32(_master(p, torch.float32, casts),
+                                       second)
         arena = pool32 = None
         shards = cfg.partition_shards if cfg.partition_active else 0
         grid = max(cfg.shard_multiple, 1)
@@ -375,12 +404,13 @@ class Block8bitOptimizer:
                 rows = (self._reduce_partition(total).padded_total
                         if self._group is not None else total)
             master = torch.zeros(part.padded_total if part else total, bs,
-                                 device=dev)
+                                 device=dev, dtype=self._mdt)
             for seg, _ in qsegs:
                 view = _segment_view(master, seg)
                 leaves[seg.path] = PooledQuantLeaf(
-                    master=_alias(params[seg.path], view), shape=seg.shape,
-                    n=seg.n, offset=seg.offset, n_blocks=seg.n_blocks)
+                    master=_alias(params[seg.path], view, casts),
+                    shape=seg.shape, n=seg.n, offset=seg.offset,
+                    n_blocks=seg.n_blocks)
             # ZeRO-2 on a group never holds the whole gradient
             grad = (None if cfg.shard_grads_active and self._group is not None
                     else torch.zeros(rows, bs, device=dev))
@@ -408,7 +438,7 @@ class Block8bitOptimizer:
             master = torch.zeros(total, device=dev)
             for seg in fsegs:
                 view = master[seg.offset:seg.offset + seg.n].view(seg.shape)
-                _alias(params[seg.path], view)
+                _alias(params[seg.path], view, casts)
                 leaves[seg.path] = Pool32Leaf(shape=seg.shape, n=seg.n,
                                               offset=seg.offset)
             pool32 = Pool32Arena(
@@ -423,7 +453,8 @@ class Block8bitOptimizer:
         gnorm_vec = (torch.zeros(cfg.pclip_history, device=dev)
                      if cfg.percentile_clipping < 100 else None)
         return OptState(step=0, leaves={k: leaves[k] for k in order},
-                        gnorm_vec=gnorm_vec, arena=arena, pool32=pool32)
+                        gnorm_vec=gnorm_vec, arena=arena, pool32=pool32,
+                        casts=tuple(casts) or None)
 
     def _make_pieces(self, part: ArenaPartition, plan, offsets, seeds
                      ) -> tuple:
@@ -771,8 +802,10 @@ class Block8bitOptimizer:
         """Update one quantized leaf in place; returns its summed health
         vector under ``cfg.sentinel`` (else None)."""
         cfg = self.cfg
+        mdt = leaf.master.dtype     # f32 or bf16; g is f32
         gb = flatten_to_blocks(g, cfg.block_size, cfg.shard_multiple)
-        mb = flatten_to_blocks(leaf.master, cfg.block_size, cfg.shard_multiple)
+        mb = flatten_to_blocks(leaf.master, cfg.block_size,
+                               cfg.shard_multiple, mdt)
         res = kops.fused_update(
             self._ew_algo, mb, gb, leaf.codes_m, leaf.absmax_m, leaf.codes_r,
             leaf.absmax_r, self._qmap1, self._qmap2, lr=lr, beta1=cfg.beta1,
@@ -785,7 +818,7 @@ class Block8bitOptimizer:
         # "cuda" backend writes its result into mb.
         if not (res.p is mb and mb.data_ptr() == leaf.master.data_ptr()):
             leaf.master.copy_(blocks_to_param(res.p, leaf.shape, leaf.n,
-                                              torch.float32))
+                                              mdt))
         leaf.codes_m, leaf.absmax_m = res.codes_m, res.absmax_m
         leaf.codes_r, leaf.absmax_r = res.codes_r, res.absmax_r
         return res.health.sum(dim=0) if cfg.sentinel else None
@@ -867,6 +900,7 @@ class Block8bitOptimizer:
                 h8 = self._apply_full32(leaf, g, lr_dev, step_f, gnorm_scale)
             health_parts.append(h8)
         new_state = state._replace(step=state.step + 1, gnorm_vec=new_vec)
+        sync_casts(new_state)
         if cfg.sentinel:
             return (self.params_view(new_state), new_state,
                     _sum_health(health_parts, self.device))
@@ -1042,8 +1076,8 @@ class Block8bitOptimizer:
         def partials(pc):
             cm, bits_m, _ = unwrap_codes(pc.codes_m)
             cr, bits_r, _ = unwrap_codes(pc.codes_r)
-            return kfu.norm_partials_cuda(
-                arena.master[pc.start:pc.start + pc.n],
+            return kops.norm_partials(
+                self._impl, arena.master[pc.start:pc.start + pc.n],
                 grad_rows(pc.start, pc.n), cm, pc.absmax_m, cr, pc.absmax_r,
                 self._qmap1, self._qmap2, algo=self._ew_algo, bits_m=bits_m,
                 bits_r=bits_r, **hyper)
@@ -1218,12 +1252,25 @@ def _sum_health(parts, device) -> torch.Tensor:
     return total
 
 
-def _f32_master(p: torch.Tensor) -> torch.Tensor:
-    """The parameter itself as a master when it is f32 (aliasing it), else
-    an f32 copy."""
+def _master(p: torch.Tensor, dtype, casts: list) -> torch.Tensor:
+    """The parameter itself as a master when it has ``dtype`` (aliasing
+    it), else a copy of that dtype, recorded in ``casts`` with its
+    parameter."""
     master = p.detach()
-    return master if master.dtype == torch.float32 else \
-        master.to(torch.float32)
+    if master.dtype == dtype:
+        return master
+    master = master.to(dtype)
+    casts.append((p, master))
+    return master
+
+
+def sync_casts(state: OptState) -> None:
+    """Write every master of ``state.casts`` into its parameter, rounded
+    to nearest even to the parameter's dtype (the JAX package's
+    ``master.astype(param_dtype)`` of its forward)."""
+    with torch.no_grad():
+        for param, master in state.casts or ():
+            param.copy_(master)
 
 
 def _full32(master: torch.Tensor, second: bool) -> Full32Leaf:
@@ -1239,14 +1286,17 @@ def _segment_view(blocks: torch.Tensor, seg: QuantSegment) -> torch.Tensor:
     return blocks.view(-1)[start:start + seg.n].view(seg.shape)
 
 
-def _alias(param: torch.Tensor, view: torch.Tensor) -> torch.Tensor:
-    """Copy ``param`` into its arena ``view`` and, when it is f32, point
-    the parameter's storage at the view, so the arena's master is the
-    parameter.  Returns the view."""
+def _alias(param: torch.Tensor, view: torch.Tensor, casts: list
+           ) -> torch.Tensor:
+    """Copy ``param`` into its arena ``view`` and, when their dtypes agree,
+    point the parameter's storage at the view, so the arena's master is
+    the parameter; else record the pair in ``casts``.  Returns the view."""
     with torch.no_grad():
         view.copy_(param.detach())
-    if param.dtype == torch.float32:
+    if param.dtype == view.dtype:
         param.data = view
+    else:
+        casts.append((param, view))
     return view
 
 
@@ -1371,8 +1421,8 @@ def gather_spans(state: OptState, dst: int = 0) -> tuple:
 
 def unpool_state(state: OptState, *, placeholders: bool = False
                  ) -> OptState:
-    """Pooled layout -> per-leaf canonical layout (identity for per-leaf
-    states).  Unpartitioned, the result's tensors are views of the arenas:
+    """Pooled layout -> per-leaf canonical layout (for per-leaf states the
+    state itself, without ``casts``).  Unpartitioned, the result's tensors are views of the arenas:
     writing into it writes into ``state``.  A partitioned arena's
     statistics are copied out of its pieces (write back with
     :func:`repool_like`); on a group, where a rank holds only its own
@@ -1380,7 +1430,8 @@ def unpool_state(state: OptState, *, placeholders: bool = False
     tensors of the right shapes (a restore's target)."""
     arena, pool = state.arena, state.pool32
     if arena is None and pool is None:
-        return state
+        # the canonical view carries no parameters (OptState.casts)
+        return state if state.casts is None else state._replace(casts=None)
     if arena is not None and arena.partition is not None:
         held = {pc.owner for pc in arena.pieces}
         whole = all(n == 0 or d in held
@@ -1434,9 +1485,14 @@ def repool_like(per_leaf: OptState, template: OptState) -> OptState:
     view (as after an in-place restore into ``unpool_state(template)``);
     a partitioned arena's statistics are written into the pieces it
     holds.  Returns the template with ``per_leaf``'s step and clipping
-    history; identity when the template is per-leaf."""
+    history; identity when the template is per-leaf.  Either way the
+    parameters that are not their masters get the restored masters
+    (:func:`sync_casts`)."""
     if template.arena is None and template.pool32 is None:
-        return per_leaf
+        # restored in place into the template's masters
+        sync_casts(template)
+        return per_leaf if per_leaf.casts is template.casts else \
+            per_leaf._replace(casts=template.casts)
     arena = template.arena
     parted = arena is not None and arena.partition is not None
     canon = unpool_state(template, placeholders=True)
@@ -1457,6 +1513,7 @@ def repool_like(per_leaf: OptState, template: OptState) -> OptState:
                     _store(dst, getattr(got, name))
         if template.gnorm_vec is not None:
             _store(template.gnorm_vec, per_leaf.gnorm_vec)
+    sync_casts(template)
     return template._replace(step=per_leaf.step)
 
 

@@ -57,6 +57,9 @@ class MuonOptimizer(Block8bitOptimizer):
             raise ValueError(
                 "muon serves block-wise quantization only; the tensor-wise "
                 "ablation is element-wise")
+        if config.impl == "plain":
+            raise ConfigError("muon has no 'plain' backend: its plain "
+                              "math is impl='torch'")
         super().__init__(config, override_32bit, device=device, mesh=mesh)
 
     # ------------------------------------------------------------- routing

@@ -1,12 +1,16 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C interface, loaded with ``ctypes`` — no PyTorch
-headers, so a build takes seconds.  The libraries go to
-``build/kernels/<key>/`` under the repository root (listed in
-``.gitignore``), where ``<key>`` hashes the sources and the flags, so an
-edited source is rebuilt and an unchanged one is reused.  All sources are
-compiled in parallel, one ``nvcc`` process each.
+Each library of :data:`LIBRARIES` is a source compiled by ``nvcc`` for
+``sm_90a`` with its defines into a shared library with a plain C
+interface, loaded with ``ctypes`` — no PyTorch headers, so a build takes
+seconds.  The fused update and its norm prologue are each compiled twice,
+once per element type of the parameter (``RQ_P_BF16``: bf16, the bf16
+masters' instances; ``csrc/common.cuh`` ``PElem``), into two libraries
+with the same C entries, so that the two builds run in parallel.  The
+libraries go to ``build/kernels/<key>/`` under the repository root (listed
+in ``.gitignore``), where ``<key>`` hashes the sources, the flags and the
+defines, so an edited source is rebuilt and an unchanged one is reused.
+All libraries are compiled in parallel, one ``nvcc`` process each.
 
 Flags: no ``--use_fast_math``, and ``--fmad=false`` so that ``a*b + c`` is
 not contracted into an FMA — the kernels round like PyTorch's eager
@@ -27,8 +31,17 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("blockwise_quant", "blockwise_dequant", "fused_update",
-           "norm_partials", "newton_schulz", "paged_gather")
+# library -> (source in csrc/, its defines)
+LIBRARIES = {
+    "blockwise_quant": ("blockwise_quant", ()),
+    "blockwise_dequant": ("blockwise_dequant", ()),
+    "fused_update": ("fused_update", ()),
+    "fused_update_bf16": ("fused_update", ("-DRQ_P_BF16",)),
+    "norm_partials": ("norm_partials", ()),
+    "norm_partials_bf16": ("norm_partials", ("-DRQ_P_BF16",)),
+    "newton_schulz": ("newton_schulz", ()),
+    "paged_gather": ("paged_gather", ()),
+}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
@@ -43,17 +56,20 @@ def nvcc() -> str:
 
 
 def build_dir(csrc: Path = CSRC) -> Path:
-    """Directory keyed by the sources' contents and the compiler flags."""
+    """Directory keyed by the sources' contents, the compiler flags and
+    the libraries' defines."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(LIBRARIES.items())).encode())
     for f in sorted(csrc.iterdir()):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build(names=SOURCES, csrc: Path = CSRC) -> dict:
-    """Compile every missing library of ``names`` in parallel (from the
-    sources in ``csrc``: another tree's, to compare kernels).  Returns
+def build(names=tuple(LIBRARIES), csrc: Path = CSRC) -> dict:
+    """Compile every missing library of ``names`` (keys of
+    :data:`LIBRARIES`) in parallel (from the sources in ``csrc``: another
+    tree's, to compare kernels).  Returns
     ``{name: seconds}`` for the ones compiled (empty when all were built);
     the compiler's register/shared-memory report is kept beside each
     library as ``<name>.log``."""
@@ -64,7 +80,9 @@ def build(names=SOURCES, csrc: Path = CSRC) -> dict:
     t0 = time.perf_counter()
     for n in todo:
         tmp = out_dir / f"{n}.{os.getpid()}.tmp.so"
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{n}.cu")]
+        source, defines = LIBRARIES[n]
+        cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+               str(csrc / f"{source}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp)
@@ -84,7 +102,8 @@ def build(names=SOURCES, csrc: Path = CSRC) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for source ``name``, built if missing."""
+    """The loaded library ``name`` (a key of :data:`LIBRARIES`), built if
+    missing."""
     build((name,))
     lib = ctypes.CDLL(str(build_dir() / f"{name}.so"))
     lib.rq_error_string.argtypes = [ctypes.c_int]

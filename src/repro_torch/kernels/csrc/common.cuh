@@ -17,6 +17,8 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "mma_sm90.cuh"
@@ -24,6 +26,15 @@
 // A dynamic shared-memory array of the launch's third <<<>>> argument.
 #ifndef RQ_DYNAMIC_SHARED
 #define RQ_DYNAMIC_SHARED(T, name) extern __shared__ __align__(16) T name[]
+#endif
+
+// The element type of the parameter p in a library of the fused update or
+// its norm prologue: f32, or bf16 in the library compiled with RQ_P_BF16
+// (kernels/build.py LIBRARIES).  Gradients are f32 in both.
+#ifdef RQ_P_BF16
+using PElem = __nv_bfloat16;
+#else
+using PElem = float;
 #endif
 
 namespace rq {
@@ -464,6 +475,111 @@ __device__ __forceinline__ float3 block_sum3(float a, float b, float c,
   __syncthreads();
   return make_float3(red[96], red[97], red[98]);
 }
+
+// The f32 value of a bf16 given by its 16 bits (exact: a bf16 is the high
+// half of an f32).
+__device__ __forceinline__ float bf16_value(uint32_t bits) {
+#ifdef __CUDACC__
+  return __uint_as_float(bits << 16);
+#else
+  const uint32_t u = bits << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+#endif
+}
+
+// Two f32 values rounded to nearest even to bf16, a in the low half.
+__device__ __forceinline__ uint32_t bf16_pair(float a, float b) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(a))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(b)))
+          << 16);
+}
+
+// Loads and stores of a thread's elements of a row of the parameter (f32
+// or bf16) or the gradient (f32), as f32 values, for their element type
+// T: the kernels do every operation in f32 and store a bf16 parameter
+// rounded to nearest even (as XLA's astype and PyTorch's .to(bfloat16)
+// round).  load8 / store8: the 8 consecutive elements 8v .. 8v + 7 of a
+// row (the first 4 when half; bf16 rows never end in a half group: their
+// block size is a multiple of 8), one or two 16-byte words; load8_pair:
+// load8 of p's row (of T) and g's (f32; for f32 p the words interleaved,
+// as the 8-bit update's f32 kernel has always loaded them); load4:
+// elements 4i .. 4i + 3, one 16- or 8-byte word.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static __device__ __forceinline__ void load8(const void* row, int v,
+                                               bool half, float (&x)[8]) {
+    const float4* r = static_cast<const float4*>(row);
+    const float4 a = r[2 * v];
+    const float4 b = half ? make_float4(0.f, 0.f, 0.f, 0.f) : r[2 * v + 1];
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  }
+  static __device__ __forceinline__ void store8(void* row, int v, bool half,
+                                                const float (&x)[8]) {
+    float4* r = static_cast<float4*>(row);
+    r[2 * v] = make_float4(x[0], x[1], x[2], x[3]);
+    if (!half) r[2 * v + 1] = make_float4(x[4], x[5], x[6], x[7]);
+  }
+  static __device__ __forceinline__ float4 load4(const void* row, int i) {
+    return static_cast<const float4*>(row)[i];
+  }
+  // load8 of a row of p and of g, their 16-byte words interleaved
+  static __device__ __forceinline__ void load8_pair(const void* prow,
+                                                    const void* grow, int v,
+                                                    bool half, float (&p)[8],
+                                                    float (&g)[8]) {
+    const float4* pr = static_cast<const float4*>(prow);
+    const float4* gr = static_cast<const float4*>(grow);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 p0 = pr[2 * v], g0 = gr[2 * v];
+    const float4 p1 = half ? zero : pr[2 * v + 1];
+    const float4 g1 = half ? zero : gr[2 * v + 1];
+    p[0] = p0.x; p[1] = p0.y; p[2] = p0.z; p[3] = p0.w;
+    p[4] = p1.x; p[5] = p1.y; p[6] = p1.z; p[7] = p1.w;
+    g[0] = g0.x; g[1] = g0.y; g[2] = g0.z; g[3] = g0.w;
+    g[4] = g1.x; g[5] = g1.y; g[6] = g1.z; g[7] = g1.w;
+  }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ void load8(const void* row, int v,
+                                               bool, float (&x)[8]) {
+    const uint4 w = static_cast<const uint4*>(row)[v];
+    const uint32_t h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      x[2 * c] = bf16_value(h[c] & 0xFFFFu);
+      x[2 * c + 1] = bf16_value(h[c] >> 16);
+    }
+  }
+  static __device__ __forceinline__ void store8(void* row, int v, bool,
+                                                const float (&x)[8]) {
+    uint4 w;
+    w.x = bf16_pair(x[0], x[1]);
+    w.y = bf16_pair(x[2], x[3]);
+    w.z = bf16_pair(x[4], x[5]);
+    w.w = bf16_pair(x[6], x[7]);
+    static_cast<uint4*>(row)[v] = w;
+  }
+  static __device__ __forceinline__ float4 load4(const void* row, int i) {
+    const uint2 w = static_cast<const uint2*>(row)[i];
+    return make_float4(bf16_value(w.x & 0xFFFFu), bf16_value(w.x >> 16),
+                       bf16_value(w.y & 0xFFFFu), bf16_value(w.y >> 16));
+  }
+  static __device__ __forceinline__ void load8_pair(const void* prow,
+                                                    const void* grow, int v,
+                                                    bool half, float (&p)[8],
+                                                    float (&g)[8]) {
+    load8(prow, v, half, p);
+    Elem<float>::load8(grow, v, half, g);
+  }
+};
 
 }  // namespace rq
 

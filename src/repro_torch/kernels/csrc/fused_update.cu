@@ -102,6 +102,21 @@
 //
 // Order of operations: update_math.cuh, held bit-exactly against the plain
 // version, repro_torch/kernels/fused_update.py::fused_update_plain.
+//
+// Element type of p (ROADMAP A14b-1: bf16 masters): the kernels are
+// templates on it, T = float or __nv_bfloat16; g is f32 in both, as the
+// reference feeds its kernel an f32 gradient (blockopt.py flattens it to
+// f32) and writes the master in its own dtype (fused_update.py:348).  A
+// bf16 thread loads its 8 elements of p as one 16-byte word (two for g)
+// through the same cp.async ring (the ring of the two-state 8-bit
+// instances is 24 KB at B = 2048), computes in f32 exactly as the f32
+// instance does, and stores its new p with __float2bfloat16_rn (rq::Elem).
+// bf16 rows need a block size that is a multiple of 8.  The source builds
+// one library per element type of p (PElem, common.cuh): the same C
+// entries, compiled in parallel.
+// Bound of a bf16 instance: p read and written at 2 B, g read at 4 B, the
+// codes as above: 10 B/element for the one-state algorithms, 12 B for the
+// two-state ones.
 #include "update_math.cuh"
 
 namespace {
@@ -173,11 +188,13 @@ __device__ __forceinline__ int edges8(uint2 w, bool half) {
 }
 
 // Resident CTAs per SM of the 8-bit kernel: walk_ctas_per_sm, but 4 of 256
-// threads for the two-state instances with the sentinel, which spill at
-// 48 registers (the launch bound at 5) and fit in 64.
-template <int ALGO, int THREADS, bool SENT>
+// threads for the two-state instances with the sentinel or with bf16 p
+// (whose f32 g and conversions add registers), which spill at 48 registers
+// (the launch bound at 5) and fit in 64.
+template <typename T, int ALGO, int THREADS, bool SENT>
 constexpr int update8_ctas_per_sm() {
-  return THREADS == 256 && SENT && rq::AlgoTraits<ALGO>::kTwoStates
+  return THREADS == 256 && (SENT || sizeof(T) == 2) &&
+                 rq::AlgoTraits<ALGO>::kTwoStates
              ? 4
              : walk_ctas_per_sm<THREADS>();
 }
@@ -190,10 +207,11 @@ struct BlockHead {
   uint32_t seed, off;
 };
 
-template <int ALGO, int THREADS, bool STOCH, bool SENT>
+template <typename T, int ALGO, int THREADS, bool STOCH, bool SENT>
 __global__ void __launch_bounds__(THREADS,
-                                  update8_ctas_per_sm<ALGO, THREADS, SENT>())
-fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
+                                  update8_ctas_per_sm<T, ALGO, THREADS,
+                                                      SENT>())
+fused_update_kernel(T* p, const float* g, uint8_t* codes_m,
                     float* absmax_m, uint8_t* codes_r, float* absmax_r,
                     const float* qmap_m, const float* qmap_r,
                     const float* tensor_scale, const int* block_seeds,
@@ -208,7 +226,9 @@ fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
   __shared__ int hred[SENT ? 64 : 1];
   RQ_DYNAMIC_SHARED(float4, ring);
 
-  const int bsz = block_size, nvec = bsz >> 2;
+  // 16-byte pieces of a row of p and of g (f32), and of a ring slot
+  const int bsz = block_size, nvp = bsz * sizeof(T) / 16, nvg = bsz >> 2;
+  const int nslot = nvp + nvg;
   const size_t nb = static_cast<size_t>(n_blocks);
   const size_t stride = gridDim.x;
   const int v = threadIdx.x;              // this thread's group
@@ -221,12 +241,12 @@ fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
   // registers: through the ring they ran 4% slower on an H100)
   auto stage = [&](size_t row, int slot) {
     if (kTwo && row < nb) {
-      float4* d = ring + 2 * nvec * slot;
+      float4* d = ring + nslot * slot;
       const float4* sp = reinterpret_cast<const float4*>(p + row * bsz);
       const float4* sg = reinterpret_cast<const float4*>(g + row * bsz);
-      for (int c = threadIdx.x; c < nvec; c += THREADS) {
-        cp_async_16(d + c, sp + c, true);
-        cp_async_16(d + nvec + c, sg + c, true);
+      for (int c = threadIdx.x; c < nvg; c += THREADS) {
+        if (sizeof(T) == 4 || c < nvp) cp_async_16(d + c, sp + c, true);
+        cp_async_16(d + nvp + c, sg + c, true);
       }
     }
     cp_async_commit();
@@ -265,22 +285,17 @@ fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
     cp_async_wait<1>();   // this block's stage (the next one may still fly)
     if (kTwo) __syncthreads();
     // this block's p and g rows: the ring's stage, or global memory
-    const float4* sp = kTwo ? ring + 2 * nvec * slot
+    const float4* sp = kTwo ? ring + nslot * slot
                             : reinterpret_cast<const float4*>(p + row * bsz);
-    const float4* sg = kTwo ? sp + nvec
+    const float4* sg = kTwo ? sp + nvp
                             : reinterpret_cast<const float4*>(g + row * bsz);
     float xm[8], xr[8];   // the new states, kept across the absmax
     float mx_m = 0.f, mx_r = 0.f;            // the group's largest |state|
     float mn_m = INFINITY, mn_r = INFINITY;  // and least (rq::div8's range)
     int cnt[2] = {0, 0};  // sentinel counts (see kHigh)
     if (live) {
-      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 p0 = sp[2 * v], g0 = sg[2 * v];
-      const float4 p1 = half ? zero : sp[2 * v + 1];
-      const float4 g1 = half ? zero : sg[2 * v + 1];
-      const float pe[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const float ge[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      float pn[8];
+      float pe[8], ge[8], pn[8];
+      rq::Elem<T>::load8_pair(sp, sg, v, half, pe, ge);
       float mx_g = 0.f, mx_p = 0.f;  // the sentinel's: NaN or inf if any
       if constexpr (kTwo) {
         // the 8 elements' moments first, then their quotients by c1 and c2
@@ -338,18 +353,15 @@ fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
       // count the nonfinite g and new p only in a group that has one (g
       // read again, from the stage, which holds it until the reduction)
       if (SENT && !(rq::is_finite(mx_g) && rq::is_finite(mx_p))) {
-        const float4 h0 = sg[2 * v];
-        const float4 h1 = half ? zero : sg[2 * v + 1];
-        const float gr[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
+        float gr[8];
+        rq::Elem<float>::load8(sg, v, half, gr);
 #pragma unroll
         for (int c = 0; c < 8; ++c)
           if (c < 4 || !half)
             cnt[0] += (rq::is_finite(gr[c]) ? 0 : 1) +
                       (rq::is_finite(pn[c]) ? 0 : kHigh);
       }
-      float4* pr = reinterpret_cast<float4*>(p + row * bsz);
-      pr[2 * v] = make_float4(pn[0], pn[1], pn[2], pn[3]);
-      if (!half) pr[2 * v + 1] = make_float4(pn[4], pn[5], pn[6], pn[7]);
+      rq::Elem<T>::store8(p + row * bsz, v, half, pn);
     }
     // every thread has read this stage before the reduction's first
     // barrier: refill it with the block two ahead
@@ -425,10 +437,12 @@ fused_update_kernel(float* p, const float* g, uint8_t* codes_m,
 // midpoints; resident CTAs per SM as the 8-bit kernel's
 // (walk_ctas_per_sm).
 
-// Bytes of one stage of the packed kernel's ring (a multiple of 16).
+// Bytes of one stage of the packed kernel's ring (a multiple of 16): the
+// row of p of elem-byte elements and the f32 row of g, then the packed
+// rows.
 __host__ __device__ inline int packed_stage_bytes(int block_size, int wm,
-                                                  int wr) {
-  return 8 * block_size + rq::staged_row_bytes(wm) +
+                                                  int wr, int elem) {
+  return (elem + 4) * block_size + rq::staged_row_bytes(wm) +
          (wr ? rq::staged_row_bytes(wr) : 0);
 }
 
@@ -475,9 +489,9 @@ __device__ __forceinline__ uint64_t encode_group(
   }
 }
 
-template <int ALGO, int THREADS, bool STOCH, bool SENT>
+template <typename T, int ALGO, int THREADS, bool STOCH, bool SENT>
 __global__ void __launch_bounds__(THREADS, walk_ctas_per_sm<THREADS>())
-fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
+fused_update_packed_kernel(T* p, const float* g, uint8_t* codes_m,
                            float* absmax_m, uint8_t* codes_r,
                            float* absmax_r, const float* qmap_m,
                            const float* qmap_r, const float* tensor_scale,
@@ -493,9 +507,12 @@ fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
   __shared__ int hred[SENT ? 64 : 1];
   RQ_DYNAMIC_SHARED(float4, dyn);
 
-  const int bsz = block_size, nvec = bsz >> 2;
+  constexpr int kElem = static_cast<int>(sizeof(T));
+  // 16-byte pieces of a row of p and of g (f32)
+  const int bsz = block_size, nvp = bsz * kElem / 16, nvg = bsz >> 2;
   const int wm = bsz * bits_m / 8, wr = kTwo ? bsz * bits_r / 8 : 0;
-  const int stage_bytes = packed_stage_bytes(bsz, wm, wr);
+  const int stage_bytes = packed_stage_bytes(bsz, wm, wr, kElem);
+  const int pg_bytes = (kElem + 4) * bsz;     // a stage's rows of p and g
   const size_t nb = static_cast<size_t>(n_blocks);
   const size_t stride = gridDim.x;
   uint8_t* ring = reinterpret_cast<uint8_t*>(dyn);
@@ -507,13 +524,13 @@ fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
       const float4* sp = reinterpret_cast<const float4*>(p + row * bsz);
       const float4* sg = reinterpret_cast<const float4*>(g + row * bsz);
       float4* d = reinterpret_cast<float4*>(dst);
-      for (int c = threadIdx.x; c < nvec; c += THREADS) {
-        cp_async_16(d + c, sp + c, true);
-        cp_async_16(d + nvec + c, sg + c, true);
+      for (int c = threadIdx.x; c < nvg; c += THREADS) {
+        if (sizeof(T) == 4 || c < nvp) cp_async_16(d + c, sp + c, true);
+        cp_async_16(d + nvp + c, sg + c, true);
       }
-      rq::stage_packed_row(dst + 8 * bsz, codes_m, row * wm, wm, nb * wm);
+      rq::stage_packed_row(dst + pg_bytes, codes_m, row * wm, wm, nb * wm);
       if (kTwo)
-        rq::stage_packed_row(dst + 8 * bsz + rq::staged_row_bytes(wm),
+        rq::stage_packed_row(dst + pg_bytes + rq::staged_row_bytes(wm),
                              codes_r, row * wr, wr, nb * wr);
     }
     cp_async_commit();
@@ -541,19 +558,18 @@ fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
     int cnt[2] = {0, 0};  // sentinel counts (see kHigh)
     if (live) {
       const float4* sp = reinterpret_cast<const float4*>(st);
-      const float4* sg = sp + nvec;
+      const float4* sg = sp + nvp;
+      const uint8_t* rows = st + pg_bytes;   // the packed rows
       const uint64_t om = rq::load_group(
-          st + 8 * bsz + ((row * wm) & 15) + bits_m * v, bits_m);
+          rows + ((row * wm) & 15) + bits_m * v, bits_m);
       const uint64_t orr =
-          kTwo ? rq::load_group(st + 8 * bsz + rq::staged_row_bytes(wm) +
+          kTwo ? rq::load_group(rows + rq::staged_row_bytes(wm) +
                                     ((row * wr) & 15) + bits_r * v,
                                 bits_r)
                : 0u;
-      const float4 p0 = sp[2 * v], p1 = sp[2 * v + 1];
-      const float4 g0 = sg[2 * v], g1 = sg[2 * v + 1];
-      const float pe[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const float ge[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      float pn[8];
+      float pe[8], ge[8], pn[8];
+      rq::Elem<T>::load8(sp, v, false, pe);
+      rq::Elem<float>::load8(sg, v, false, ge);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const uint32_t cm =
@@ -576,9 +592,7 @@ fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
           cnt[0] += (rq::is_finite(ge[c]) ? 0 : 1) +
                     (rq::is_finite(o.p2) ? 0 : kHigh);
       }
-      float4* pr = reinterpret_cast<float4*>(p + row * bsz);
-      pr[2 * v] = make_float4(pn[0], pn[1], pn[2], pn[3]);
-      pr[2 * v + 1] = make_float4(pn[4], pn[5], pn[6], pn[7]);
+      rq::Elem<T>::store8(p + row * bsz, v, false, pn);
     }
     // every thread has read this stage before the reduction's first
     // barrier: refill it with the block two ahead
@@ -616,7 +630,7 @@ fused_update_packed_kernel(float* p, const float* g, uint8_t* codes_m,
 }
 
 struct Args {
-  float* p;
+  PElem* p;
   const float* g;
   uint8_t* codes_m;
   float* absmax_m;
@@ -633,22 +647,27 @@ struct Args {
   rq::Scalars s;
 };
 
+constexpr int kElem = static_cast<int>(sizeof(PElem));
+// Rows of p start 16-byte aligned: the 8-bit kernel's block size is a
+// multiple of 4 (f32 p) or 8 (bf16 p)
+constexpr int kRowMultiple = 16 / kElem;
+
 // Dynamic shared memory of the 8-bit kernel: the two-state instances'
 // two-slot ring of p and g rows.
 int update8_smem_bytes(bool two, int block_size) {
-  return two ? 2 * 8 * block_size : 0;
+  return two ? 2 * (kElem + 4) * block_size : 0;
 }
 
 // Dynamic shared memory of the packed kernel: its two-slot ring.
 int packed_smem_bytes(int block_size, int bits_m, int bits_r, bool two) {
   return 2 * packed_stage_bytes(block_size, block_size * bits_m / 8,
-                                two ? block_size * bits_r / 8 : 0);
+                                two ? block_size * bits_r / 8 : 0, kElem);
 }
 
 // CTAs of an update kernel for n_blocks blocks on a card of `sms` SMs
 // (rq_walk_ctas); 0 for a block size that is not a multiple of `multiple`
 // (8 for packed rows, 4 for 8-bit ones) or above rq::kMaxBlock.  lean:
-// the 8-bit kernel's two-state instances with the sentinel
+// the 8-bit kernel's two-state instances with the sentinel or bf16 p
 // (update8_ctas_per_sm).
 int walk_ctas(int n_blocks, int block_size, int sms, int multiple,
               bool lean = false) {
@@ -657,7 +676,7 @@ int walk_ctas(int n_blocks, int block_size, int sms, int multiple,
   int per_sm;
   switch (rq_walk_threads(block_size)) {
     case 256:
-      per_sm = lean ? update8_ctas_per_sm<rq::kAdam, 256, true>()
+      per_sm = lean ? update8_ctas_per_sm<PElem, rq::kAdam, 256, true>()
                     : walk_ctas_per_sm<256>();
       break;
     case 512: per_sm = walk_ctas_per_sm<512>(); break;
@@ -673,19 +692,20 @@ int launch(const Args& a, cudaStream_t stream) {
     const int smem = packed_smem_bytes(a.block_size, a.bits_m, a.bits_r,
                                        rq::AlgoTraits<ALGO>::kTwoStates);
     const cudaError_t e = rq_allow_smem(
-        fused_update_packed_kernel<ALGO, THREADS, STOCH, SENT>, smem);
+        fused_update_packed_kernel<PElem, ALGO, THREADS, STOCH, SENT>,
+        smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    fused_update_packed_kernel<ALGO, THREADS, STOCH, SENT><<<grid, block, smem, stream>>>(
+    fused_update_packed_kernel<PElem, ALGO, THREADS, STOCH, SENT><<<grid, block, smem, stream>>>(
         a.p, a.g, a.codes_m, a.absmax_m, a.codes_r, a.absmax_r, a.qmap_m,
         a.qmap_r, a.tensor_scale, a.block_seeds, a.block_offsets, a.health,
         a.seed, a.n_blocks, a.block_size, a.bits_m, a.bits_r, a.s);
   } else {
     const int smem = update8_smem_bytes(rq::AlgoTraits<ALGO>::kTwoStates,
                                         a.block_size);
-    const cudaError_t e =
-        rq_allow_smem(fused_update_kernel<ALGO, THREADS, STOCH, SENT>, smem);
+    const cudaError_t e = rq_allow_smem(
+        fused_update_kernel<PElem, ALGO, THREADS, STOCH, SENT>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
-    fused_update_kernel<ALGO, THREADS, STOCH, SENT><<<grid, block, smem, stream>>>(
+    fused_update_kernel<PElem, ALGO, THREADS, STOCH, SENT><<<grid, block, smem, stream>>>(
         a.p, a.g, a.codes_m, a.absmax_m, a.codes_r, a.absmax_r, a.qmap_m,
         a.qmap_r, a.tensor_scale, a.block_seeds, a.block_offsets, a.health,
         a.seed, a.n_blocks, a.block_size, a.s);
@@ -723,7 +743,7 @@ int run(int algo, const Args& a, int stochastic, cudaStream_t stream) {
   if ((two && (!a.codes_r || !a.absmax_r || !a.qmap_r)) ||
       (norms && !a.tensor_scale) ||
       (PACKED && (!valid_bits(a.bits_m) || (two && !valid_bits(a.bits_r)))) ||
-      a.block_size <= 0 || a.block_size % (PACKED ? 8 : 4) ||
+      a.block_size <= 0 || a.block_size % (PACKED ? 8 : kRowMultiple) ||
       a.block_size > rq::kMaxBlock || a.ctas <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool sr = stochastic != 0;
@@ -747,15 +767,16 @@ rq::Scalars scalars(float lr, float beta1, float one_minus_beta1,
 
 }  // namespace
 
-// algo: rq::Algo (adam and adamw are both kAdam).  codes_r, absmax_r and
-// qmap_r are null for one-state algorithms, tensor_scale for block-local
+// p: PElem (f32, or bf16 in the RQ_P_BF16 library, whose block size is a
+// multiple of 8); g: f32.  algo: rq::Algo (adam and adamw are both
+// kAdam).  codes_r, absmax_r and qmap_r are null for one-state algorithms, tensor_scale for block-local
 // ones; block_seeds and block_offsets may be null (see above).  health:
 // null, or the sentinel's (n_blocks, 8) f32 output (16-byte aligned).
 // block_size a multiple of 4 and at most rq::kMaxBlock.  ctas: the grid,
 // from fused_update_ctas; each CTA walks the blocks blockIdx.x,
 // blockIdx.x + ctas, ...
 extern "C" int fused_update_grid(
-    int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
+    int algo, PElem* p, const float* g, uint8_t* codes_m, float* absmax_m,
     uint8_t* codes_r, float* absmax_r, const float* qmap_m,
     const float* qmap_r, const float* tensor_scale, const int* block_seeds,
     const int* block_offsets, float* health, int stochastic, int seed,
@@ -776,7 +797,8 @@ extern "C" int fused_update_grid(
 extern "C" int fused_update_ctas(int algo, int sentinel, int n_blocks,
                                  int block_size, int sms) {
   const bool two = algo == rq::kAdam || algo == rq::kLamb;
-  return walk_ctas(n_blocks, block_size, sms, 4, two && sentinel);
+  return walk_ctas(n_blocks, block_size, sms, kRowMultiple,
+                   two && (sentinel || kElem == 2));
 }
 
 // Dynamic shared memory per CTA of fused_update_grid (its ring; 0 for the
@@ -788,7 +810,7 @@ extern "C" int fused_update_smem(int algo, int block_size) {
 
 // fused_update_grid with one CTA per block and no sentinel output.
 extern "C" int fused_update(
-    int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
+    int algo, PElem* p, const float* g, uint8_t* codes_m, float* absmax_m,
     uint8_t* codes_r, float* absmax_r, const float* qmap_m,
     const float* qmap_r, const float* tensor_scale, const int* block_seeds,
     const int* block_offsets, int stochastic, int seed, int n_blocks,
@@ -806,7 +828,7 @@ extern "C" int fused_update(
 // fused_update_grid with one CTA per block and the sentinel output
 // (health not null).
 extern "C" int fused_update_sentinel(
-    int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
+    int algo, PElem* p, const float* g, uint8_t* codes_m, float* absmax_m,
     uint8_t* codes_r, float* absmax_r, const float* qmap_m,
     const float* qmap_r, const float* tensor_scale, const int* block_seeds,
     const int* block_offsets, float* health, int stochastic, int seed,
@@ -828,7 +850,7 @@ extern "C" int fused_update_sentinel(
 // qmaps of 2^bits entries.  Widths in {4, 5, 6, 8}; block_size a multiple
 // of 8 and at most rq::kMaxBlock.  ctas: from fused_update_packed_ctas.
 extern "C" int fused_update_packed_grid(
-    int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
+    int algo, PElem* p, const float* g, uint8_t* codes_m, float* absmax_m,
     uint8_t* codes_r, float* absmax_r, const float* qmap_m,
     const float* qmap_r, const float* tensor_scale, const int* block_seeds,
     const int* block_offsets, float* health, int stochastic, int seed,
@@ -860,7 +882,7 @@ extern "C" int fused_update_packed_smem(int algo, int block_size, int bits_m,
 
 // fused_update_packed_grid with one CTA per block and no sentinel output.
 extern "C" int fused_update_packed(
-    int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
+    int algo, PElem* p, const float* g, uint8_t* codes_m, float* absmax_m,
     uint8_t* codes_r, float* absmax_r, const float* qmap_m,
     const float* qmap_r, const float* tensor_scale, const int* block_seeds,
     const int* block_offsets, int stochastic, int seed, int n_blocks,
@@ -879,7 +901,7 @@ extern "C" int fused_update_packed(
 // fused_update_packed_grid with one CTA per block and the sentinel output
 // (health not null).
 extern "C" int fused_update_packed_sentinel(
-    int algo, float* p, const float* g, uint8_t* codes_m, float* absmax_m,
+    int algo, PElem* p, const float* g, uint8_t* codes_m, float* absmax_m,
     uint8_t* codes_r, float* absmax_r, const float* qmap_m,
     const float* qmap_r, const float* tensor_scale, const int* block_seeds,
     const int* block_offsets, float* health, int stochastic, int seed,
@@ -900,8 +922,9 @@ extern "C" int fused_update_packed_sentinel(
 // pattern x in its range [x_min, x_max] (both signs) against __fdiv_rn;
 // mismatches[i] counts the x that differ for divisor i and checked[i] the
 // x in range.  One thread per x of a 2^32 sweep, grid-strided.  On the
-// card only (the CPU tests' emulation runs no such sweep).
-#ifdef __CUDACC__
+// card only (the CPU tests' emulation runs no such sweep), and in the f32
+// library only.
+#if defined(__CUDACC__) && !defined(RQ_P_BF16)
 __global__ void div_check_kernel(const float* divisors, int n,
                                  unsigned long long* mismatches,
                                  unsigned long long* checked) {

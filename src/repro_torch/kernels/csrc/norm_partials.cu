@@ -16,6 +16,13 @@
 // 3.35 TB/s: 0.201 ms for lars and 0.251 ms for lamb at the main path's
 // 40960 x 2048 leaf.
 //
+// bf16 p (ROADMAP A14b-1, a bf16 master; the reference casts p and its f32
+// g to f32, fused_update.py:407-408): the library built with RQ_P_BF16
+// (kernels/build.py LIBRARIES) has the same entries on bf16 p and f32 g.
+// It reads each thread's four-element vectors of p as 8-byte words and
+// converts them to f32 on load, so the sums and their order are the f32
+// instance's.  lars then reads 6 B/element, lamb 8.
+//
 // Packed states (ROADMAP B3(d)): lamb's codes may be packed b-bit rows
 // (core/lowbit/packing.py), b in {4, 5, 6, 8} per state, with 2^b-entry
 // codebooks.  lamb at (4, 8) reads 9.5 B/element.
@@ -72,22 +79,20 @@ struct NormInputs {
   float am, ar;
 };
 
-template <int KIND, int VPT, bool PACKED>
+template <typename T, int KIND, int VPT, bool PACKED>
 __device__ __forceinline__ void load_inputs(
-    NormInputs<VPT>& in, const float* p, const float* g,
+    NormInputs<VPT>& in, const T* p, const float* g,
     const uint8_t* codes_m, const float* absmax_m, const uint8_t* codes_r,
     const float* absmax_r, size_t row, int block_size) {
   constexpr bool kLamb = KIND == kLambNorms;
   const size_t off = row * block_size;
   const int nvec = block_size >> 2;
-  const float4* pr = reinterpret_cast<const float4*>(p + off);
-  const float4* gr = reinterpret_cast<const float4*>(g + off);
 #pragma unroll
   for (int k = 0; k < VPT; ++k) {
     const int i = threadIdx.x + k * rq::kThreads;
     if (i < nvec) {
-      in.p[k] = pr[i];
-      in.g[k] = gr[i];
+      in.p[k] = rq::Elem<T>::load4(p + off, i);
+      in.g[k] = rq::Elem<float>::load4(g + off, i);
       if (kLamb && !PACKED) {
         in.cm[k] = reinterpret_cast<const uchar4*>(codes_m + off)[i];
         in.cr[k] = reinterpret_cast<const uchar4*>(codes_r + off)[i];
@@ -100,9 +105,9 @@ __device__ __forceinline__ void load_inputs(
   }
 }
 
-template <int KIND, int VPT, bool PACKED>
+template <typename T, int KIND, int VPT, bool PACKED>
 __global__ void __launch_bounds__(rq::kThreads, norm_ctas_per_sm<KIND, VPT>())
-norm_partials_kernel(const float* p, const float* g, const uint8_t* codes_m,
+norm_partials_kernel(const T* p, const float* g, const uint8_t* codes_m,
                      const float* absmax_m, const uint8_t* codes_r,
                      const float* absmax_r, const float* qmap_m,
                      const float* qmap_r, float* out, int n_blocks,
@@ -137,8 +142,8 @@ norm_partials_kernel(const float* p, const float* g, const uint8_t* codes_m,
   }
   NormInputs<VPT> in;
   if (row < nb)
-    load_inputs<KIND, VPT, PACKED>(in, p, g, codes_m, absmax_m, codes_r,
-                                   absmax_r, row, block_size);
+    load_inputs<T, KIND, VPT, PACKED>(in, p, g, codes_m, absmax_m, codes_r,
+                                      absmax_r, row, block_size);
   if (kLamb) {
     rq::load_lut(qmap_m, lut_m, 1 << bits_m);
     rq::load_lut(qmap_r, lut_r, 1 << bits_r);
@@ -193,8 +198,9 @@ norm_partials_kernel(const float* p, const float* g, const uint8_t* codes_m,
     }
     // the next block's loads go out before this block's reduction
     if (row + stride < nb)
-      load_inputs<KIND, VPT, PACKED>(in, p, g, codes_m, absmax_m, codes_r,
-                                     absmax_r, row + stride, block_size);
+      load_inputs<T, KIND, VPT, PACKED>(in, p, g, codes_m, absmax_m,
+                                        codes_r, absmax_r, row + stride,
+                                        block_size);
     const float3 sums = rq::block_sum3(pn2, gn2, un2, red);
     // every thread has read this ring slot before the reduction's first
     // barrier: refill it with the block two ahead
@@ -207,7 +213,7 @@ norm_partials_kernel(const float* p, const float* g, const uint8_t* codes_m,
 }
 
 struct Args {
-  const float* p;
+  const PElem* p;
   const float* g;
   const uint8_t* codes_m;
   const float* absmax_m;
@@ -231,7 +237,7 @@ int launch(const Args& a, cudaStream_t stream) {
   const int smem =
       PACKED ? packed_smem_bytes(a.block_size, a.bits_m, a.bits_r) : 0;
   const dim3 grid(a.ctas), block(rq::kThreads);
-  norm_partials_kernel<KIND, VPT, PACKED><<<grid, block, smem, stream>>>(
+  norm_partials_kernel<PElem, KIND, VPT, PACKED><<<grid, block, smem, stream>>>(
       a.p, a.g, a.codes_m, a.absmax_m, a.codes_r, a.absmax_r, a.qmap_m,
       a.qmap_r, a.out, a.n_blocks, a.block_size, a.bits_m, a.bits_r, a.s);
   return static_cast<int>(cudaGetLastError());
@@ -259,7 +265,7 @@ bool valid_bits(int b) { return b == 4 || b == 5 || b == 6 || b == 8; }
 // norm_partials_ctas; each CTA walks the blocks blockIdx.x,
 // blockIdx.x + ctas, ...
 extern "C" int norm_partials_grid(
-    int kind, const float* p, const float* g, const uint8_t* codes_m,
+    int kind, const PElem* p, const float* g, const uint8_t* codes_m,
     const float* absmax_m, const uint8_t* codes_r, const float* absmax_r,
     const float* qmap_m, const float* qmap_r, float* out, int n_blocks,
     int block_size, int bits_m, int bits_r, int ctas, float lr, float beta1,
@@ -321,7 +327,7 @@ extern "C" int norm_partials_smem(int block_size, int bits_m, int bits_r) {
 
 // norm_partials_grid with one CTA per block, for lars or lamb on 8-bit rows.
 extern "C" int norm_partials(
-    int kind, const float* p, const float* g, const uint8_t* codes_m,
+    int kind, const PElem* p, const float* g, const uint8_t* codes_m,
     const float* absmax_m, const uint8_t* codes_r, const float* absmax_r,
     const float* qmap_m, const float* qmap_r, float* out, int n_blocks,
     int block_size, float lr, float beta1, float one_minus_beta1, float beta2,
@@ -336,7 +342,7 @@ extern "C" int norm_partials(
 
 // norm_partials_grid with one CTA per block, for lamb on packed rows.
 extern "C" int norm_partials_packed(
-    const float* p, const float* g, const uint8_t* codes_m,
+    const PElem* p, const float* g, const uint8_t* codes_m,
     const float* absmax_m, const uint8_t* codes_r, const float* absmax_r,
     const float* qmap_m, const float* qmap_r, float* out, int n_blocks,
     int block_size, int bits_m, int bits_r, float lr, float beta1,

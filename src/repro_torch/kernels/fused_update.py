@@ -32,6 +32,25 @@ JAX package.  The scalars dict ``s`` carries ``c1 = 1 - beta1**step`` and
 the kernel receives the very same two floats, so ``pow`` is evaluated once
 per call in one place.
 
+*bf16 masters.*  ``p`` is f32 or bf16 (a bf16 master, ROADMAP A14b-1) and
+``g`` is f32, as the JAX package feeds its kernel (it flattens p and g to
+f32 and writes the master back in its dtype): the kernels are templates
+on the element type of p, built once per type into two libraries
+(``build.LIBRARIES``: ``fused_update`` and ``fused_update_bf16``,
+``norm_partials`` and ``norm_partials_bf16``); they compute in f32 and
+store the new ``p`` rounded to nearest even.  The plain versions cast to
+f32 and return the new ``p`` in f32, which the wrapper rounds into ``p``.
+Any other dtype, or a bf16 row whose block size is not a multiple of 8 on
+the card, raises.
+
+*Plain versions on any device.*  :func:`fused_update_chunked` and
+:func:`norm_partials_chunked` (the ``"plain"`` backend of ``ops``, and
+the CPU path of the CUDA wrappers) run the kernels' plain versions in
+place, :data:`PLAIN_CHUNK` blocks at a time (every result is block-local,
+so the chunks give the same bits and bound the temporaries on a
+billion-element arena): the counterpart of the JAX package's interpret
+mode.
+
 *Summation order.*  A sum is not order-free in floating point, so the norm
 prologue fixes one: each of a block's 256 threads adds its elements in
 sequence (its float4 vectors in order, the four lanes of each in order),
@@ -388,6 +407,7 @@ def norm_partials_plain(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
     ``bits_r``-bit codes below 8) as ``adam_base_update`` does; lars leaves
     ||u||^2 at 0."""
     spec = ALGO_SPECS[algo]
+    p = p.to(torch.float32)
     g = g.to(torch.float32) * s["gnorm_scale"]
     zero = torch.zeros(p.shape[0], dtype=torch.float32, device=p.device)
     un2 = zero
@@ -402,14 +422,30 @@ def norm_partials_plain(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
                        + [zero] * (N_PARTIALS - 3), dim=1)
 
 
+# element type of p -> its kernels' library suffix (build.LIBRARIES)
+P_LIBRARIES = {torch.float32: "", torch.bfloat16: "_bf16"}
+PLAIN_CHUNK = 16384     # blocks per step of the plain versions
+
+
 def _check_blocks(p, g):
     if p.dim() != 2 or p.shape[1] % 4 or not \
             0 < p.shape[1] <= common.MAX_BLOCK_SIZE:
         raise ValueError(f"p must be (n_blocks, B) with B a multiple of 4 "
                          f"and at most {common.MAX_BLOCK_SIZE}, got "
                          f"{tuple(p.shape)}")
-    build.require(p, "p", torch.float32)
+    if p.dtype not in P_LIBRARIES:
+        raise TypeError(f"p: dtype {p.dtype}, expected one of "
+                        f"{tuple(P_LIBRARIES)}")
+    build.require(p, "p", p.dtype)
     build.require(g, "g", torch.float32, tuple(p.shape), p.device)
+    if p.device.type == "cuda" and p.dtype == torch.bfloat16 and \
+            p.shape[1] % 8:
+        raise ValueError(f"bf16 p needs a block size that is a multiple "
+                         f"of 8, got {p.shape[1]}")
+
+
+def _chunks(nb: int):
+    return [(i, min(nb, i + PLAIN_CHUNK)) for i in range(0, nb, PLAIN_CHUNK)]
 
 
 def _check_state(spec, p, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
@@ -430,15 +466,29 @@ def _check_state(spec, p, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
         build.require(q, f"qmap_{name}", torch.float32, (1 << b,), dev)
 
 
-def norm_partials_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
-                       qmap_r, *, algo: str, beta1=0.9, beta2=0.999,
-                       eps=1e-8, weight_decay=0.0, step=1.0,
-                       gnorm_scale=1.0, bits_m: int = 8,
-                       bits_r: int = 8) -> torch.Tensor:
-    """Per-block norm partials (n_blocks, 8) f32 for lamb/lars.  CUDA
-    tensors launch ``csrc/norm_partials.cu``; CPU tensors run
-    :func:`norm_partials_plain`.  lars reads p and g only; lamb reads its
-    two states, as packed ``bits_m`` / ``bits_r``-bit codes below 8."""
+def norm_partials_cuda(*args, **kw) -> torch.Tensor:
+    """Per-block norm partials (n_blocks, 8) f32 for lamb/lars
+    (:func:`_norm_partials`'s arguments).  CUDA tensors launch
+    ``csrc/norm_partials.cu`` (the library of p's element type); CPU
+    tensors run :func:`norm_partials_chunked`."""
+    return _norm_partials(True, *args, **kw)
+
+
+def norm_partials_chunked(*args, **kw) -> torch.Tensor:
+    """:func:`norm_partials_cuda`'s result from the kernel's plain version,
+    :data:`PLAIN_CHUNK` blocks at a time, on any device."""
+    return _norm_partials(False, *args, **kw)
+
+
+def _norm_partials(kernel: bool, p, g, codes_m, absmax_m, codes_r,
+                   absmax_r, qmap_m, qmap_r, *, algo: str, beta1=0.9,
+                   beta2=0.999, eps=1e-8, weight_decay=0.0, step=1.0,
+                   gnorm_scale=1.0, bits_m: int = 8,
+                   bits_r: int = 8) -> torch.Tensor:
+    """The norm prologue: the kernel on a CUDA tensor when ``kernel``,
+    else :func:`norm_partials_plain` chunk by chunk.  p: f32 or bf16, g:
+    f32.  lars reads p and g only; lamb reads its two states, as packed
+    ``bits_m`` / ``bits_r``-bit codes below 8."""
     spec = ALGO_SPECS.get(algo)
     if spec is None or not spec.needs_norms:
         raise ValueError(f"no norm prologue for algo {algo!r}")
@@ -450,10 +500,14 @@ def norm_partials_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
     s = scalars(lr=0.0, beta1=beta1, beta2=beta2, eps=eps,
                 weight_decay=weight_decay, step=step,
                 gnorm_scale=gnorm_scale, device="cpu")
-    if p.device.type == "cpu":
-        return norm_partials_plain(p, g, codes_m, absmax_m, codes_r,
-                                   absmax_r, qmap_m, qmap_r, s, algo=algo,
-                                   bits_m=bits_m, bits_r=bits_r)
+    if not kernel or p.device.type == "cpu":
+        s = {k: to_device(v, p.device) for k, v in s.items()}
+        rows = lambda t, i, j: None if t is None else t[i:j]
+        return torch.cat([norm_partials_plain(
+            p[i:j], g[i:j], rows(codes_m, i, j), rows(absmax_m, i, j),
+            rows(codes_r, i, j), rows(absmax_r, i, j), qmap_m, qmap_r, s,
+            algo=algo, bits_m=bits_m, bits_r=bits_r)
+            for i, j in _chunks(p.shape[0])])
     if p.device.type != "cuda":
         raise ValueError(f"no norm-partials kernel for device {p.device}")
     if packed and p.shape[1] % 8:
@@ -464,7 +518,7 @@ def norm_partials_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
     opt = lambda t: build.ptr(t) if lamb else None
     state = (opt(codes_m), opt(absmax_m), opt(codes_r), opt(absmax_r),
              opt(qmap_m), opt(qmap_r))
-    lib = _lib("norm_partials")
+    lib = _lib("norm_partials" + P_LIBRARIES[p.dtype])
     kind = NORM_KINDS[spec.norm_kind]
     ctas = lib.norm_partials_ctas(kind, nb, bsz, build.sm_count(p.device))
     with torch.cuda.device(p.device):
@@ -515,6 +569,7 @@ def fused_update_plain(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
     spec = ALGO_SPECS[algo]
     two = spec.n_states == 2
     g_raw = g
+    p = p.to(torch.float32)
     g = g.to(torch.float32) * s["gnorm_scale"]
     m = common.decode(unpack_codes(codes_m, bits_m), qmap_m) \
         * absmax_m[:, None]
@@ -548,33 +603,50 @@ def _block_vector(t, name: str, nb: int, dtype, device):
     return t
 
 
-def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
-                      qmap_r, *, algo: str, lr, beta1=0.9, beta2=0.999,
-                      eps=1e-8, weight_decay=0.0, step=1.0,
-                      trust_coeff=0.001, gnorm_scale=1.0,
-                      stochastic: bool = False, seed=0, block_seeds=None,
-                      block_offsets=None, segments=None,
-                      tensor_scale_blocks=None, bits_m: int = 8,
-                      bits_r: int = 8,
-                      sentinel: bool = False) -> FusedUpdateResult:
+def fused_update_cuda(*args, **kw) -> FusedUpdateResult:
+    """One fused k-bit step of ``algo``, **in place**
+    (:func:`_fused_update`'s arguments).  CUDA tensors launch
+    ``csrc/fused_update.cu`` (the library of p's element type: the 8-bit
+    kernel when both widths are 8, else the packed one, each on the grid
+    its library picks for the card's SM count); CPU tensors run
+    :func:`fused_update_chunked`."""
+    return _fused_update(True, *args, **kw)
+
+
+def fused_update_chunked(*args, **kw) -> FusedUpdateResult:
+    """:func:`fused_update_cuda`'s step from the kernels' plain versions
+    (:func:`fused_update_plain`, and :func:`norm_partials_plain` for
+    lamb/lars), in place, :data:`PLAIN_CHUNK` blocks at a time, on any
+    device: the kernels' bits, and no launch."""
+    return _fused_update(False, *args, **kw)
+
+
+def _fused_update(kernel: bool, p, g, codes_m, absmax_m, codes_r, absmax_r,
+                  qmap_m, qmap_r, *, algo: str, lr, beta1=0.9, beta2=0.999,
+                  eps=1e-8, weight_decay=0.0, step=1.0, trust_coeff=0.001,
+                  gnorm_scale=1.0, stochastic: bool = False, seed=0,
+                  block_seeds=None, block_offsets=None, segments=None,
+                  tensor_scale_blocks=None, bits_m: int = 8,
+                  bits_r: int = 8,
+                  sentinel: bool = False) -> FusedUpdateResult:
     """One fused k-bit step of ``algo``, **in place**: ``p``, the code
     tensors and the absmax vectors are overwritten with the new values
-    (saving a copy of each) and returned in the result.  ``sentinel``
-    adds the per-block health counts (``health``, (n_blocks, N_HEALTH)
-    f32, :func:`health_rows`) to the result, from the same launch.
+    (saving a copy of each) and returned in the result; the kernels on a
+    CUDA tensor when ``kernel``, else their plain versions chunk by chunk.
+    ``sentinel`` adds the per-block health counts (``health``,
+    (n_blocks, N_HEALTH) f32, :func:`health_rows`) to the result, from the
+    same launch.
 
-    p, g: (n_blocks, B) f32; codes: (n_blocks, B * bits / 8) uint8, plain
+    p: (n_blocks, B) f32 or bf16 (block size a multiple of 8 on the card);
+    g: (n_blocks, B) f32; codes: (n_blocks, B * bits / 8) uint8, plain
     codes at ``bits`` = 8 and packed b-bit rows (``core/lowbit``) at 4, 5
     and 6; absmax: (n_blocks,) f32; qmaps: 2^bits-entry f32 codebooks.
     One-state algorithms take codes_r = absmax_r = None.  lamb/lars first
-    run the norm prologue (:func:`norm_partials_cuda`) and finalize it per
+    run the norm prologue (:func:`_norm_partials`) and finalize it per
     segment, unless ``tensor_scale_blocks`` gives the per-block scales.
     ``stochastic`` rounds with the counter hash seeded by ``seed`` (int32,
     every block) or ``block_seeds``, at element index ``block_offsets * B
-    + col``.  CUDA tensors launch ``csrc/fused_update.cu`` (the 8-bit
-    kernel when both widths are 8, else the packed one, each on the grid
-    its library picks for the card's SM count); CPU tensors run
-    :func:`fused_update_plain`."""
+    + col``."""
     if algo not in KERNEL_ALGOS:
         raise ValueError(f"no fused-update kernel for algo {algo!r}; the "
                          f"kernel takes {tuple(KERNEL_ALGOS)}")
@@ -602,31 +674,45 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
     ts = None
     if spec.needs_norms:
         if tensor_scale_blocks is None:
-            partials = norm_partials_cuda(p, g, codes_m, absmax_m, codes_r,
-                                          absmax_r, qmap_m, qmap_r,
-                                          algo=algo, bits_m=bits_m,
-                                          bits_r=bits_r, **hyper)
+            partials = _norm_partials(kernel, p, g, codes_m, absmax_m,
+                                      codes_r, absmax_r, qmap_m, qmap_r,
+                                      algo=algo, bits_m=bits_m,
+                                      bits_r=bits_r, **hyper)
             ts = segment_scales_from_partials(
                 spec, partials, segments or ((0, nb),), nb, weight_decay,
                 trust_coeff)
         else:
             ts = _block_vector(tensor_scale_blocks, "tensor_scale_blocks",
                                nb, torch.float32, dev)
-    if dev.type == "cpu":
-        uniforms = (block_uniforms(nb, bsz, two=two, seed=seed,
-                                   block_seeds=block_seeds,
-                                   block_offsets=block_offsets, device=dev)
-                    if stochastic else (None, None))
-        res = fused_update_plain(p, g, codes_m, absmax_m, codes_r, absmax_r,
-                                 qmap_m, qmap_r, s, algo=algo,
-                                 tensor_scale=ts, uniforms=uniforms,
-                                 bits_m=bits_m, bits_r=bits_r,
-                                 sentinel=sentinel)
-        for dst, src in zip((p, codes_m, absmax_m, codes_r, absmax_r),
-                            res[:5]):
-            if dst is not None:
-                dst.copy_(src)
-        health = res.health
+    if not kernel or dev.type == "cpu":
+        sd = {k: to_device(v, dev) for k, v in s.items()}
+        if stochastic:
+            block_seeds = (block_seeds if block_seeds is not None else
+                           torch.full((nb,), to_i32(seed), dtype=torch.int32,
+                                      device=dev))
+            block_offsets = (block_offsets if block_offsets is not None
+                             else torch.arange(nb, dtype=torch.int32,
+                                               device=dev))
+        rows = lambda t, i, j: None if t is None else t[i:j]
+        parts = []
+        for i, j in _chunks(nb):
+            uniforms = (block_uniforms(j - i, bsz, two=two,
+                                       block_seeds=block_seeds[i:j],
+                                       block_offsets=block_offsets[i:j],
+                                       device=dev)
+                        if stochastic else (None, None))
+            res = fused_update_plain(
+                p[i:j], g[i:j], codes_m[i:j], absmax_m[i:j],
+                rows(codes_r, i, j), rows(absmax_r, i, j), qmap_m, qmap_r,
+                sd, algo=algo, tensor_scale=rows(ts, i, j),
+                uniforms=uniforms, bits_m=bits_m, bits_r=bits_r,
+                sentinel=sentinel)
+            for dst, src in zip((p, codes_m, absmax_m, codes_r, absmax_r),
+                                res[:5]):
+                if dst is not None:
+                    dst[i:j].copy_(src)     # p: to nearest even for bf16
+            parts.append(res.health)
+        health = torch.cat(parts) if sentinel else None
     elif dev.type == "cuda":
         health = (torch.empty((nb, N_HEALTH), dtype=torch.float32,
                               device=dev) if sentinel else None)
@@ -637,7 +723,7 @@ def fused_update_cuda(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m,
                 opt(qmap_r if two else None), opt(ts), opt(block_seeds),
                 opt(block_offsets))
         ints = (int(bool(stochastic)), to_i32(seed), nb, bsz)
-        lib = _lib("fused_update")
+        lib = _lib("fused_update" + P_LIBRARIES[p.dtype])
         sms = build.sm_count(dev)   # the grid: CTAs that walk the blocks
         ptrs += (opt(health),)      # may be null
         if packed:
@@ -665,7 +751,8 @@ fused_update_cuda.launches = 0
 fused_update_cuda.sentinel_launches = 0     # the launches of those with B3(e)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry -> (source, argtypes)
+# C entry -> (source, argtypes); every library of the source
+# (build.LIBRARIES) has the entry
 ARGTYPES = {
     # algo, p, g, codes/absmax m and r, qmaps, tensor_scale, block_seeds,
     # block_offsets, stochastic, seed, n_blocks, block_size, 10 scalars,
@@ -719,8 +806,11 @@ ARGTYPES = {
 
 
 @functools.cache
-def _lib(source: str) -> ctypes.CDLL:
-    lib = build.library(source)
+def _lib(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (of ``build.LIBRARIES``) with its
+    source's entries' argument types."""
+    lib = build.library(name)
+    source = build.LIBRARIES[name][0]
     for fn_name, (src, argtypes) in ARGTYPES.items():
         if src == source:
             fn = getattr(lib, fn_name)

@@ -8,6 +8,13 @@
               launches the kernels; on CPU tensors it runs their plain
               versions.  The default.
   * "torch" — the plain oracle ``ref.fused_update_ref`` on any device.
+  * "plain" — the fused-update kernels' own plain versions on any device
+              (``fused_update.fused_update_chunked``: the wrapper's CPU
+              path, block for block, bit-identical to the kernels by
+              design; the counterpart of the JAX package's interpret
+              mode), which launches nothing.  The card's runs hold the
+              kernels to it.  Registered for the element-wise
+              algorithms only: muon's plain math is "torch".
 
 Sub-byte state widths ride through the same entry point: callers pass
 :class:`~repro_torch.core.lowbit.PackedCodes` instead of plain uint8 codes.
@@ -58,7 +65,7 @@ from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import newton_schulz as _ns
 
 ALGOS = tuple(_fu.ALGO_SPECS)
-IMPLS = ("torch", "cuda")
+IMPLS = ("torch", "cuda", "plain")
 DEFAULT_IMPL = "cuda"
 
 quantize_blockwise = blockwise_quant.quantize_blockwise
@@ -197,12 +204,24 @@ def _torch_entry(p, g, cm, am, cr, ar, qmap_m, qmap_r, *, sentinel=False,
 
 for _algo, _spec in _fu.ALGO_SPECS.items():
     if _spec.matrix:
-        for _impl in IMPLS:
+        for _impl in ("torch", "cuda"):
             register(_algo, _impl, _muon_entry(_impl))
         continue
     register(_algo, "torch", _torch_entry)
 for _algo in _fu.KERNEL_ALGOS:
     register(_algo, "cuda", _fu.fused_update_cuda)
+    register(_algo, "plain", _fu.fused_update_chunked)
+
+
+def norm_partials(impl: str, *args, **kw):
+    """lamb/lars's per-block norm partials by the kernel backend ``impl``:
+    "cuda" (B4, ``fused_update.norm_partials_cuda``) or "plain" (its plain
+    version, ``fused_update.norm_partials_chunked``)."""
+    if impl == "cuda":
+        return _fu.norm_partials_cuda(*args, **kw)
+    if impl == "plain":
+        return _fu.norm_partials_chunked(*args, **kw)
+    raise KeyError(f"no norm-partials backend for impl={impl!r}")
 
 
 def fused_update(algo: str, p, g, codes_m, absmax_m, codes_r=None,
@@ -282,8 +301,9 @@ def segment_tensor_scales(algo: str, p, g, codes_m, absmax_m, codes_r=None,
                           impl: Optional[str] = None) -> torch.Tensor:
     """The per-block tensor_scale vector (n_blocks,) that ``fused_update``
     derives internally for ``algo`` and ``impl``: the norm prologue and the
-    per-segment finalize ("cuda"), or the oracle's whole-segment sums
-    ("torch").  All ones for block-local algorithms."""
+    per-segment finalize ("cuda", or its plain version "plain"), or the
+    oracle's whole-segment sums ("torch").  All ones for block-local
+    algorithms."""
     impl = impl or DEFAULT_IMPL
     spec = _fu.ALGO_SPECS[algo]
     nb = p.shape[0]
@@ -300,10 +320,9 @@ def segment_tensor_scales(algo: str, p, g, codes_m, absmax_m, codes_r=None,
                                       absmax_r, qmap_m, qmap_r, algo=algo,
                                       lr=lr, trust_coeff=trust_coeff,
                                       segments=segments, **hyper)
-    if impl != "cuda":
+    if impl not in ("cuda", "plain"):
         raise KeyError(f"no segment_tensor_scales backend for impl={impl!r}")
-    partials = _fu.norm_partials_cuda(p, g, codes_m, absmax_m, codes_r,
-                                      absmax_r, qmap_m, qmap_r, algo=algo,
-                                      **hyper)
+    partials = norm_partials(impl, p, g, codes_m, absmax_m, codes_r,
+                             absmax_r, qmap_m, qmap_r, algo=algo, **hyper)
     return _fu.segment_scales_from_partials(spec, partials, segments, nb,
                                             weight_decay, trust_coeff)

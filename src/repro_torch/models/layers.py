@@ -1,17 +1,21 @@
-"""Transformer building blocks (mirrors ``repro.models.layers`` for dense
-blocks): norms, rotary embedding, causal attention, MLP, and the serving
-caches' attention: prefill into a dense cache, contiguous decode (16-bit or
-block-wise int8 rows) and paged decode over the quantized page pool.
+"""Transformer building blocks (mirrors ``repro.models.layers`` for the
+attention family): norms, rotary embedding, GQA attention with optional
+q/k/v biases and a sliding window, the plain GELU and the gated SiLU MLP,
+and the serving caches' attention: prefill into a dense cache (a ring of
+``min(max_len, window)`` rows under sliding-window attention), contiguous
+decode (16-bit or block-wise int8 rows) and paged decode over the
+quantized page pool.
 
-Each function takes the parameters of one layer as tensors and keeps the
-JAX package's casts: norms work in f32 and cast back, attention scores and
-softmax are f32, projections run in the compute dtype.  The JAX package has
-no Pallas kernel in its model, so plain PyTorch ops are its counterpart;
-the paged decode's gather-dequant is kernel B7 (``kernels/paged_kv.py``).
-Attention is a plain masked softmax over the whole sequence (the JAX
-package's chunked online softmax computes the same function; only the f32
-summation order differs).  Caches are dicts of tensors, updated in place:
-the counterpart of the JAX package's donated caches.
+Each function takes the parameters of one layer as a dict of tensors (the
+JAX package's leaf names) and keeps the JAX package's casts: norms work in
+f32 and cast back, attention scores and softmax are f32, projections run
+in the compute dtype.  The JAX package has no Pallas kernel in its model,
+so plain PyTorch ops are its counterpart; the paged decode's
+gather-dequant is kernel B7 (``kernels/paged_kv.py``).  Attention is a
+plain masked softmax over the whole sequence (the JAX package's chunked
+online softmax computes the same function; only the f32 summation order
+differs, so the two agree to f32 rounding).  Caches are dicts of tensors,
+updated in place: the counterpart of the JAX package's donated caches.
 """
 from __future__ import annotations
 
@@ -52,9 +56,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
-def causal_attention(q, k, v):
+def causal_attention(q, k, v, window: int = 0):
     """q: (B, S, H, D), k/v: (B, S, KV, D) with KV | H (GQA); f32 scores and
-    softmax.  Returns (B, S, H, D) f32."""
+    softmax.  ``window > 0`` also masks keys ``window`` or more positions
+    back (sliding-window attention).  Returns (B, S, H, D) f32."""
     B, S, H, D = q.shape
     G = H // k.shape[2]                       # query heads per kv head
     qh = (q * (D ** -0.5)).to(torch.float32).transpose(1, 2)   # (B,H,S,D)
@@ -64,6 +69,8 @@ def causal_attention(q, k, v):
     kh, vh = kh.transpose(1, 2), vh.transpose(1, 2)
     scores = qh @ kh.transpose(-1, -2)                         # (B,H,S,S)
     causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    if window > 0:
+        causal = causal.triu(-(window - 1))
     scores = scores.masked_fill(~causal, float("-inf"))
     out = torch.softmax(scores, dim=-1) @ vh
     return out.transpose(1, 2)
@@ -147,7 +154,7 @@ def _masked_decode_attention(q, k, v, valid):
 def _paged_decode_attention(q, k, v, cfg, cache, paged: PagedContext):
     """Paged-KV decode: quantize-on-append the new k/v rows into each
     slot's current page (in place), then gather-dequant every table page
-    and attend under the per-slot length mask.
+    and attend under the per-slot length (and sliding-window) mask.
 
     cache: {"k_codes": (n_pages, page, KV, W), "k_absmax": (n_pages, page,
     KV), "v_codes", "v_absmax"}; q/k/v: (B, 1, {H|KV}, Dh).
@@ -172,6 +179,8 @@ def _paged_decode_attention(q, k, v, cfg, cache, paged: PagedContext):
         bits=bits, dtype=q.dtype, impl=paged.impl) for name in ("k", "v"))
     idx = torch.arange(k_all.shape[1], device=pos.device)[None, :]
     valid = active[:, None] & (idx <= pos_c[:, None])
+    if cfg.attn_type == "swa" and cfg.window:
+        valid &= idx > (pos_c[:, None] - cfg.window)
     return _masked_decode_attention(q, k_all, v_all, valid), cache
 
 
@@ -187,9 +196,10 @@ def _write_prefill_cache(buf, new):
         buf[:, :S] = new
 
 
-def apply_attention(wq, wk, wv, wo, x, cfg, *, positions, cache=None,
-                    cache_len=None, paged=None):
-    """x: (B, S, d) in the compute dtype.
+def apply_attention(p, x, cfg, *, positions, cache=None, cache_len=None,
+                    paged=None):
+    """x: (B, S, d) in the compute dtype; ``p``: {wq, wk, wv, wo} and, with
+    ``cfg.qkv_bias``, {bq, bk, bv}.
 
     cache=None           -> train forward, no state io.
     cache given, S == 1  -> decode: write kv at slot (cache_len - 1) % eff
@@ -203,17 +213,21 @@ def apply_attention(wq, wk, wv, wo, x, cfg, *, positions, cache=None,
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = x.dtype
-    q = (x @ wq.to(dt)).reshape(B, S, H, Dh)
-    k = (x @ wk.to(dt)).reshape(B, S, KV, Dh)
-    v = (x @ wv.to(dt)).reshape(B, S, KV, Dh)
+    q, k, v = (x @ p[f"w{n}"].to(dt) for n in "qkv")
+    if cfg.qkv_bias:
+        q, k, v = (t + p[f"b{n}"].to(dt) for t, n in zip((q, k, v), "qkv"))
+    q = q.reshape(B, S, H, Dh)
+    k = k.reshape(B, S, KV, Dh)
+    v = v.reshape(B, S, KV, Dh)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
+    window = cfg.window if cfg.attn_type == "swa" else 0
     quant_cache = cache is not None and "k_codes" in cache
     if paged is not None and cache is not None and S == 1:
         out, cache = _paged_decode_attention(q, k, v, cfg, cache, paged)
     elif cache is None or S > 1:
-        out = causal_attention(q, k, v)
+        out = causal_attention(q, k, v, window=window)
         if quant_cache:
             for name, rows in (("k", k), ("v", v)):
                 codes, absmax = kv_quantize(rows)
@@ -238,11 +252,16 @@ def apply_attention(wq, wk, wv, wo, x, cfg, *, positions, cache=None,
             cache["v"][:, idx:idx + 1] = v.to(cache["v"].dtype)
             k_cache, v_cache = cache["k"], cache["v"]
         out = _decode_attention(q, k_cache, v_cache, cache_len)
-    return out.reshape(B, S, H * Dh).to(dt) @ wo.to(dt), cache
+    return out.reshape(B, S, H * Dh).to(dt) @ p["wo"].to(dt), cache
 
 
-def apply_mlp(w_in, w_out, x):
-    """The non-gated GELU MLP; ``jax.nn.gelu`` is the tanh approximation."""
+def apply_mlp(p, x, cfg):
+    """The gated SiLU MLP ``silu(x @ w_gate) * (x @ w_in)`` with
+    ``cfg.gated_mlp``, else the GELU MLP (``jax.nn.gelu`` is the tanh
+    approximation); then ``@ w_out``."""
     dt = x.dtype
-    h = F.gelu(x @ w_in.to(dt), approximate="tanh")
-    return h @ w_out.to(dt)
+    if cfg.gated_mlp:
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_in"].to(dt))
+    else:
+        h = F.gelu(x @ p["w_in"].to(dt), approximate="tanh")
+    return h @ p["w_out"].to(dt)

@@ -1,31 +1,41 @@
-"""Decoder LM (mirrors ``repro.models.model`` for dense ``("attn",)``
-blocks): the train forward and the serving path (caches, prefill, decode,
-paged decode).
+"""Decoder LM (mirrors ``repro.models.model`` for the attention family):
+the train forward and the serving path (caches, prefill, decode, paged
+decode).
 
-Parameters keep the JAX package's **stacked layer layout**: one parameter
-per weight kind with a leading layer axis (``blocks/b0_attn/attn/wq`` is
-``(n_layers, d_model, H*Dh)``), named with the path strings the JAX
-package's ``path_str`` gives, once '.' is read as '/'.  The layout is not
-cosmetic: the optimizer picks 8-bit or 32-bit state per leaf by its size
-(a stacked norm scale is quantized, a per-layer one would not be) and cuts
-blocks per leaf.
+A model is a stack of ``attn`` blocks: pre-norm attention (GQA/MQA, optional
+q/k/v biases, full or sliding-window) and an FFN — the GELU MLP, the gated
+SiLU MLP or a top-k MoE — either in sequence (``norm2`` before the FFN) or
+in parallel from one norm (``parallel_block``: ``x + attn(h) + ffn(h)``).
+Embeddings are the stable or the baseline one, the head untied or tied to
+the embedding table, and a modality frontend stub may prepend projected
+precomputed features (``embeds``).  The recurrent block kinds (rglru,
+mlstm, slstm) are ROADMAP A14b-2 and refused with ``ConfigError``.
+
+Parameters keep the JAX package's tree, names and leaf order: with
+``scan_layers`` (the default) one parameter per weight kind with a leading
+layer axis (``blocks/b0_attn/attn/wq`` is ``(n_layers, d_model, H*Dh)``),
+else one block per layer (``blocks_list/<i>/b0_attn/attn/wq``), named with
+the path strings the JAX package's ``path_str`` gives, once '.' is read as
+'/'.  The layout is not cosmetic: the optimizer picks 8-bit or 32-bit
+state per leaf by its size, cuts blocks per leaf and seeds its stochastic
+rounding by the leaf's index in tree order.  Every leaf is held in
+``cfg.param_dtype``: what the JAX package's forward sees, its masters cast
+to that dtype.
 
     model = init_model(cfg, generator, device="cuda")
-    logits, metrics = forward(cfg, model, tokens)
-    logits, cache = prefill(cfg, model, tokens, max_len)
+    logits, metrics = forward(cfg, model, tokens, embeds=None)
+    logits, cache = prefill(cfg, model, tokens, max_len, embeds=None)
     logits, cache = decode_step(cfg, model, token, cache, pos)
 
 Caches keep the JAX package's pytree layout, ``{"scan": {"b0_attn":
-{"k": (n_layers, B, max_len, KV, Dh), ...}}, "rem": []}`` (a leading layer
-axis, as the parameters have), so the two packages' caches compare leaf by
-leaf.  They are updated in place: a decode step copies no cache and no
-page pool (the JAX package donates them instead).
-
-The port builds the paper LM's flavour: stable embedding, LayerNorm or
-RMSNorm, plain GELU MLP.  Not ported yet (ROADMAP A14): gated MLPs, the
-baseline embedding, MoE, recurrent and xLSTM blocks, frontends,
-sliding-window attention, parallel blocks, biases, tied embeddings,
-rematerialization.
+{"k": (n_layers, B, eff, KV, Dh), ...}}, "rem": []}`` (a leading layer
+axis, as the parameters have; a list of per-layer dicts without
+``scan_layers``), so the two packages' caches compare leaf by leaf; ``eff``
+is ``min(max_len, window)`` under sliding-window attention, a ring.  They
+are updated in place: a decode step copies no cache and no page pool (the
+JAX package donates them instead).  The MoE metrics (``moe_aux_loss``,
+``moe_z_loss``, ``moe_drop_frac``) are the mean over the scanned layers,
+or the last layer's without ``scan_layers``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,29 +51,15 @@ from repro_torch import device as device_lib
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import paged_kv
 from repro_torch.models import embedding as emb
-from repro_torch.models import layers
-
-BLOCK = "b0_attn"
+from repro_torch.models import layers, moe
 
 
 def _check_supported(cfg) -> None:
-    """Raise ConfigError for config features the port's model lacks."""
-    unsupported = {
-        "block_pattern != ('attn',)": tuple(cfg.block_pattern) != ("attn",),
-        "MoE": cfg.n_experts > 0,
-        "parallel_block": cfg.parallel_block,
-        "qkv_bias": cfg.qkv_bias,
-        "tie_embeddings": cfg.tie_embeddings,
-        "frontend": cfg.frontend != "none",
-        "sliding-window attention": cfg.attn_type != "full",
-        "scan_layers=False": not cfg.scan_layers,
-        "gated MLP": cfg.gated_mlp,
-        "baseline (non-stable) embedding": not cfg.stable_embedding,
-    }
-    bad = [k for k, v in unsupported.items() if v]
+    """Raise ConfigError for the block kinds the port's model lacks."""
+    bad = sorted(set(cfg.block_pattern) - {"attn"})
     if bad:
-        raise ConfigError(f"{cfg.arch_id}: {', '.join(bad)} not ported yet "
-                          f"(ROADMAP A14)")
+        raise ConfigError(f"{cfg.arch_id}: block kinds {bad} not ported yet "
+                          f"(ROADMAP A14b-2)")
 
 
 class _Params(nn.Module):
@@ -78,10 +74,42 @@ class _Params(nn.Module):
                 self.register_parameter(name, nn.Parameter(value))
 
 
-def _norm(shape, norm_type, device):
-    p = {"scale": torch.ones(shape, device=device)}
+def _block_names(cfg) -> list:
+    return [f"b{i}_{kind}" for i, kind in enumerate(cfg.block_pattern)]
+
+
+def _norm(shape: tuple, norm_type: str, dev, dt) -> _Params:
+    p = {"scale": torch.ones(shape, device=dev, dtype=dt)}
     if norm_type == "layernorm":
-        p["bias"] = torch.zeros(shape, device=device)
+        p["bias"] = torch.zeros(shape, device=dev, dtype=dt)
+    return _Params(**p)
+
+
+def _block(cfg, lead: tuple, dev, dt) -> _Params:
+    """One attn block's parameters, each with the leading dims ``lead``
+    (the layer axis when stacked)."""
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    e = lambda *s: torch.empty(lead + s, device=dev, dtype=dt)
+    norm = lambda: _norm(lead + (d,), cfg.norm_type, dev, dt)
+
+    attn = dict(wq=e(d, H * Dh), wk=e(d, KV * Dh), wv=e(d, KV * Dh),
+                wo=e(H * Dh, d))
+    if cfg.qkv_bias:
+        z = lambda n: torch.zeros(lead + (n,), device=dev, dtype=dt)
+        attn.update(bq=z(H * Dh), bk=z(KV * Dh), bv=z(KV * Dh))
+    p = {"norm1": norm(), "attn": _Params(**attn)}
+    if cfg.is_moe:
+        E, f = cfg.n_experts, cfg.moe_dff or cfg.d_ff
+        p["moe"] = _Params(router=e(d, E), w_gate=e(E, d, f),
+                           w_in=e(E, d, f), w_out=e(E, f, d))
+    else:
+        f = cfg.d_ff
+        mlp = dict(w_in=e(d, f), w_out=e(f, d))
+        if cfg.gated_mlp:
+            mlp["w_gate"] = e(d, f)
+        p["mlp"] = _Params(**mlp)
+    if not cfg.parallel_block:
+        p["norm2"] = norm()
     return _Params(**p)
 
 
@@ -94,113 +122,232 @@ class Model(nn.Module):
         _check_supported(cfg)
         dev = device_lib.resolve(device)
         self.cfg = cfg
-        d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        L, f, V = cfg.n_layers, cfg.d_ff, cfg.vocab_size
-        e = lambda *s: torch.empty(s, device=dev)
-        self.embed = _Params(table=e(V, d),
-                             norm=_norm((d,), "layernorm", dev))
-        self.blocks = _Params(**{BLOCK: _Params(
-            norm1=_norm((L, d), cfg.norm_type, dev),
-            attn=_Params(wq=e(L, d, H * Dh), wk=e(L, d, KV * Dh),
-                         wv=e(L, d, KV * Dh), wo=e(L, H * Dh, d)),
-            mlp=_Params(w_in=e(L, d, f), w_out=e(L, f, d)),
-            norm2=_norm((L, d), cfg.norm_type, dev))})
-        self.final_norm = _norm((d,), cfg.norm_type, dev)
-        self.head = _Params(w=e(d, V))
+        dt = getattr(torch, cfg.param_dtype)
+        d, V = cfg.d_model, cfg.vocab_size
+        embed = {"table": torch.empty(V, d, device=dev, dtype=dt)}
+        if cfg.stable_embedding:
+            embed["norm"] = _norm((d,), "layernorm", dev, dt)
+        self.embed = _Params(**embed)
+        if cfg.frontend != "none" and cfg.frontend_tokens:
+            self.frontend = _Params(proj=torch.empty(d, d, device=dev,
+                                                     dtype=dt))
+        names, n_super = _block_names(cfg), cfg.n_superblocks
+        if cfg.scan_layers and n_super > 0:
+            self.blocks = _Params(**{n: _block(cfg, (n_super,), dev, dt)
+                                     for n in names})
+        elif n_super > 0:
+            self.blocks_list = nn.ModuleList(
+                _Params(**{n: _block(cfg, (), dev, dt) for n in names})
+                for _ in range(n_super))
+        if cfg.n_remainder_layers:
+            self.rem_blocks = nn.ModuleList(
+                _Params(attn=_block(cfg, (), dev, dt))
+                for _ in range(cfg.n_remainder_layers))
+        self.final_norm = _norm((d,), cfg.norm_type, dev, dt)
+        if not cfg.tie_embeddings:
+            self.head = _Params(w=torch.empty(d, V, device=dev, dtype=dt))
 
     def param_dict(self) -> dict:
         """Path string ('blocks/b0_attn/attn/wq') -> parameter."""
         return {n.replace(".", "/"): p for n, p in self.named_parameters()}
 
-    def forward(self, tokens: torch.Tensor):
-        """tokens (B, S) int -> (logits (B, S, V) f32, metrics {})."""
-        positions = torch.arange(tokens.shape[1],
-                                 device=tokens.device)[None, :]
-        return _logits(self, _run_blocks(self, self._embed(tokens),
-                                         positions)), {}
+    def forward(self, tokens: torch.Tensor, embeds=None):
+        """tokens (B, S) int, embeds (B, frontend_tokens, d) or None ->
+        (logits (B, S', V) f32, metrics); S' counts the frontend's
+        prefix."""
+        x = self._embed(tokens, embeds)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x, metrics = _run_blocks(self, x, positions)
+        return _logits(self, x), metrics
 
-    def _embed(self, tokens):
-        return emb.apply_embedding(self.embed.table, self.embed.norm,
-                                   tokens.long(), self.cfg)
+    def _embed(self, tokens, embeds=None):
+        x = emb.apply_embedding(self.embed, tokens.long(), self.cfg)
+        if embeds is not None and hasattr(self, "frontend"):
+            fx = emb.apply_frontend(self.frontend.proj,
+                                    torch.as_tensor(embeds).to(x.device),
+                                    self.cfg)
+            x = torch.cat([fx.to(x.dtype), x], dim=1)
+        return x
 
     @property
     def device(self) -> torch.device:
         return self.embed.table.device
 
 
+def _nested(module: nn.Module, n: Optional[int]):
+    """A block's parameters as nested dicts keyed like the JAX tree
+    ({"attn": {"wq": ...}, ...}): one dict, or with ``n`` (stacked) a list
+    of n per-layer dicts, each stacked parameter unbound once (its
+    backward then stacks the layer gradients in one op; indexing per layer
+    would zero-fill and add a whole stacked gradient once per layer)."""
+    out = [{} for _ in range(n or 1)]
+    for name, t in module.named_parameters():
+        parts = name.split(".")
+        for i, piece in enumerate(t.unbind(0) if n else (t,)):
+            node = out[i]
+            for key in parts[:-1]:
+                node = node.setdefault(key, {})
+            node[parts[-1]] = piece
+    return out if n else out[0]
+
+
+def _apply_block(p, x, cfg, *, positions, state=None, cache_len=None,
+                 paged=None):
+    """One attn block; returns (x_out, metrics)."""
+    norm = lambda q, h: layers.apply_norm(q["scale"], q.get("bias"), h,
+                                          cfg.norm_type)
+
+    def ffn(h):
+        if cfg.is_moe:
+            return moe.apply_moe(p["moe"], h, cfg)
+        return layers.apply_mlp(p["mlp"], h, cfg), {}
+
+    h = norm(p["norm1"], x)
+    a, _ = layers.apply_attention(p["attn"], h, cfg, positions=positions,
+                                  cache=state, cache_len=cache_len,
+                                  paged=paged)
+    if cfg.parallel_block:
+        f, metrics = ffn(h)
+        return x + a + f, metrics
+    x = x + a
+    f, metrics = ffn(norm(p["norm2"], x))
+    return x + f, metrics
+
+
+def _mean(values: list) -> torch.Tensor:
+    return values[0] if len(values) == 1 else torch.stack(values).mean()
+
+
 def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
                 paged=None):
     """All layers over x (B, S, d).  ``caches``: None (no state io) or the
-    cache pytree, whose per-layer views are updated in place."""
+    cache pytree, whose per-layer views are updated in place.  Returns (x,
+    metrics)."""
     cfg = model.cfg
-    blk = getattr(model.blocks, BLOCK)
-    # One unbind per stacked parameter: its backward stacks the layer
-    # gradients in one op (indexing per layer would zero-fill and add a
-    # whole stacked gradient once per layer).
-    none = (None,) * cfg.n_layers            # RMSNorm has no bias
-    n1s, n1b, n2s, n2b, wq, wk, wv, wo, w_in, w_out = (
-        none if t is None else t.unbind(0) for t in (
-            blk.norm1.scale, getattr(blk.norm1, "bias", None),
-            blk.norm2.scale, getattr(blk.norm2, "bias", None),
-            blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo,
-            blk.mlp.w_in, blk.mlp.w_out))
-    stacked = None if caches is None else caches["scan"][BLOCK]
-    for i in range(cfg.n_layers):
-        state = None if stacked is None else {
-            name: t[i] for name, t in stacked.items()}
-        h = layers.apply_norm(n1s[i], n1b[i], x, cfg.norm_type)
-        a, _ = layers.apply_attention(wq[i], wk[i], wv[i], wo[i], h, cfg,
-                                      positions=positions, cache=state,
-                                      cache_len=cache_len, paged=paged)
-        x = x + a
-        h2 = layers.apply_norm(n2s[i], n2b[i], x, cfg.norm_type)
-        x = x + layers.apply_mlp(w_in[i], w_out[i], h2)
-    return x
+    names = _block_names(cfg)
+    kw = dict(positions=positions, cache_len=cache_len, paged=paged)
+
+    def superblock(ps: dict, states) -> dict:
+        """One super-block; its blocks' metrics averaged (JAX's agg)."""
+        nonlocal x
+        acc = []
+        for name in names:
+            x, mt = _apply_block(ps[name], x, cfg, state=states(name), **kw)
+            if mt:
+                acc.append(mt)
+        return {k: _mean([m[k] for m in acc]) for k in acc[0]} if acc \
+            else {}
+
+    metrics = {}
+    if hasattr(model, "blocks"):
+        n = cfg.n_superblocks
+        per_layer = {name: _nested(getattr(model.blocks, name), n)
+                     for name in names}
+        layer_mts = []
+        for i in range(n):
+            states = lambda name: None if caches is None else {
+                k: t[i] for k, t in caches["scan"][name].items()}
+            mt = superblock({nm: per_layer[nm][i] for nm in names}, states)
+            if mt:
+                layer_mts.append(mt)
+        if layer_mts:
+            metrics = {k: _mean([m[k] for m in layer_mts])
+                       for k in layer_mts[0]}
+    elif hasattr(model, "blocks_list"):
+        for i, sb in enumerate(model.blocks_list):
+            states = lambda name: None if caches is None else \
+                caches["scan"][i][name]
+            metrics.update(superblock(
+                {nm: _nested(getattr(sb, nm), None) for nm in names},
+                states))
+    for i, rb in enumerate(getattr(model, "rem_blocks", ())):
+        x, mt = _apply_block(_nested(rb.attn, None), x, cfg,
+                             state=None if caches is None
+                             else caches["rem"][i], **kw)
+        metrics.update(mt)
+    return x, metrics
 
 
 def _logits(model: Model, x):
     fn = model.final_norm
     x = layers.apply_norm(fn.scale, getattr(fn, "bias", None), x,
                           model.cfg.norm_type)
-    return emb.apply_head(model.head.w, x)
+    head = getattr(model, "head", None)
+    return emb.apply_head(None if head is None else head.w, x,
+                          model.embed.table)
+
+
+# JAX initializers by leaf name: (kind, scale from the config)
+def _init_scale(cfg, name: str) -> float:
+    d, f = cfg.d_model, cfg.d_ff
+    if name in ("wq", "wk", "wv", "w_in", "w_gate", "proj", "w"):
+        return 1.0 / math.sqrt(d)
+    if name == "wo":
+        return 1.0 / math.sqrt(cfg.n_heads * cfg.head_dim)
+    if name == "w_out":
+        return 1.0 / math.sqrt(f)
+    raise KeyError(name)
 
 
 def init_model(cfg, generator: Optional[torch.Generator] = None, *,
                device="cuda") -> Model:
     """A model with the JAX package's initializers, drawn from
     ``generator`` (a ``torch.Generator``; its device is where the numbers
-    are drawn).  The numbers differ from ``jax.random``'s: to start both
-    packages from the same weights use ``repro_torch.convert``."""
+    are drawn) in f32 and cast to ``cfg.param_dtype``.  The numbers differ
+    from ``jax.random``'s: to start both packages from the same weights
+    use ``repro_torch.convert``."""
     model = Model(cfg, device=device)
     gen_dev = generator.device if generator is not None else "cpu"
+    draw = lambda shape: torch.randn(shape, generator=generator,
+                                     device=gen_dev)
 
     def normal(p, scale):
-        with torch.no_grad():
-            p.copy_(torch.randn(p.shape, generator=generator, device=gen_dev)
-                    * scale)
+        p.copy_(draw(p.shape) * scale)
 
-    d, f = cfg.d_model, cfg.d_ff
-    blk = getattr(model.blocks, BLOCK)
+    def block(b):
+        for name in ("wq", "wk", "wv", "wo"):
+            normal(getattr(b.attn, name), _init_scale(cfg, name))
+        if hasattr(b, "mlp"):
+            for name in ("w_gate", "w_in", "w_out"):
+                if hasattr(b.mlp, name):
+                    normal(getattr(b.mlp, name), _init_scale(cfg, name))
+        if hasattr(b, "moe"):
+            E, fe = cfg.n_experts, cfg.moe_dff or cfg.d_ff
+            normal(b.moe.router, 0.02)
+            # dense_init's default scale is 1/sqrt(shape[0]): E here
+            normal(b.moe.w_gate, 1.0 / math.sqrt(E))
+            normal(b.moe.w_in, 1.0 / math.sqrt(E))
+            normal(b.moe.w_out, 1.0 / math.sqrt(fe))
+
     with torch.no_grad():
-        t = model.embed.table                     # Xavier-uniform
-        lim = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
-        t.copy_(torch.rand(t.shape, generator=generator, device=gen_dev)
-                * (2 * lim) - lim)
-        for name in ("wq", "wk", "wv"):
-            normal(getattr(blk.attn, name), 1.0 / math.sqrt(d))
-        normal(blk.attn.wo, 1.0 / math.sqrt(cfg.n_heads * cfg.head_dim))
-        normal(blk.mlp.w_in, 1.0 / math.sqrt(d))
-        normal(blk.mlp.w_out, 1.0 / math.sqrt(f))
-        normal(model.head.w, 1.0 / math.sqrt(d))
+        t = model.embed.table
+        if cfg.stable_embedding:                      # Xavier-uniform
+            lim = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
+            t.copy_(torch.rand(t.shape, generator=generator, device=gen_dev)
+                    * (2 * lim) - lim)
+        else:                                         # N(0, 1) / sqrt(d)
+            normal(t, 1.0 / math.sqrt(cfg.d_model))
+        if hasattr(model, "frontend"):
+            normal(model.frontend.proj, _init_scale(cfg, "proj"))
+        if hasattr(model, "blocks"):
+            for name in _block_names(cfg):
+                block(getattr(model.blocks, name))
+        for sb in getattr(model, "blocks_list", ()):
+            for name in _block_names(cfg):
+                block(getattr(sb, name))
+        for rb in getattr(model, "rem_blocks", ()):
+            block(rb.attn)
+        if hasattr(model, "head"):
+            normal(model.head.w, _init_scale(cfg, "w"))
     return model
 
 
-def forward(cfg, model: Model, tokens: torch.Tensor):
+def forward(cfg, model: Model, tokens: torch.Tensor, embeds=None):
     """Training/eval forward (the JAX package's ``forward(cfg, params,
-    tokens)``): (logits (B, S, V) f32, metrics)."""
+    tokens, embeds)``): (logits (B, S, V) f32, metrics)."""
     if model.cfg != cfg:
         raise ConfigError("forward: model was built for another config")
-    return model(tokens)
+    return model(tokens, embeds)
 
 
 # --------------------------------------------------------------- serving
@@ -213,39 +360,55 @@ def _check_model(cfg, model: Model) -> None:
         raise ConfigError("model was built for another config")
 
 
-def _cache_tree(layer: dict) -> dict:
-    return {"scan": {BLOCK: layer}, "rem": []}
+def _cache_tree(cfg, layer_cache) -> dict:
+    """The {"scan", "rem"} pytree of ``layer_cache(lead)`` per attn layer:
+    ``lead`` the stacked layer axis, or () per layer without
+    ``scan_layers``."""
+    _check_supported(cfg)
+    names, n = _block_names(cfg), cfg.n_superblocks
+    if cfg.scan_layers and n > 0:
+        scan = {name: layer_cache((n,)) for name in names}
+    else:
+        scan = [{name: layer_cache(()) for name in names} for _ in range(n)]
+    return {"scan": scan,
+            "rem": [layer_cache(()) for _ in range(cfg.n_remainder_layers)]}
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
     """Contiguous decode cache: per layer k/v rows in the compute dtype, or
-    block-wise int8 rows when ``cfg.kv_cache_bits == 8``."""
-    _check_supported(cfg)
+    block-wise int8 rows when ``cfg.kv_cache_bits == 8``; a ring of
+    ``min(max_len, window)`` rows under sliding-window attention."""
     dev = device_lib.resolve(device)
-    L, KV, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    lead = (L, batch, max_len, KV)
-    if cfg.kv_cache_bits == 8:
-        z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
-        return _cache_tree({
-            "k_codes": z(lead + (Dh,), torch.uint8),
-            "k_absmax": z(lead, torch.float32),
-            "v_codes": z(lead + (Dh,), torch.uint8),
-            "v_absmax": z(lead, torch.float32)})
-    dt = getattr(torch, cfg.compute_dtype)
-    return _cache_tree({"k": torch.zeros(lead + (Dh,), dtype=dt, device=dev),
-                        "v": torch.zeros(lead + (Dh,), dtype=dt, device=dev)})
+    KV, Dh = cfg.n_kv_heads, cfg.head_dim
+    eff = min(max_len, cfg.window) if cfg.attn_type == "swa" and \
+        cfg.window else max_len
+    z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
+
+    def layer(lead):
+        rows = lead + (batch, eff, KV)
+        if cfg.kv_cache_bits == 8:
+            return {"k_codes": z(rows + (Dh,), torch.uint8),
+                    "k_absmax": z(rows, torch.float32),
+                    "v_codes": z(rows + (Dh,), torch.uint8),
+                    "v_absmax": z(rows, torch.float32)}
+        dt = getattr(torch, cfg.compute_dtype)
+        return {"k": z(rows + (Dh,), dt), "v": z(rows + (Dh,), dt)}
+
+    return _cache_tree(cfg, layer)
 
 
 @torch.no_grad()
-def prefill(cfg, model: Model, tokens: torch.Tensor, max_len: int):
-    """Run the whole prompt (B, S); returns (logits (B, S, V), a cache
-    ready for decode at pos = S)."""
+def prefill(cfg, model: Model, tokens: torch.Tensor, max_len: int,
+            embeds=None):
+    """Run the whole prompt (B, S) (after the frontend's prefix when
+    ``embeds`` is given); returns (logits (B, S', V), a cache ready for
+    decode at pos = S')."""
     _check_model(cfg, model)
-    x = model._embed(tokens)
+    x = model._embed(tokens, embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
     caches = init_cache(cfg, x.shape[0], max_len, device=x.device)
-    x = _run_blocks(model, x, positions, caches=caches, cache_len=S)
+    x, _ = _run_blocks(model, x, positions, caches=caches, cache_len=S)
     return _logits(model, x), caches
 
 
@@ -257,8 +420,8 @@ def decode_step(cfg, model: Model, token: torch.Tensor, caches: dict,
     _check_model(cfg, model)
     x = model._embed(token)
     positions = torch.full((1, 1), int(pos), device=x.device)
-    x = _run_blocks(model, x, positions, caches=caches,
-                    cache_len=int(pos) + 1)
+    x, _ = _run_blocks(model, x, positions, caches=caches,
+                       cache_len=int(pos) + 1)
     return _logits(model, x), caches
 
 
@@ -266,21 +429,24 @@ def decode_step(cfg, model: Model, token: torch.Tensor, caches: dict,
 
 def init_paged_cache(cfg, n_slots: int, n_pages: int, page_size: int,
                      kv_bits: int = 8, *, device="cuda") -> dict:
-    """Paged serving cache (the ``init_cache`` layout): per layer one pool
-    of ``n_pages`` pages of ``page_size`` positions, block-wise quantized to
-    ``kv_bits`` (8-bit codes or packed 4-bit).  The pool has no slot axis:
-    page tables map slots to pages."""
-    _check_supported(cfg)
-    del n_slots           # only recurrent layers keep per-slot state (A14)
+    """Paged serving cache (the ``init_cache`` layout): per attn layer one
+    pool of ``n_pages`` pages of ``page_size`` positions, block-wise
+    quantized to ``kv_bits`` (8-bit codes or packed 4-bit).  The pool has
+    no slot axis: page tables map slots to pages."""
+    del n_slots           # only recurrent layers keep per-slot state
     dev = device_lib.resolve(device)
-    L, KV = cfg.n_layers, cfg.n_kv_heads
+    KV = cfg.n_kv_heads
     W = paged_kv.packed_row_width(cfg.head_dim, kv_bits)
-    lead = (L, n_pages, page_size, KV)
     z = lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev)
-    return _cache_tree({"k_codes": z(lead + (W,), torch.uint8),
-                        "k_absmax": z(lead, torch.float32),
-                        "v_codes": z(lead + (W,), torch.uint8),
-                        "v_absmax": z(lead, torch.float32)})
+
+    def layer(lead):
+        rows = lead + (n_pages, page_size, KV)
+        return {"k_codes": z(rows + (W,), torch.uint8),
+                "k_absmax": z(rows, torch.float32),
+                "v_codes": z(rows + (W,), torch.uint8),
+                "v_absmax": z(rows, torch.float32)}
+
+    return _cache_tree(cfg, layer)
 
 
 @torch.no_grad()
@@ -295,7 +461,7 @@ def paged_decode_step(cfg, model: Model, token: torch.Tensor, caches: dict,
     _check_model(cfg, model)
     x = model._embed(token)
     positions = paged.positions.clamp_min(0)[:, None]        # (B, 1)
-    x = _run_blocks(model, x, positions, caches=caches, paged=paged)
+    x, _ = _run_blocks(model, x, positions, caches=caches, paged=paged)
     return _logits(model, x), caches
 
 
@@ -304,8 +470,10 @@ def _commit_attn_pages(paged_layer: dict, dense_layer: dict,
                        kv_bits: int) -> None:
     """Quantize a batch-1 dense prefill cache's k/v rows (layer-stacked,
     (L, 1, eff, KV, Dh)) into the slot's allocated pages of the stacked
-    pools, in place (the last ``eff`` positions when the dense cache is
-    shorter than the prompt)."""
+    pools, in place.  A sliding-window cache is a ring holding only the
+    last ``eff`` positions: exactly those rows are committed (older
+    positions are outside every future window; their pages stay zero and
+    masked)."""
     if "k" not in dense_layer:
         raise ValueError("paged commit needs a 16-bit dense prefill cache "
                          "(cfg.kv_cache_bits == 16 for the prefill config)")
@@ -334,10 +502,20 @@ def commit_prefill_to_paged(cfg, paged_caches: dict, dense_caches: dict,
     pages named by ``table_row`` ((max_pages_per_seq,) integer tensor on
     the cache's device) with the row quantizer the decode append uses.
     Returns ``paged_caches``, updated in place.  ``slot`` would place
-    recurrent layers' state, which the port does not have yet (A14)."""
+    recurrent layers' state, which the port does not have yet (A14b-2)."""
     _check_supported(cfg)
     del slot
-    _commit_attn_pages(paged_caches["scan"][BLOCK],
-                       dense_caches["scan"][BLOCK], table_row, prompt_len,
-                       kv_bits)
+    stacked = lambda layer: {k: v[None] for k, v in layer.items()}
+    pairs = []
+    if isinstance(paged_caches["scan"], dict):
+        pairs += [(paged_caches["scan"][n], dense_caches["scan"][n])
+                  for n in paged_caches["scan"]]
+    else:
+        pairs += [(stacked(sb[n]), stacked(dense_caches["scan"][i][n]))
+                  for i, sb in enumerate(paged_caches["scan"]) for n in sb]
+    pairs += [(stacked(pg), stacked(dn)) for pg, dn in
+              zip(paged_caches["rem"], dense_caches["rem"])]
+    for paged_layer, dense_layer in pairs:
+        _commit_attn_pages(paged_layer, dense_layer, table_row, prompt_len,
+                           kv_bits)
     return paged_caches

@@ -59,6 +59,8 @@ class TrainHyper:
     grad_clip: float = 1.0
     microbatches: int = 1
     label_smoothing: float = 0.0
+    moe_aux_coef: float = 0.01
+    moe_z_coef: float = 1e-3
     lr_schedule: Optional[Callable[[int], Any]] = None
 
 
@@ -77,8 +79,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor, summed per tensor in
-    path order."""
-    sums = [tree[k].to(torch.float32).square().sum() for k in sorted(tree)]
+    the JAX package's tree order (``blockopt.leaf_order``)."""
+    from repro_torch.core.optim.blockopt import leaf_order
+    sums = [tree[k].to(torch.float32).square().sum()
+            for k in leaf_order(tree)]
     return torch.sqrt(torch.stack(sums).sum())
 
 
@@ -93,14 +97,23 @@ def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float,
                         out: Optional[Mapping[str, torch.Tensor]] = None):
     """Scale every tensor of ``tree`` so the global norm is at most
     ``max_norm``: **in place**, or into ``out[key]`` for the keys of
-    ``out``.  Returns (the scaled tensors by key, norm before clipping)."""
+    ``out``.  Returns (the scaled tensors by key, norm before clipping).
+    The product is taken in f32, as the JAX package's promotes a bf16
+    gradient times the f32 scale: a bf16 gradient's clipped value is a new
+    f32 tensor, or is written into its ``out`` (the optimizer's f32
+    gradient buffer)."""
     norm = global_norm(tree)
     scale = clip_scale(norm, max_norm)
     out = out or {}
     clipped = {}
+    f32 = torch.float32
     for k, t in tree.items():
-        clipped[k] = (torch.mul(t, scale, out=out[k]) if k in out
-                      else t.mul_(scale))
+        if t.dtype == f32 and (k not in out or out[k].dtype == f32):
+            clipped[k] = (torch.mul(t, scale, out=out[k]) if k in out
+                          else t.mul_(scale))
+        else:
+            t = t.to(f32) * scale
+            clipped[k] = out[k].copy_(t) if k in out else t
     return clipped, norm
 
 
@@ -108,11 +121,16 @@ def make_train_step(cfg, model: M.Model, optimizer,
                     hyper: TrainHyper = TrainHyper()):
     """Returns train_step(state, batch) -> (state, metrics).
 
-    ``batch``: {"tokens": (B, S+1) int array}; inputs are [:, :-1], labels
-    [:, 1:].  ``hyper.microbatches`` splits the batch and averages the
-    gradients.  Metrics are 0-d tensors (loss, grad_norm, the sentinel's
-    sent_* counts, pclip_scale) and floats (opt_fused_dispatches,
-    state_bytes_per_param); reading a tensor waits for the device."""
+    ``batch``: {"tokens": (B, S+1) int array} and, for a frontend stub,
+    "embeds" (B, frontend_tokens, d); inputs are [:, :-1], labels [:, 1:],
+    and the loss is taken on the token positions only.  The loss is the
+    cross entropy plus, for MoE models, ``moe_aux_coef * moe_aux_loss +
+    moe_z_coef * moe_z_loss``.  ``hyper.microbatches`` splits the batch
+    and averages the gradients.  Metrics are 0-d tensors (loss, ce_loss,
+    the MoE metrics, grad_norm, the sentinel's sent_* counts, pclip_scale;
+    the model's metrics averaged over the microbatches) and floats
+    (opt_fused_dispatches, state_bytes_per_param); reading a tensor waits
+    for the device."""
     device = next(model.parameters()).device
     params = model.param_dict()
     opt_cfg = getattr(optimizer, "cfg", None)
@@ -123,60 +141,108 @@ def make_train_step(cfg, model: M.Model, optimizer,
     shard_grads = bool(getattr(opt_cfg, "shard_grads_active", False))
     buffered = dp is not None or shard_grads
 
-    def compute_grad_buffer(tokens, opt_state):
+    def batch_loss(mb, embeds):
+        """(the loss to differentiate, the model's metrics and ce_loss,
+        detached) of one microbatch."""
+        logits, mx = M.forward(cfg, model, mb[:, :-1], embeds=embeds)
+        labels = mb[:, 1:]
+        if embeds is not None:
+            logits = logits[:, -labels.shape[1]:]  # loss on token positions
+        ce = cross_entropy(logits, labels, hyper.label_smoothing)
+        total = ce
+        if "moe_aux_loss" in mx:
+            total = total + hyper.moe_aux_coef * mx["moe_aux_loss"] \
+                + hyper.moe_z_coef * mx["moe_z_loss"]
+        mx = {k: v.detach() for k, v in mx.items()}
+        mx["ce_loss"] = ce.detach()
+        return total, mx
+
+    def microbatches(tokens, embeds):
+        n = hyper.microbatches
+        parts = [None] * n if embeds is None else embeds.chunk(n, dim=0)
+        return list(zip(tokens.chunk(n, dim=0), parts))
+
+    def mean_metrics(mxs: list) -> dict:
+        if len(mxs) == 1:
+            return mxs[0]
+        return {k: torch.stack([m[k] for m in mxs]).mean() for k in mxs[0]}
+
+    def compute_grad_buffer(tokens, embeds, opt_state):
         """Each microbatch's gradients accumulated (and, on a group,
         reduced) into the optimizer's GradBuffer, ``.grad`` dropped after
         each; returns (mean loss, the buffer averaged)."""
         buf = optimizer.init_grad_buffer(opt_state)
         n = hyper.microbatches
         loss_sum = torch.zeros((), device=device)
-        for mb in tokens.chunk(n, dim=0):
+        mxs = []
+        for mb, emb in microbatches(tokens, embeds):
             model.zero_grad(set_to_none=True)
-            logits, _ = M.forward(cfg, model, mb[:, :-1])
-            loss = cross_entropy(logits, mb[:, 1:], hyper.label_smoothing)
+            loss, mx = batch_loss(mb, emb)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
+            mxs.append(mx)
             optimizer.accumulate_grads(
                 buf, {k: p.grad for k, p in params.items()})
         model.zero_grad(set_to_none=True)
         optimizer.finish_grads(buf, n)
-        loss = loss_sum / n
-        if dp is not None:
-            torch.distributed.all_reduce(loss, group=dp[0])
-            loss = loss / dp[2]
-        return loss, buf
+        loss, mx = loss_sum / n, mean_metrics(mxs)
+        if dp is not None:          # the loss and metrics: mean of the ranks
+            for k, v in [("loss", loss), *mx.items()]:
+                v = v.clone()
+                torch.distributed.all_reduce(v, group=dp[0])
+                mx[k] = v / dp[2]
+            loss = mx.pop("loss")
+        return loss, mx, buf
 
-    def compute_grads(tokens):
+    def compute_grads(tokens, embeds):
+        """(mean loss, metrics, the gradients averaged over the
+        microbatches).  Over several microbatches the gradients add up in
+        f32, as the JAX package's f32 accumulator does: an f32 parameter's
+        in its ``.grad``, another's (bf16) in an f32 tensor of its own."""
         model.zero_grad(set_to_none=True)
         n = hyper.microbatches
         loss_sum = torch.zeros((), device=device)
-        for mb in tokens.chunk(n, dim=0):
-            logits, _ = M.forward(cfg, model, mb[:, :-1])
-            loss = cross_entropy(logits, mb[:, 1:], hyper.label_smoothing)
+        mxs, acc = [], {}
+        for mb, emb in microbatches(tokens, embeds):
+            loss, mx = batch_loss(mb, emb)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
-        grads = {k: p.grad for k, p in params.items()}
+            mxs.append(mx)
+            if n > 1:
+                for k, p in params.items():
+                    if p.dtype != torch.float32 and p.grad is not None:
+                        acc[k] = (acc[k].add_(p.grad) if k in acc
+                                  else p.grad.to(torch.float32))
+                        p.grad = None
+        grads = {k: acc.get(k, p.grad) for k, p in params.items()}
         if n > 1:
             for g in grads.values():
                 g.div_(n)
-        return loss_sum / n, grads
+        return loss_sum / n, mean_metrics(mxs), grads
 
     def train_step(state: TrainState, batch):
         tokens = torch.as_tensor(batch["tokens"]).to(device, torch.long)
+        embeds = batch.get("embeds")
+        if embeds is not None:
+            embeds = torch.as_tensor(embeds).to(device)
         if dp is not None:              # this rank's rows of the batch
             tokens = tokens.chunk(dp[2], dim=0)[dp[1]]
+            if embeds is not None:
+                embeds = embeds.chunk(dp[2], dim=0)[dp[1]]
         with tracing.annotate("forward_backward"):
             if not buffered:
-                loss, grads = compute_grads(tokens)
+                loss, mx, grads = compute_grads(tokens, embeds)
                 grads, gnorm = clip_by_global_norm(
                     grads, hyper.grad_clip, grad_views(state.opt_state))
             elif shard_grads:
-                loss, grads = compute_grad_buffer(tokens, state.opt_state)
+                loss, mx, grads = compute_grad_buffer(tokens, embeds,
+                                                      state.opt_state)
                 gnorm = optimizer.grad_buffer_norm(grads)
                 optimizer.scale_grads(grads, clip_scale(gnorm,
                                                         hyper.grad_clip))
             else:
-                loss, buf = compute_grad_buffer(tokens, state.opt_state)
+                loss, mx, buf = compute_grad_buffer(tokens, embeds,
+                                                    state.opt_state)
                 grads, gnorm = clip_by_global_norm(
                     optimizer.gather_grads(buf, state.opt_state),
                     hyper.grad_clip)
@@ -185,7 +251,7 @@ def make_train_step(cfg, model: M.Model, optimizer,
         with tracing.annotate("optimizer_update"):
             out = optimizer.apply(grads, state.opt_state, lr=lr)
         new_opt = out[1]
-        metrics = {"loss": loss, "grad_norm": gnorm}
+        metrics = {"loss": loss, "grad_norm": gnorm, **mx}
         if sentinel_on:
             health = out[2]
             for i, name in enumerate(kfu.HEALTH_SLOTS):

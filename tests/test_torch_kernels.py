@@ -178,11 +178,16 @@ def test_fused_update_plain_matches_oracle(algo):
 
 
 def test_registry_and_counters():
-    assert ops.registered("adamw") == [("adamw", "cuda"), ("adamw", "torch")]
+    assert ops.registered("adamw") == [("adamw", "cuda"), ("adamw", "plain"),
+                                       ("adamw", "torch")]
     # "cuda" is registered for every algorithm: the fused-update kernel's
-    # and muon's (whose entry runs the quantize and Newton–Schulz kernels)
+    # and muon's (whose entry runs the quantize and Newton–Schulz kernels);
+    # "plain" (the fused-update kernels' plain versions on any device) for
+    # the element-wise ones only
     assert sorted(a for a, i in ops.registered() if i == "cuda") == \
         sorted(ops.ALGOS) == sorted([*fu.KERNEL_ALGOS, "muon"])
+    assert sorted(a for a, i in ops.registered() if i == "plain") == \
+        sorted(fu.KERNEL_ALGOS)
     assert ops.registered("muon") == [("muon", "cuda"), ("muon", "torch")]
     ops.reset_launch_counts()
     ops.reset_fused_update_count()

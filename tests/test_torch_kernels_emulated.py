@@ -231,19 +231,22 @@ def libs(tmp_path_factory):
     (d / "mma_sm90.cuh").write_text(MMA_SM90_H)
     procs = {n: subprocess.Popen(
         [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-pthread", f"-I{d}", "-x", "c++", str(d / f"{n}.cu"), "-o",
-         str(d / f"{n}.so")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for n in build.SOURCES}
+         "-pthread", f"-I{d}", *defines, "-x", "c++", str(d / f"{src}.cu"),
+         "-o", str(d / f"{n}.so")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for n, (src, defines) in build.LIBRARIES.items()}
     for n, p in procs.items():
         log, _ = p.communicate(timeout=300)
         assert p.returncode == 0, f"{n}:\n{log}"
-    libs = {n: ctypes.CDLL(str(d / f"{n}.so")) for n in build.SOURCES}
+    libs = {n: ctypes.CDLL(str(d / f"{n}.so")) for n in build.LIBRARIES}
     libs["blockwise_quant"].blockwise_quantize.argtypes = [P] * 4 + [
         ctypes.c_int] * 5 + [P]
     libs["blockwise_dequant"].blockwise_dequantize.argtypes = [P] * 4 + [
         ctypes.c_int] * 4 + [P]
     for name, (source, argtypes) in fu.ARGTYPES.items():
-        getattr(libs[source], name).argtypes = argtypes
+        for lib, (src, _) in build.LIBRARIES.items():
+            if src == source:
+                getattr(libs[lib], name).argtypes = argtypes
     libs["newton_schulz"].ns_gram.argtypes = [P] * 3 + [ctypes.c_int] * 3 \
         + [P]
     libs["newton_schulz"].ns_gram_splits.argtypes = [ctypes.c_int] * 3
@@ -1160,3 +1163,159 @@ def test_paged_gather_fast_emulated(libs, bits, dtype, shape):
     want = paged_kv._gather_torch(codes, absmax, table, bits=bits,
                                   dtype=dtype)
     assert torch.equal(out, want)
+
+
+# ------------------------------------------ bf16 p (bf16 masters, A14b-1)
+# The bf16 instances of B3 (8-bit and packed, with and without the
+# sentinel) and of B4: p bf16 (block sizes a multiple of 8) and g f32,
+# held bit for bit against the plain versions, whose new p (f32) is rounded
+# to nearest even to bf16 as the kernel stores it.
+BF16_WALKS = [(5, 2048, 2), (5, 264, 2)]
+
+
+def _bf16_inputs(p, grad):
+    """bf16 p; g stays f32 (as the clipped or accumulated gradient of a
+    bf16 master is)."""
+    return p.to(torch.bfloat16), grad
+
+
+@pytest.mark.parametrize("nb,bsz,ctas", BF16_WALKS)
+@pytest.mark.parametrize("mode", ["deterministic", "stochastic", "sentinel"])
+@pytest.mark.parametrize("algo", ["adam", "lamb", "momentum", "lars",
+                                  "adagrad"])
+def test_fused_update_bf16_walk_emulated(libs, algo, mode, nb, bsz, ctas):
+    spec = fu.ALGO_SPECS[algo]
+    two = spec.n_states == 2
+    p, grad, cm, am, cr, ar, q1, q2 = _algo_inputs(algo, nb, bsz, 23)
+    sent, stochastic = mode == "sentinel", mode == "stochastic"
+    if sent:
+        _poison(grad, am, ar)
+    p, grad = _bf16_inputs(p, grad)
+    s = _scalars()
+    ts = (torch.rand(nb, generator=torch.Generator().manual_seed(4)) + 0.5
+          if spec.needs_norms else None)
+    seeds = torch.tensor([-7, 2 ** 31 - 1, 12345, 3, 0][:nb],
+                         dtype=torch.int32)
+    offs = torch.tensor([5, 0, 9, 1, 2][:nb], dtype=torch.int32)
+    uniforms = (fu.block_uniforms(nb, bsz, two=two, block_seeds=seeds,
+                                  block_offsets=offs)
+                if stochastic else (None, None))
+    want = fu.fused_update_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                 algo=algo, tensor_scale=ts,
+                                 uniforms=uniforms, sentinel=sent)
+    want = want._replace(p=want.p.to(torch.bfloat16))
+    got = [None if t is None else t.clone() for t in (p, cm, am, cr, ar)]
+    health = torch.full((nb, fu.N_HEALTH), -1.0)
+    ptr = lambda t: None if t is None else P(t.data_ptr())
+    lib = libs["fused_update_bf16"]
+    assert ctas <= lib.fused_update_ctas(fu.KERNEL_ALGOS[algo], int(sent),
+                                         nb, bsz, 132)
+    rc = lib.fused_update_grid(
+        fu.KERNEL_ALGOS[algo], ptr(got[0]), ptr(grad), *map(ptr, got[1:]),
+        ptr(q1), ptr(q2 if two else None), ptr(ts), ptr(seeds), ptr(offs),
+        ptr(health if sent else None), int(stochastic), 0, nb, bsz, ctas,
+        *fu._kernel_scalars(s), None)
+    assert rc == 0
+    for name, a, b in zip(want._fields, got, want[:5]):
+        if b is not None:
+            assert _same(a, b), name
+    if sent:
+        assert torch.equal(health, want.health)
+        assert health[:, 0].sum() == 3
+    else:
+        assert (health == -1.0).all()
+
+
+@pytest.mark.parametrize("mode", ["deterministic", "stochastic", "sentinel"])
+@pytest.mark.parametrize("algo", ["adam", "lars"])
+def test_fused_update_packed_bf16_emulated(libs, algo, mode):
+    """The packed kernel's bf16 instance at (4, 8) on 5 blocks of 264 over
+    2 CTAs (packed rows off 16-byte boundaries)."""
+    nb, bsz, ctas = 5, 264, 2
+    spec = fu.ALGO_SPECS[algo]
+    two = spec.n_states == 2
+    bits_m, bits_r = 4, 8
+    p, grad, cm, am, cr, ar, q1, q2 = _packed_inputs(algo, nb, bsz, bits_m,
+                                                     bits_r, 29)
+    sent, stochastic = mode == "sentinel", mode == "stochastic"
+    if sent:
+        _poison(grad, am, ar)
+    p, grad = _bf16_inputs(p, grad)
+    s = _scalars()
+    ts = (torch.rand(nb, generator=torch.Generator().manual_seed(4)) + 0.5
+          if spec.needs_norms else None)
+    seeds = torch.tensor([-7, 2 ** 31 - 1, 12345, 3, 0], dtype=torch.int32)
+    offs = torch.tensor([5, 0, 9, 1, 2], dtype=torch.int32)
+    uniforms = (fu.block_uniforms(nb, bsz, two=two, block_seeds=seeds,
+                                  block_offsets=offs)
+                if stochastic else (None, None))
+    bits_r = bits_r if two else 8
+    want = fu.fused_update_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                 algo=algo, tensor_scale=ts,
+                                 uniforms=uniforms, bits_m=bits_m,
+                                 bits_r=bits_r, sentinel=sent)
+    want = want._replace(p=want.p.to(torch.bfloat16))
+    got = [None if t is None else t.clone() for t in (p, cm, am, cr, ar)]
+    health = torch.full((nb, fu.N_HEALTH), -1.0)
+    ptr = lambda t: None if t is None else P(t.data_ptr())
+    rc = libs["fused_update_bf16"].fused_update_packed_grid(
+        fu.KERNEL_ALGOS[algo], ptr(got[0]), ptr(grad), *map(ptr, got[1:]),
+        ptr(q1), ptr(q2 if two else None), ptr(ts), ptr(seeds), ptr(offs),
+        ptr(health if sent else None), int(stochastic), 0, nb, bsz, bits_m,
+        bits_r, ctas, *fu._kernel_scalars(s), None)
+    assert rc == 0
+    for name, a, b in zip(want._fields, got, want[:5]):
+        if b is not None:
+            assert _same(a, b), name
+    if sent:
+        assert torch.equal(health, want.health)
+
+
+@pytest.mark.parametrize("nb,bsz,ctas", BF16_WALKS)
+@pytest.mark.parametrize("bits", [None, (8, 8), (4, 8)],
+                         ids=lambda b: "lars" if b is None
+                         else f"lamb-{b[0]}-{b[1]}")
+def test_norm_partials_bf16_emulated(libs, bits, nb, bsz, ctas):
+    """B4's bf16 instance: the f32 instance's sums and order on the f32
+    values of bf16 p (and f32 g)."""
+    algo = "lars" if bits is None else "lamb"
+    bits_m, bits_r = bits or (8, 8)
+    p, grad, cm, am, cr, ar, q1, q2 = _packed_inputs("lamb", nb, bsz, bits_m,
+                                                     bits_r, 31)
+    p, grad = _bf16_inputs(p * 50, grad)
+    s = _scalars(step=3.0)
+    want = fu.norm_partials_plain(p, grad, cm, am, cr, ar, q1, q2, s,
+                                  algo=algo, bits_m=bits_m, bits_r=bits_r)
+    out = torch.full((nb, fu.N_PARTIALS), float("nan"))
+    state = (cm, am, cr, ar, q1, q2) if algo == "lamb" else (None,) * 6
+    ptr = lambda t: None if t is None else P(t.data_ptr())
+    rc = libs["norm_partials_bf16"].norm_partials_grid(
+        fu.NORM_KINDS[algo], ptr(p), ptr(grad), *map(ptr, state), ptr(out),
+        nb, bsz, bits_m, bits_r, ctas, *fu._kernel_scalars(s), None)
+    assert rc == 0
+    assert torch.equal(out, want)
+    # the same values in f32 give the same partials
+    out32 = torch.full_like(out, float("nan"))
+    p32, g32 = p.float(), grad
+    rc = libs["norm_partials"].norm_partials_grid(
+        fu.NORM_KINDS[algo], ptr(p32), ptr(g32),
+        *map(ptr, state), ptr(out32), nb, bsz, bits_m, bits_r, ctas,
+        *fu._kernel_scalars(s), None)
+    assert rc == 0 and torch.equal(out32, out)
+
+
+def test_bf16_rows_need_a_multiple_of_8(libs):
+    """A bf16 row of 8k + 4 elements would start its odd rows off a 16-byte
+    boundary: the bf16 library refuses it (and reports no grid)."""
+    lib = libs["fused_update_bf16"]
+    assert lib.fused_update_ctas(0, 0, 4, 260, 132) == 0
+    assert lib.fused_update_ctas(0, 0, 4, 264, 132) > 0
+    assert libs["fused_update"].fused_update_ctas(0, 0, 4, 260, 132) > 0
+    p = torch.zeros(2, 260, dtype=torch.bfloat16)
+    g = torch.zeros(2, 260)
+    c = torch.zeros(2, 260, dtype=torch.uint8)
+    a = torch.ones(2)
+    rc = lib.fused_update_grid(
+        0, *_ptrs(p, g, c, a, c, a, QS, QU), None, None, None, None, 0, 0,
+        2, 260, 1, *fu._kernel_scalars(_scalars()), None)
+    assert rc != 0

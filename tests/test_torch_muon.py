@@ -330,6 +330,14 @@ def test_base_engine_rejects_matrix_algo():
         topt.make_optimizer("muon8", blockwise_norm=False, device="cpu")
 
 
+def test_muon_refuses_the_plain_backend():
+    """"plain" names the fused-update kernels' plain versions; muon's plain
+    math is the "torch" backend, and "plain" is refused for it."""
+    with pytest.raises(ConfigError, match="plain"):
+        topt.make_optimizer("muon8", impl="plain", device="cpu")
+    topt.make_optimizer("muon8", impl="torch", device="cpu")
+
+
 @pytest.mark.parametrize("name,kw", [("muon8", {}), ("muon32", {}),
                                      ("muon8", {"state_bits": (4, 8),
                                                 "stochastic_rounding": True})])

@@ -87,12 +87,19 @@ def test_cache_layout_matches_jax():
 
 
 def test_refuses_unported_configs():
+    """The recurrent block kinds are the next slice (ROADMAP A14b-2); the
+    attention family's features (sliding windows, gated MLPs, MoE) are
+    ported and build their caches."""
     import dataclasses
-    for kw in (dict(attn_type="swa", window=8), dict(gated_mlp=True),
-               dict(n_experts=4, top_k=2)):
-        with pytest.raises(ConfigError, match="A14"):
+    for kw in (dict(block_pattern=("rglru", "attn")),
+               dict(block_pattern=("mlstm",)), dict(block_pattern=("slstm",))):
+        with pytest.raises(ConfigError, match="A14b-2"):
             M.init_paged_cache(dataclasses.replace(CFG, **kw), 2, 4, 4,
                                device="cpu")
+    for kw in (dict(attn_type="swa", window=8), dict(gated_mlp=True),
+               dict(n_experts=4, top_k=2)):
+        M.init_paged_cache(dataclasses.replace(CFG, **kw), 2, 4, 4,
+                           device="cpu")
 
 
 def test_generate_greedy_matches_jax(weights):

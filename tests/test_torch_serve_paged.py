@@ -2,9 +2,10 @@
 tests/test_serve_paged.py) on the CPU, with the JAX package's weights
 carried over by ``repro_torch.convert``.
 
-The reference suite's model is gated (``gated_mlp`` defaults to True),
-which the port's model refuses (ROADMAP A14); these tests use the same
-widths with the non-gated MLP and the stable embedding.  Locks: prefill and
+The reference suite's model is gated (``gated_mlp`` defaults to True);
+these tests use the same widths with the non-gated MLP and the stable
+embedding (the gated, sliding-window and MoE models' paged decode is
+``test_torch_models.py``'s and ``test_torch_moe.py``'s).  Locks: prefill and
 decode logits agree with the JAX package's; 8-bit paged greedy decode
 gives the JAX package's paged tokens and the port's f32 contiguous-cache
 oracle's up to a near-tie (the oracle itself held to the JAX oracle's
