@@ -170,7 +170,39 @@ are held to them bit for bit.  Phases, one line or more each:
    wall time per architecture.  ``--phase arch`` runs phases 1-2, the
    bf16 kernels and this phase alone, with their two JSON rows.
 9. summary — the kernels JSON line, the card's name and power limit, and
-   the last line ``{"ok": true, "device": {...}}``.
+   the last line ``{"ok": true, "device": {...}}``; printed last, after
+   phase 10.
+10. recurrent — the recurrent family (thirteenth slice), run after phase
+   8: xlstm-350m at its published widths and depth (24 layers: 21 mLSTM,
+   3 sLSTM; d_model 1024, 4 heads, vocab 50304; 0.348 B parameters, f32
+   masters) and recurrentgemma-9b at its published widths with RG_LAYERS
+   = 5 layers (one (rglru, rglru, attn) super-block and the 2 remainder
+   rglru layers; d_model and lru_width 4096, MQA kv 1 x 256, window 2048,
+   a tied head over 256,000 tokens; 2.175 B f32 parameters).  Each trains
+   adamw8 pooled for RECURRENT_STEPS steps of seq 512 x batch 8 (RG_BATCH
+   = 4 for recurrentgemma; the scans' checkpointed path: 8 chunks of 64)
+   through the kernels and
+   through their plain versions (every state array and step metric
+   bit-identical, B3 once a step), adamw32 beside it (final losses within
+   1%), and under ``--phase recurrent`` one more adamw8 step under the
+   profiler (device activity only: busy time against wall, launches).  Each serves 4 greedy requests
+   through the paged engine at kv 8 in 4 slots, B7 and the plain gather
+   giving identical tokens and logits: xlstm (prompts 64-256, 16 new)
+   launches no B7 and its tokens equal the contiguous cache's
+   (``contiguous_greedy``), and so do those of one request of
+   XLSTM_LONG_PROMPT = 16384 tokens served alone; recurrentgemma
+   (prompts 64-2100, one past the
+   2048-token window) launches B7 2 x 1 attn layer times a decode step.
+   Then muon8 on bf16 masters at mixtral-8x22b's 1-layer cut (phase 8's
+   configuration), per leaf, MUON_BF16_STEPS steps through the kernels
+   and through ``impl="torch"``: losses within ORACLE_RTOL, B5 and B6
+   launched 5 times per matrix leaf and step.  Peak memory and wall time
+   per architecture.  The kernels phase also holds B7 against its plain
+   version at recurrentgemma's rows (RG_GATHER_SHAPE: kv 1 x 256, 4 slots
+   x 133 pages; 8 and 4 bits, exact) and times it as at the paper LM's
+   shape; those numbers ride in the paged_gather rows as ``kv1x256_*``.
+   ``--phase recurrent`` runs phases 1-2, that B7 check and this phase
+   alone, with the 8-bit B7 row at recurrentgemma's shape.
 
 Any failure raises: the script then exits non-zero without the last line.
 """
@@ -361,6 +393,41 @@ EXPERT_BLOCKS = 8 * 6144 * 16384 // 2048         # one (8, 6144, 16384) leaf
 ARCH_SERVE_PAGE, ARCH_SERVE_SLOTS = 16, 4
 STABLELM_PROMPTS, STABLELM_NEW = (64, 128, 192, 256), 16
 MIXTRAL_PROMPT, MIXTRAL_NEW = 4200, 64
+
+# the recurrent family (thirteenth slice, phase 10 and ``--phase
+# recurrent``): xlstm-350m at its published widths and depth, and
+# recurrentgemma-9b at its published widths with RG_LAYERS layers (one
+# (rglru, rglru, attn) super-block and the 2 remainder rglru layers), each
+# trained RECURRENT_STEPS steps (seq 512 > the scan's chunk of 64: the
+# checkpointed path) through the kernels and their plain versions; served
+# greedily through the paged engine at kv 8; and muon8 on bf16 masters at
+# mixtral-8x22b's MIXTRAL_LAYERS-layer cut (the arch phase's
+# configuration), through the kernels and through impl="torch"
+RECURRENT_STEPS = 3
+RG_LAYERS = 5
+# recurrentgemma's train batch: at 8 its first adamw8 step needed ~73 GB
+# of the card's 80 (the tied head's 256,000 x 4096 table in f32 several
+# times over, beside 24 GB of masters and state); cut to 4
+RG_BATCH = 4
+XLSTM_PROMPTS, RG_PROMPTS, RECURRENT_NEW = (64, 128, 192, 256), \
+    (64, 512, 1024, 2100), 16
+# one long xlstm request served alone: the prefill's scans at 32x the
+# train length.  Cut from the repo's prefill_32k length (32768), whose
+# two prefills took 192 s on an H100 against the run's 1200 s limit
+XLSTM_LONG_PROMPT, XLSTM_LONG_NEW = 16384, 4
+MUON_BF16_STEPS = 3
+# the kernels JSON rows that report the recurrent phase's launches beside
+# their own run's ("other_runs": {run: launches})
+RECURRENT_ROW_RUNS = {
+    "fused_update/arena_adamw8": ("xlstm_adamw8", "recurrentgemma_adamw8"),
+    "paged_gather/8bit": ("recurrentgemma_serve_kv8",),
+    "blockwise_quant": ("mixtral_muon8_bf16",),
+    "blockwise_dequant": ("mixtral_muon8_bf16",),
+    "ns_gram": ("mixtral_muon8_bf16",),
+    "ns_apply": ("mixtral_muon8_bf16",)}
+# B7 at recurrentgemma's row shape: its numbers ride in the paged_gather
+# rows under this prefix
+RG_GATHER_KEY = "kv1x256_"
 
 # fused-update variant -> (algo, stochastic); the optimizer name of its
 # train run is the variant without "_sr" plus stochastic rounding
@@ -1060,26 +1127,33 @@ def check_ns_kernels(torch, dev, shape=(1024, 50264),
     return out
 
 
-def gather_inputs(torch, dev, bits: int):
-    """B7's inputs at the serve path's shapes: a pool of 512 pages of 16
-    positions x 16 heads x 64 (rows over many decades, two all-zero rows)
-    quantized at ``bits``, and a scrambled table of 16 slots x 32 pages
-    with -1 entries (unallocated tails, one empty slot).  Returns (codes,
-    absmax, table, distinct pages read)."""
+# B7's shapes: (slots, pages per slot, page, kv heads, head dim, pages in
+# the pool); the paper LM's serve path, and recurrentgemma-9b's (MQA, kv 1
+# x 256: its 4 slots of 133 pages, prompts up to 2100 tokens + 16 new)
+GATHER_SHAPE = (SERVE_SLOTS, SERVE_PAGES_PER_SEQ, SERVE_PAGE, 16, 64,
+                SERVE_POOL)
+RG_GATHER_SHAPE = (4, 133, 16, 1, 256, 4 * 133)
+
+
+def gather_inputs(torch, dev, bits: int, shape=GATHER_SHAPE):
+    """B7's inputs at ``shape`` (the serve path's by default: a pool of 512
+    pages of 16 positions x 16 heads x 64, rows over many decades, two
+    all-zero rows) quantized at ``bits``, and a scrambled table of slots x
+    pages with -1 entries (unallocated tails, one empty slot).  Returns
+    (codes, absmax, table, distinct pages read)."""
     from repro_torch.kernels import paged_kv
-    B, P_, page, KV, Dh = (SERVE_SLOTS, SERVE_PAGES_PER_SEQ, SERVE_PAGE, 16,
-                           64)
+    B, P_, page, KV, Dh, pool = shape
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    rows = torch.randn(SERVE_POOL, page, KV, Dh, generator=gen,
+    rows = torch.randn(pool, page, KV, Dh, generator=gen,
                        device=dev) * torch.exp(torch.randn(
-                           SERVE_POOL, page, KV, 1, generator=gen,
+                           pool, page, KV, 1, generator=gen,
                            device=dev) * 2)
     rows[1, 2] = 0.0                                   # all-zero rows
-    table = torch.randperm(SERVE_POOL, generator=gen, device=dev)[
+    table = torch.randperm(pool, generator=gen, device=dev)[
         :B * P_].reshape(B, P_).int()
     table[B // 4, P_ * 5 // 8:] = -1                  # unallocated tails
     table[B - 1] = -1
-    pages_read = len(set(table.clamp(0, SERVE_POOL - 1).flatten().tolist()))
+    pages_read = len(set(table.clamp(0, pool - 1).flatten().tolist()))
     codes, absmax = paged_kv.quantize_rows(rows, bits)
     return codes, absmax, table, pages_read
 
@@ -1161,19 +1235,20 @@ def gather_bound(codes, table, pages_read: int, bits: int, dtype) -> tuple:
                     + n_out * dtype.itemsize + (1 << bits) * 4, n_out)
 
 
-def check_gather_kernel(torch, dev) -> dict:
-    """B7 against its plain version at the serve path's shapes
-    (:func:`gather_inputs`); 8 and 4 bits, bf16 (the path's dtype) and f32
-    out.  Exact: 0 mismatches.  Timed warm (back-to-back calls on one
-    pool, profiler device time beside the plain version's) and cold (raw
-    launches of the wrapper's C entry over rotating pools,
+def check_gather_kernel(torch, dev, shape=GATHER_SHAPE) -> dict:
+    """B7 against its plain version at ``shape`` (:func:`gather_inputs`;
+    the serve path's by default); 8 and 4 bits, bf16 (the path's dtype)
+    and f32 out.  Exact: 0 mismatches.  Timed warm (back-to-back calls on
+    one pool, profiler device time beside the plain version's) and cold
+    (raw launches of the wrapper's C entry over rotating pools,
     :func:`gather_rotation`: profiler device time, and CUDA events around
     a graph of them, :func:`gather_cold`)."""
     from repro_torch.kernels import paged_kv
     lib = paged_kv._lib()
     out = {}
     for bits in (8, 4):
-        codes, absmax, table, pages_read = gather_inputs(torch, dev, bits)
+        codes, absmax, table, pages_read = gather_inputs(torch, dev, bits,
+                                                         shape)
         B, P_ = table.shape
         for dt in (torch.bfloat16, torch.float32):
             got = paged_kv.gather_cuda(codes, absmax, table, bits=bits,
@@ -1209,7 +1284,8 @@ def check_gather_kernel(torch, dev) -> dict:
             del seq
             b, by = gather_bound(codes, table, pages_read, bits, dt)
             print(f"kernel paged_gather ({bits}-bit -> {dt}, {B}x{P_} pages "
-                  f"of {SERVE_PAGE}x16x64, {pages_read} distinct): exact, 0 "
+                  f"of {'x'.join(map(str, shape[2:5]))}, {pages_read} "
+                  f"distinct): exact, 0 "
                   f"mismatches; cold {cold:.4f} ms of device time "
                   f"({100 * b / cold:.0f}% of the bound), "
                   f"{graph_ms['kernel']:.4f} ms per launch in a graph; warm "
@@ -2060,16 +2136,28 @@ def train_slice3(torch, dev, cfg, batches, losses32: dict,
         torch.cuda.empty_cache()
 
 
+def _host_arrays(state) -> list:
+    """The arrays of a train state (its optimizer state in the per-leaf
+    canonical layout) as (key, host copy or int) pairs, which
+    :func:`_same_state` takes in place of a state."""
+    from repro_torch.train import checkpoint as C
+    raw = lambda t: getattr(t, "packed", t)       # PackedCodes' bytes
+    return [(k, v if isinstance(v, int) else raw(v).cpu())
+            for k, v in C._flatten(state)]
+
+
 def _same_state(torch, a, b) -> int:
     """Arrays of two train states (their optimizer states in the per-leaf
-    canonical layout) that differ bitwise."""
+    canonical layout; ``a`` may be :func:`_host_arrays`' list) that differ
+    bitwise."""
     from repro_torch.train import checkpoint as C
-    fa, fb = C._flatten(a), C._flatten(b)
+    fa = a if isinstance(a, list) else C._flatten(a)
+    fb = C._flatten(b)
     require([k for k, _ in fa] == [k for k, _ in fb],
             "the two states hold different arrays")
     raw = lambda t: getattr(t, "packed", t)       # PackedCodes' bytes
     return sum(not (x == y if isinstance(x, int)
-                    else torch.equal(raw(x), raw(y)))
+                    else torch.equal(raw(x), raw(y).to(raw(x).device)))
                for (_, x), (_, y) in zip(fa, fb))
 
 
@@ -2980,12 +3068,13 @@ def arch_train(torch, dev, cfg, name: str, steps: int, batches, label: str,
     opt = make_optimizer(name, device=dev, **opt_kw)
     state, model = L.init_train_state(cfg, opt, gen, device=dev)
     step = L.make_train_step(cfg, model, opt)
-    ms, trace = [], []
+    ms, trace, losses = [], [], []
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batches[i])
         loss = m["loss"].item()
+        losses.append(loss)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
         trace.append(torch.stack([m[k].float().reshape(()) for k in sorted(m)
@@ -2998,39 +3087,47 @@ def arch_train(torch, dev, cfg, name: str, steps: int, batches, label: str,
         require(math.isfinite(loss), f"{label}: non-finite loss")
     model.zero_grad(set_to_none=True)
     return dict(opt=opt, state=state, model=model, ms=ms, trace=trace,
-                metrics=m)
+                metrics=m, losses=losses)
 
 
-def arch_pair(torch, dev, cfg, name, batches, label, **opt_kw) -> tuple:
+def arch_pair(torch, dev, cfg, name, batches, label, steps=ARCH_STEPS,
+              on_host=False, **opt_kw) -> tuple:
     """``name`` through the kernels and through their plain versions
-    (``impl="plain"``) from the same weights and batches, each with the
-    launch counters zeroed just before it and read just after: every state
-    array and every step's metrics must be bit-identical, the plain run
-    must launch nothing.  Returns (the kernel run's launches, its median
-    step ms, the plain run's, its peak device memory in GB)."""
+    (``impl="plain"``) from the same weights and batches, ``steps`` steps
+    each, with the launch counters zeroed just before it and read just
+    after: every state array and every step's metrics must be
+    bit-identical, the plain run must launch nothing.  ``on_host``: the
+    kernel run's state is copied to host memory and freed on the card
+    before the plain run (for a model whose two states do not fit the
+    card together).  Returns (the kernel run's launches, its median step
+    ms, the plain run's, its peak device memory in GB, its final loss)."""
     from repro_torch.kernels import ops
     runs, counts, peak = {}, {}, {}
     for impl in ("cuda", "plain"):
         ops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         base_b = torch.cuda.memory_allocated()
-        runs[impl] = arch_train(torch, dev, cfg, name, ARCH_STEPS, batches,
+        runs[impl] = arch_train(torch, dev, cfg, name, steps, batches,
                                 f"{label} {impl}", impl=impl, **opt_kw)
         torch.cuda.synchronize()
         counts[impl] = ops.launch_counts()
         peak[impl] = (torch.cuda.max_memory_allocated() - base_b) / 1e9
         if impl == "cuda":
             runs[impl]["model"] = None    # the state still holds its masters
+            if on_host:
+                runs[impl]["state"] = _host_arrays(runs[impl]["state"])
+                torch.cuda.empty_cache()
     n_bad = _same_state(torch, runs["cuda"]["state"], runs["plain"]["state"])
     require(n_bad == 0, f"{label}: {n_bad} state arrays of the kernel run "
-            f"differ from the plain versions' run after {ARCH_STEPS} steps")
+            f"differ from the plain versions' run after {steps} steps")
     require(runs["cuda"]["trace"] == runs["plain"]["trace"],
             f"{label}: per-step metrics differ between the kernel and the "
             f"plain run")
     require(not any(counts["plain"].values()), f"{label}: the plain run "
             f"launched {counts['plain']}")
     ms = [statistics.median(runs[k]["ms"][1:]) for k in ("cuda", "plain")]
-    return counts["cuda"], ms[0], ms[1], peak["cuda"]
+    return (counts["cuda"], ms[0], ms[1], peak["cuda"],
+            runs["cuda"]["metrics"]["loss"].item())
 
 
 def arch_serve(torch, cfg, model, reqs, n_slots, pages_per_seq, impl):
@@ -3065,7 +3162,8 @@ def arch_serve_pair(torch, dev, cfg, reqs, n_slots, pages_per_seq,
                     run_launches, step_launches, run_steps, label) -> None:
     """The paged engine through B7 and through its plain gather on the
     same weights (SEED) and requests: identical tokens and bit-identical
-    last-step logits; B7 launched 2 x layers per decode step."""
+    last-step logits; B7 launched 2 x attn layers per decode step.
+    Returns the model and the B7 run's tokens."""
     import numpy as np
     from repro_torch.models import model as M
     model = M.init_model(cfg, torch.Generator(device=dev).manual_seed(SEED),
@@ -3075,9 +3173,11 @@ def arch_serve_pair(torch, dev, cfg, reqs, n_slots, pages_per_seq,
                             impl) for impl in ("cuda", "torch")}
     peak = torch.cuda.max_memory_allocated() / 1e9
     (out, steps, launches, last, wall), ref = got["cuda"], got["torch"]
-    require(launches == 2 * cfg.n_layers * steps, f"{label}: B7 launched "
+    n_attn = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "attn"
+                 for i in range(cfg.n_layers))
+    require(launches == 2 * n_attn * steps, f"{label}: B7 launched "
             f"{launches} times in {steps} decode steps, expected 2 x "
-            f"{cfg.n_layers} layers per step")
+            f"{n_attn} attn layers per step")
     require(ref[2] == 0, f"{label}: the plain gather launched B7")
     require(all(np.array_equal(out[r.rid], ref[0][r.rid]) for r in reqs)
             and torch.equal(last, ref[3]), f"{label}: the kernel and the "
@@ -3089,11 +3189,12 @@ def arch_serve_pair(torch, dev, cfg, reqs, n_slots, pages_per_seq,
           f"{[len(r.prompt) for r in reqs]}), {n_tok} tokens in {steps} "
           f"decode steps, {wall:.3f} s ({n_tok / wall:.1f} tokens/s); B7 "
           f"{launches} launches, {launches / steps:.0f} per decode step "
-          f"(2 x {cfg.n_layers} layers); tokens identical and last-step "
+          f"(2 x {n_attn} attn layers); tokens identical and last-step "
           f"logits bit-identical to the plain gather ({ref[4]:.3f} s); "
           f"peak device memory {peak:.2f} GB")
-    del model, got
+    del got
     torch.cuda.empty_cache()
+    return model, out
 
 
 def arch_phase(torch, dev, run_launches, step_launches, run_steps) -> None:
@@ -3132,8 +3233,8 @@ def arch_phase(torch, dev, run_launches, step_launches, run_steps) -> None:
             kw = dict(master_dtype="bfloat16", **MIXTRAL_OPT) if bf16 else \
                 dict(lr=LR, weight_decay=WEIGHT_DECAY)
             label = f"{arch.split('-')[0]}_{name}"
-            counts, ms_k, ms_p, peak = arch_pair(torch, dev, cfg, name,
-                                                 batches, label, **kw)
+            counts, ms_k, ms_p, peak, _ = arch_pair(torch, dev, cfg, name,
+                                                    batches, label, **kw)
             norms = name.startswith("lamb")
             require(counts["fused_update"] == ARCH_STEPS and
                     counts["norm_partials"] == (ARCH_STEPS if norms else 0),
@@ -3180,6 +3281,317 @@ def arch_phase(torch, dev, run_launches, step_launches, run_steps) -> None:
                             step_launches, run_steps, "mixtral_serve_kv8")
         print(f"arch {arch}: {time.perf_counter() - t_arch:.1f} s")
     print(f"arch phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ----------------------------------------------------------------- phase 10
+def recurrentgemma_cfg():
+    """recurrentgemma-9b at its published widths, RG_LAYERS layers."""
+    import dataclasses
+    from repro_torch.configs import base
+    return dataclasses.replace(base.get_config("recurrentgemma-9b"),
+                               n_layers=RG_LAYERS)
+
+
+def contiguous_greedy(torch, cfg, model, reqs) -> dict:
+    """The greedy tokens of ``reqs`` (equal max_new) through the contiguous
+    cache: each prompt prefilled alone (batch 1, as the paged engine
+    prefills), the caches stacked on the batch axis, then ``decode_step``
+    over all of them at once (as the engine's decode step runs every
+    slot).  For a model without attn layers, whose cache holds no
+    position."""
+    from repro_torch.models import model as M
+    n_new = reqs[0].max_new_tokens
+    require(all(r.max_new_tokens == n_new for r in reqs) and not any(
+        k == "attn" for k in cfg.block_pattern), "contiguous_greedy: equal "
+        "max_new and no attn layer")
+    dev = model.device
+    firsts, caches = [], []
+    for r in reqs:
+        logits, cache = M.prefill(cfg, model, torch.tensor(
+            [list(r.prompt)], device=dev), len(r.prompt))
+        firsts.append(logits[0, -1].argmax())
+        caches.append(cache)
+    # every leaf's batch axis follows the scanned part's layer axis
+    cat = lambda ts, stacked: torch.cat(ts, dim=1 if stacked else 0)
+    cache = {"scan": {name: tuple(cat([c["scan"][name][j] for c in caches],
+                                      True)
+                                  for j in range(len(layer)))
+                      if isinstance(layer, tuple) else
+                      {k: cat([c["scan"][name][k] for c in caches], True)
+                       for k in layer}
+                      for name, layer in caches[0]["scan"].items()},
+             "rem": [tuple(cat([c["rem"][i][j] for c in caches], False)
+                           for j in range(len(layer)))
+                     if isinstance(layer, tuple) else
+                     {k: cat([c["rem"][i][k] for c in caches], False)
+                      for k in layer}
+                     for i, layer in enumerate(caches[0]["rem"])]}
+    tok = torch.stack(firsts)
+    out = [tok]
+    for i in range(n_new - 1):
+        logits, cache = M.decode_step(cfg, model, tok[:, None], cache, i)
+        tok = logits[:, 0].argmax(dim=-1)
+        out.append(tok)
+    toks = torch.stack(out, dim=1).cpu().numpy().astype("int32")
+    return {r.rid: toks[i] for i, r in enumerate(reqs)}
+
+
+def busy_step(torch, step, state, batch) -> tuple:
+    """One step under the profiler, device activity only (a recurrent
+    step's ~10^6 launches make the host-side events too many to process):
+    (device ms by kernel name as (ms, launches, name) largest first, the
+    step's wall ms under the profiler).  The raw kineto events are read,
+    not the profiler's processed tables."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(ev.device_type()):
+            continue
+        ms_, n_ = by_name.get(ev.name(), (0.0, 0))
+        by_name[ev.name()] = (ms_ + ev.duration_ns() / 1e6, n_ + 1)
+    rows = sorted(((t, n, k) for k, (t, n) in by_name.items()),
+                  reverse=True)
+    return rows, wall_ms
+
+
+def profiled_recurrent_step(torch, run, batch, label) -> None:
+    """One more step of a run under the profiler: device time against the
+    step's wall time and the device's launches, the starting trace of the
+    scans (``run`` is an :func:`arch_train` result with its model)."""
+    from repro_torch.train import loop as L
+    step = L.make_train_step(run["model"].cfg, run["model"], run["opt"])
+    t0 = time.perf_counter()
+    prof, wall = busy_step(torch, step, run["state"], batch)
+    total = sum(t for t, _, _ in prof)
+    n = sum(count for _, count, _ in prof)
+    print(f"profile {label} step: {total:.2f} ms device time over "
+          f"{wall:.2f} ms wall under the profiler (device busy "
+          f"{100 * total / wall:.1f}%), {n} device activities (kernels, "
+          f"copies) in {len(prof)} names ({time.perf_counter() - t0:.1f} s "
+          f"with the profiler's processing); top:")
+    for t, count, key in prof[:10]:
+        print(f"profile   {t:9.3f} ms  x{count:<7d} {key[:90]}")
+    run["model"].zero_grad(set_to_none=True)
+
+
+def recurrent_train(torch, dev, cfg, batches, label, run_launches,
+                    step_launches, run_steps, on_host=False,
+                    profile=False) -> None:
+    """adamw8 (pooled) through the kernels and their plain versions,
+    bit-identical with B3 once a step (``on_host``: see
+    :func:`arch_pair`); adamw32 beside it, its final loss within 1%; with
+    ``profile``, one more adamw8 step under the profiler.  Peak memory of
+    each."""
+    counts, ms_k, ms_p, peak, loss8 = arch_pair(
+        torch, dev, cfg, "adamw8", batches, f"{label}_adamw8",
+        steps=RECURRENT_STEPS, on_host=on_host, lr=LR,
+        weight_decay=WEIGHT_DECAY)
+    require(counts["fused_update"] == RECURRENT_STEPS and
+            counts["norm_partials"] == 0, f"{label}_adamw8: launches "
+            f"{counts}, expected B3 once per step (the arena)")
+    run_launches[f"{label}_adamw8"] = step_launches[f"{label}_adamw8"] = \
+        counts
+    run_steps[f"{label}_adamw8"] = RECURRENT_STEPS
+    print(f"recurrent {label}_adamw8: {RECURRENT_STEPS} steps, every state "
+          f"array and step metric bit-identical to the plain versions' run; "
+          f"launches {counts}; median step {ms_k:.1f} ms (plain versions "
+          f"{ms_p:.1f} ms); peak device memory {peak:.2f} GB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_b = torch.cuda.memory_allocated()
+    run = arch_train(torch, dev, cfg, "adamw32", RECURRENT_STEPS, batches,
+                     f"{label} adamw32", lr=LR, weight_decay=WEIGHT_DECAY)
+    loss32 = run["metrics"]["loss"].item()
+    rel = abs(loss8 - loss32) / abs(loss32)
+    print(f"recurrent {label} adamw32: median step "
+          f"{statistics.median(run['ms'][1:]):.1f} ms; peak device memory "
+          f"{(torch.cuda.max_memory_allocated() - base_b) / 1e9:.2f} GB; "
+          f"final loss adamw8 {loss8:.6f} adamw32 {loss32:.6f} "
+          f"({100 * rel:.3f}% apart)")
+    require(rel < 0.01, f"{label}: adamw8 and adamw32 final losses differ "
+            f"by {100 * rel:.2f}% (limit 1%)")
+    del run
+    torch.cuda.empty_cache()
+    if profile:
+        run = arch_train(torch, dev, cfg, "adamw8", 1, batches,
+                         f"{label} adamw8 (profiled)", lr=LR,
+                         weight_decay=WEIGHT_DECAY)
+        profiled_recurrent_step(torch, run, batches[1], f"{label}_adamw8")
+        del run
+        torch.cuda.empty_cache()
+
+
+def muon_bf16_run(torch, dev, run_launches, step_launches,
+                  run_steps) -> None:
+    """muon8 on bf16 masters at mixtral-8x22b's MIXTRAL_LAYERS-layer cut
+    (bf16 params), MUON_BF16_STEPS steps through the kernels (B3 per
+    quantized element-wise leaf, B2 -> B5/B6 -> B1 per quantized matrix
+    leaf) and through impl="torch" from the same weights and batches, per
+    leaf (the torch oracle over the pooled arena of 2.4 B expert elements
+    would hold several f32 copies of it): losses within ORACLE_RTOL; B5
+    and B6 ns_steps times per matrix leaf and step; the quantized matrix
+    leaves' masters bf16."""
+    from repro_torch.core.optim import Full32Leaf, Quant8Leaf
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import ops
+    cfg = mixtral_cfg()
+    pipe = SyntheticLMPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=SEQ_LEN, global_batch=BATCH,
+                                          seed=SEED))
+    batches = [pipe.batch_at(i) for i in range(MUON_BF16_STEPS)]
+    losses = {}
+    for impl in ("cuda", "torch"):
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run = arch_train(torch, dev, cfg, "muon8", MUON_BF16_STEPS, batches,
+                         f"mixtral muon8 bf16 masters {impl}", impl=impl,
+                         master_dtype="bfloat16", pooled=False,
+                         **MIXTRAL_OPT)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        leaves = list(run["state"].opt_state.leaves.values())
+        quant = [leaf for leaf in leaves if isinstance(leaf, Quant8Leaf)]
+        matrix_q = [leaf for leaf in quant if leaf.codes_r is None]
+        matrix_32 = [leaf for leaf in leaves if isinstance(leaf, Full32Leaf)
+                     and leaf.r is None]
+        losses[impl] = run["losses"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        require(matrix_q and all(leaf.master.dtype == torch.bfloat16
+                                 for leaf in matrix_q),
+                "muon8 bf16: the quantized matrix leaves' masters are not "
+                "bf16")
+        if impl == "cuda":
+            ns = run["opt"].cfg.ns_steps * (len(matrix_q) + len(matrix_32))
+            want = {"fused_update": MUON_BF16_STEPS * (len(quant)
+                                                       - len(matrix_q)),
+                    "blockwise_quant": MUON_BF16_STEPS * len(matrix_q),
+                    "blockwise_dequant": MUON_BF16_STEPS * len(matrix_q),
+                    "ns_gram": MUON_BF16_STEPS * ns,
+                    "ns_apply": MUON_BF16_STEPS * ns}
+            require(all(counts[k] == v for k, v in want.items()),
+                    f"muon8 bf16: launches {counts}, expected {want}")
+            run_launches["mixtral_muon8_bf16"] = counts
+            step_launches["mixtral_muon8_bf16"] = counts
+            run_steps["mixtral_muon8_bf16"] = MUON_BF16_STEPS
+        else:
+            require(not any(counts.values()), f"muon8 bf16: the torch run "
+                    f"launched {counts}")
+        print(f"muon8 bf16 {impl}: {len(matrix_q)} quantized matrix leaves "
+              f"(bf16 masters) and {len(matrix_32)} f32-momentum ones; "
+              f"launches {counts}; median step "
+              f"{statistics.median(run['ms'][1:]):.1f} ms; peak device "
+              f"memory {peak:.2f} GB")
+        del run
+        torch.cuda.empty_cache()
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                      losses["torch"]))
+    print(f"muon8 bf16: losses {losses['cuda']} (kernels) and "
+          f"{losses['torch']} (torch) at most {worst:.3e} apart (limit "
+          f"{ORACLE_RTOL:g})")
+    require(worst <= ORACLE_RTOL, f"muon8 bf16: kernel and torch losses "
+            f"{worst:.3e} apart (limit {ORACLE_RTOL:g})")
+
+
+def xlstm_long_serve(torch, cfg, model, rng) -> None:
+    """One request of XLSTM_LONG_PROMPT tokens through the paged engine
+    (no B7 launch: no attn layer) and through the contiguous cache: the
+    same XLSTM_LONG_NEW tokens; prints each one's wall and the peak."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Request
+    req = [Request(rid=0, prompt=tuple(rng.randint(
+        0, cfg.vocab_size, XLSTM_LONG_PROMPT).tolist()),
+        max_new_tokens=XLSTM_LONG_NEW)]
+    torch.cuda.reset_peak_memory_stats()
+    out, _, launches, _, wall = arch_serve(
+        torch, cfg, model, req, 1,
+        -(-(XLSTM_LONG_PROMPT + XLSTM_LONG_NEW) // ARCH_SERVE_PAGE), "cuda")
+    require(launches == 0, f"xlstm long serve: B7 launched {launches} "
+            f"times without an attn layer")
+    t0 = time.perf_counter()
+    ref = contiguous_greedy(torch, cfg, model, req)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    require(np.array_equal(out[0], ref[0]), "xlstm long serve: the paged "
+            "engine's tokens differ from the contiguous cache's")
+    print(f"serve xlstm long: a {XLSTM_LONG_PROMPT}-token prompt, "
+          f"{XLSTM_LONG_NEW} new tokens equal to the contiguous cache's; "
+          f"paged engine {wall:.3f} s, contiguous {wall_c:.3f} s; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def recurrent_phase(torch, dev, run_launches, step_launches, run_steps,
+                    profile=False) -> None:
+    """xlstm-350m (24 layers, published widths) and recurrentgemma-9b
+    (published widths, RG_LAYERS layers): trained (recurrent_train) and
+    served through the paged engine at kv 8, 4 greedy requests each;
+    xlstm's tokens equal the contiguous cache's (contiguous_greedy) with
+    no B7 launch, recurrentgemma's B7 and plain-gather runs identical with
+    2 B7 launches a decode step (one attn layer), a prompt past the
+    2048-token window; then muon8 on bf16 masters (muon_bf16_run).
+    ``profile``: a profiled adamw8 step of each architecture (~3 minutes
+    for xlstm's ~10^6 launches; ``--phase recurrent`` runs them, the whole
+    run does not)."""
+    import numpy as np
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.serve.scheduler import Request
+    t_phase = time.perf_counter()
+    for arch in ("xlstm-350m", "recurrentgemma-9b"):
+        t_arch = time.perf_counter()
+        rg = arch == "recurrentgemma-9b"
+        cfg = recurrentgemma_cfg() if rg else base.get_config(arch)
+        label = arch.split("-")[0]
+        batch = RG_BATCH if rg else BATCH
+        pipe = SyntheticLMPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                              seq_len=SEQ_LEN,
+                                              global_batch=batch, seed=SEED))
+        batches = [pipe.batch_at(i) for i in range(RECURRENT_STEPS)]
+        print(f"recurrent {arch}: {cfg.n_layers} layers "
+              f"({cfg.n_superblocks} x {'/'.join(cfg.block_pattern)}"
+              f"{f' + {cfg.n_remainder_layers} remainder' if rg else ''}), "
+              f"d_model {cfg.d_model}, {cfg.n_heads} heads (kv "
+              f"{cfg.n_kv_heads}, head_dim {cfg.head_dim}), "
+              + (f"lru_width {cfg.lru_width}, d_ff {cfg.d_ff}, window "
+                 f"{cfg.window}, " if rg else "")
+              + f"vocab {cfg.vocab_size}; {cfg.param_count() / 1e9:.3f} B "
+              f"{cfg.param_dtype} parameters, f32 masters; seq {SEQ_LEN} x "
+              f"batch {batch}")
+        recurrent_train(torch, dev, cfg, batches, label, run_launches,
+                        step_launches, run_steps, on_host=rg,
+                        profile=profile)
+        prompts = RG_PROMPTS if rg else XLSTM_PROMPTS
+        rng = np.random.RandomState(SEED)
+        reqs = [Request(rid=i, prompt=tuple(rng.randint(
+            0, cfg.vocab_size, P).tolist()), max_new_tokens=RECURRENT_NEW)
+            for i, P in enumerate(prompts)]
+        if rg:
+            require(max(prompts) > cfg.window, "recurrentgemma serve: a "
+                    "prompt must be longer than the window")
+        per_seq = -(-(max(prompts) + RECURRENT_NEW) // ARCH_SERVE_PAGE)
+        model, out = arch_serve_pair(
+            torch, dev, cfg, reqs, ARCH_SERVE_SLOTS, per_seq, run_launches,
+            step_launches, run_steps, f"{label}_serve_kv8")
+        if not rg:
+            ref = contiguous_greedy(torch, cfg, model, reqs)
+            require(all(np.array_equal(out[r.rid], ref[r.rid])
+                        for r in reqs), f"{label} serve: the paged engine's "
+                    f"tokens differ from the contiguous cache's")
+            print(f"serve {label}: the paged engine's tokens equal the "
+                  f"contiguous prefill + decode_step tokens")
+            xlstm_long_serve(torch, cfg, model, rng)
+        del model
+        torch.cuda.empty_cache()
+        print(f"recurrent {arch}: {time.perf_counter() - t_arch:.1f} s")
+    t0 = time.perf_counter()
+    muon_bf16_run(torch, dev, run_launches, step_launches, run_steps)
+    print(f"recurrent muon8 bf16: {time.perf_counter() - t0:.1f} s")
+    print(f"recurrent phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 # ------------------------------------------------------------------ phase 7
@@ -3396,15 +3808,19 @@ def telemetry_phase(torch, dev, cfg, batches, n_quant, run_launches,
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phase", choices=("all", "partition", "arch"),
+    ap.add_argument("--phase", choices=("all", "partition", "arch",
+                                        "recurrent"),
                     default="all",
                     help="all (the default), the partition phases alone "
                          "(device, build, the arena and partition kernels, "
-                         "the span runs and the group runs) or the arch "
+                         "the span runs and the group runs), the arch "
                          "phase alone (device, build, the bf16 kernels and "
                          "the stablelm and mixtral runs, with their kernels "
-                         "JSON rows), for iterating on them; only a run of "
-                         "all prints the last line")
+                         "JSON rows) or the recurrent phase alone (device, "
+                         "build, B7 at recurrentgemma's rows, the xlstm, "
+                         "recurrentgemma and bf16-master muon runs), for "
+                         "iterating on them; only a run of all prints the "
+                         "last line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3508,6 +3924,23 @@ def main(argv=None) -> int:
               "line)")
         return 0
 
+    if args.phase == "recurrent":
+        kernels = check_gather_kernel(torch, dev, RG_GATHER_SHAPE)
+        torch.cuda.empty_cache()
+        run_launches, step_launches, run_steps = {}, {}, {}
+        recurrent_phase(torch, dev, run_launches, step_launches, run_steps,
+                        profile=True)
+        rows = kernel_rows(kernels, [("paged_gather/8bit", *GATHER,
+                                      "paged_gather",
+                                      "recurrentgemma_serve_kv8")],
+                           run_launches, step_launches, run_steps)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": rows}))
+        print(card)
+        print("chip_smoke: the recurrent phase passed (a partial run: no "
+              "last line)")
+        return 0
+
     # ---- 3. kernels vs plain versions
     check_div_shortcut(torch, dev)
     kernels = check_kernels(torch, dev)
@@ -3517,6 +3950,12 @@ def main(argv=None) -> int:
     kernels.update(check_slice3_kernels(torch, dev))
     torch.cuda.empty_cache()
     kernels.update(check_gather_kernel(torch, dev))
+    torch.cuda.empty_cache()
+    for name, row in check_gather_kernel(torch, dev,
+                                         RG_GATHER_SHAPE).items():
+        kernels[name].update({RG_GATHER_KEY + k: row[k] for k in (
+            "ms", "warm_ms", "graph_ms", "plain_ms", "bound_ms",
+            "max_abs_err", "f32_ms", "f32_bound_ms")})
     torch.cuda.empty_cache()
     kernels.update(check_sentinel_kernels(torch, dev))
     torch.cuda.empty_cache()
@@ -3699,6 +4138,10 @@ def main(argv=None) -> int:
     # ---- 8. the attention-model zoo: stablelm-1.6b, mixtral-8x22b
     arch_phase(torch, dev, run_launches, step_launches, run_steps)
 
+    # ---- 10. the recurrent family: xlstm-350m, recurrentgemma-9b, and
+    # muon8 on bf16 masters
+    recurrent_phase(torch, dev, run_launches, step_launches, run_steps)
+
     # ---- 9. summary
     meta = [(name, source, replaces, counter,
              {"lars": "lars8", "lamb": "lamb8"}.get(
@@ -3716,7 +4159,8 @@ def main(argv=None) -> int:
     meta += [("norm_partials/arena_lamb8", *NORMS, "norm_partials",
               "pooled_lamb8")]
     meta += [(name, *m) for name, m in BF16_META.items()]
-    rows = kernel_rows(kernels, meta, run_launches, step_launches, run_steps)
+    rows = kernel_rows(kernels, meta, run_launches, step_launches, run_steps,
+                       RECURRENT_ROW_RUNS)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -3727,10 +4171,12 @@ def main(argv=None) -> int:
 
 
 def kernel_rows(kernels, meta, run_launches, step_launches,
-                run_steps) -> list:
+                run_steps, row_runs=None) -> list:
     """The kernels JSON line's rows: one per (name, source, replaced TPU
     kernel, launch counter, run) of ``meta``, its numbers from
-    ``kernels[name]`` and its launches from the run's counters."""
+    ``kernels[name]`` and its launches from the run's counters (and, for a
+    row of ``row_runs``, {name: runs}, those runs' launches of its
+    counter under "other_runs")."""
     rows = []
     for name, source, replaces, counter, run in meta:
         k = kernels[name]
@@ -3758,9 +4204,16 @@ def kernel_rows(kernels, meta, run_launches, step_launches,
                     "partition_launches_per_step", "profiler_sessions",
                     "f32_profiler_sessions",
                     "arena_ms", "arena_f32_ms", "arena_bound_ms",   # bf16
-                    "arena_f32_bound_ms", "arena_library_ms"):
+                    "arena_f32_bound_ms", "arena_library_ms",
+                    *(RG_GATHER_KEY + key for key in (     # B7, kv 1 x 256
+                        "ms", "warm_ms", "graph_ms", "plain_ms", "bound_ms",
+                        "max_abs_err", "f32_ms", "f32_bound_ms"))):
             if key in k:
                 rows[-1][key] = k[key]
+        for other in (row_runs or {}).get(name, ()):
+            if run_launches.get(other, {}).get(counter):
+                rows[-1].setdefault("other_runs", {})[other] = \
+                    run_launches[other][counter]
         require(rows[-1]["launches"] > 0, f"{name}: no launch in the {run} "
                 f"run")
     return rows

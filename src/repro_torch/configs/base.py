@@ -3,9 +3,8 @@
 
 ``ModelConfig`` keeps every field of the JAX package's config so a config
 means the same in both packages.  The port registers the paper's own
-language models (``paper_lm.py``) and the attention-family architectures,
-one module each with the JAX package's values; the recurrent ones
-(recurrentgemma-9b, xlstm-350m) are ROADMAP A14b-2.
+language models (``paper_lm.py``) and every architecture of the JAX
+package, one module each with the JAX package's values.
 """
 from __future__ import annotations
 
@@ -17,8 +16,8 @@ _REGISTRY: dict[str, "ModelConfig"] = {}
 
 _ARCH_MODULES = [
     "qwen1_5_32b", "stablelm_1_6b", "granite_3_8b", "command_r_35b",
-    "llava_next_34b", "musicgen_medium", "mixtral_8x22b", "kimi_k2_1t_a32b",
-    "paper_lm",
+    "llava_next_34b", "recurrentgemma_9b", "musicgen_medium", "xlstm_350m",
+    "mixtral_8x22b", "kimi_k2_1t_a32b", "paper_lm",
 ]
 
 

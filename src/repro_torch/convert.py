@@ -4,7 +4,10 @@
 nested dicts (and, for ``blocks_list``, lists) of numpy arrays — the caller runs ``jax.device_get`` first, so
 this module never imports JAX — and returns the port's ``Model`` holding
 exactly those values.  The differential tests use it to start both packages
-from identical weights.
+from identical weights.  ``cache_from_numpy(tree, device)`` carries a JAX
+serving cache (dense, paged, with the recurrent blocks' tuple states) into
+the port's layout, so the two packages' decode steps can start from the
+same cache.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch import device as device_lib
 from repro_torch.errors import FormatError
 from repro_torch.models.model import Model
 
@@ -52,3 +56,21 @@ def params_from_numpy(tree: Mapping, cfg, device="cuda") -> Model:
                                   f"has {tuple(p.shape)}")
             p.copy_(torch.from_numpy(value.copy()))   # RNE to p.dtype
     return model
+
+
+def cache_from_numpy(tree, device="cuda"):
+    """The JAX package's cache pytree (nested dicts, lists and the
+    recurrent blocks' state tuples of numpy arrays, after
+    ``jax.device_get``) as the port's cache: the same nesting, each array a
+    tensor of its dtype on ``device`` (a bf16 array, which numpy holds as
+    ml_dtypes' bfloat16, by its bits)."""
+    if isinstance(tree, Mapping):
+        return {k: cache_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cache_from_numpy(v, device) for v in tree)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device_lib.resolve(device))

@@ -118,8 +118,11 @@ flattened to f32 blocks, so the fused update reads bf16 p and f32 g.
 pooled leaves) keep f32 masters.  A parameter whose dtype differs from its
 master's is not aliased: ``apply`` (and a checkpoint restore) writes the
 master back into it, rounded to the parameter's dtype (``OptState.casts``),
-as the JAX package's forward sees ``master.astype(param_dtype)``.  Muon
-with bf16 masters is ROADMAP A14b-2 and raises :class:`ConfigError`.
+as the JAX package's forward sees ``master.astype(param_dtype)``.  Muon's
+quantized matrix leaves take bf16 masters too (the JAX package's
+``param.astype(master_dtype)``): Newton–Schulz runs on the master read in
+f32, and only the store rounds to bf16; its f32-momentum matrix leaves
+keep f32 masters.
 """
 from __future__ import annotations
 
@@ -214,9 +217,6 @@ def _check_ported(cfg: OptimConfig) -> None:
     if cfg.master_dtype not in ("float32", "bfloat16"):
         raise ConfigError(f"master_dtype={cfg.master_dtype!r}: float32 or "
                           f"bfloat16")
-    if cfg.master_dtype != "float32" and cfg.algo == "muon":
-        raise ConfigError("muon with bf16 masters is not ported yet "
-                          "(ROADMAP A14b-2)")
     if cfg.impl not in (None, *kops.IMPLS):
         raise ConfigError(f"impl={cfg.impl!r}; one of {kops.IMPLS}")
 
@@ -314,8 +314,7 @@ class Block8bitOptimizer:
         leaves, casts = {}, []
         for path in sorted(params):
             p = params[path]
-            quant = self._leaf_class(path, p) == "ew" and \
-                self._leaf_is_quantized(path, p)
+            quant = self._leaf_is_quantized(path, p)
             master = _master(p, self._mdt if quant else torch.float32,
                              casts)
             if self._leaf_class(path, p) == "matrix":
@@ -362,8 +361,9 @@ class Block8bitOptimizer:
                 # each matrix leaf is its own Newton–Schulz problem: it
                 # stays per leaf, beside the arena (partitioned, whole-leaf
                 # on its owner)
-                leaves[path] = self._init_matrix_leaf(
-                    path, p, _master(p, torch.float32, casts))
+                leaves[path] = self._init_matrix_leaf(path, p, _master(
+                    p, self._mdt if self._leaf_is_quantized(path, p)
+                    else torch.float32, casts))
                 if isinstance(leaves[path], Quant8Leaf):
                     matrix_paths.append(path)
             elif self._leaf_is_quantized(path, p):

@@ -187,13 +187,43 @@ def _muon_entry(impl: str) -> Callable:
     return run
 
 
+def _oracle(p, g, cm, am, cr, ar, qmap_m, qmap_r, **hyper):
+    """``ref.fused_update_ref``, ``fused_update.PLAIN_CHUNK`` blocks at a
+    time where the update is block-local (no trust ratio, block-wise
+    absmax), as the plain versions run: each chunk with its blocks' own
+    seeds and element offsets, so the result is the whole call's bit for
+    bit.  The whole-leaf f32, f64 and int64 temporaries at mixtral-8x22b's
+    expert leaf (805 M elements) would not fit the card beside the model."""
+    nb = p.shape[0]
+    if nb <= _fu.PLAIN_CHUNK or _fu.ALGO_SPECS[hyper["algo"]].needs_norms \
+            or not hyper.get("blockwise", True):
+        return ref.fused_update_ref(p, g, cm, am, cr, ar, qmap_m, qmap_r,
+                                    **hyper)
+    seeds = hyper.pop("block_seeds", None)
+    offs = hyper.pop("block_offsets", None)
+    if offs is None:
+        offs = torch.arange(nb, dtype=torch.int32, device=p.device)
+    cut = lambda t, sl: None if t is None else t[sl]
+    parts = []
+    for a, b in _fu._chunks(nb):
+        sl = slice(a, b)
+        parts.append(ref.fused_update_ref(
+            p[sl], g[sl], cm[sl], am[sl], cut(cr, sl), cut(ar, sl), qmap_m,
+            qmap_r, block_seeds=cut(seeds, sl), block_offsets=offs[sl],
+            **hyper))
+    return _fu.FusedUpdateResult(*(
+        None if parts[0][i] is None else torch.cat([r[i] for r in parts])
+        for i in range(5)))
+
+
 def _torch_entry(p, g, cm, am, cr, ar, qmap_m, qmap_r, *, sentinel=False,
                  bits_m=8, bits_r=8, **hyper) -> _fu.FusedUpdateResult:
-    """The plain oracle (``ref.fused_update_ref``); with ``sentinel`` the
-    health rows are computed after the fact on the raw grad, the new param
-    and the oracle's new codes unpacked."""
-    res = ref.fused_update_ref(p, g, cm, am, cr, ar, qmap_m, qmap_r,
-                               bits_m=bits_m, bits_r=bits_r, **hyper)
+    """The plain oracle (``ref.fused_update_ref``, chunked by
+    :func:`_oracle`); with ``sentinel`` the health rows are computed after
+    the fact on the raw grad, the new param and the oracle's new codes
+    unpacked."""
+    res = _oracle(p, g, cm, am, cr, ar, qmap_m, qmap_r, bits_m=bits_m,
+                  bits_r=bits_r, **hyper)
     if not sentinel:
         return res
     c2 = None if res.codes_r is None else unpack_codes(res.codes_r, bits_r)

@@ -1,21 +1,31 @@
-"""Decoder LM (mirrors ``repro.models.model`` for the attention family):
-the train forward and the serving path (caches, prefill, decode, paged
-decode).
+"""Decoder LM (mirrors ``repro.models.model``): the train forward and the
+serving path (caches, prefill, decode, paged decode).
 
-A model is a stack of ``attn`` blocks: pre-norm attention (GQA/MQA, optional
-q/k/v biases, full or sliding-window) and an FFN — the GELU MLP, the gated
-SiLU MLP or a top-k MoE — either in sequence (``norm2`` before the FFN) or
-in parallel from one norm (``parallel_block``: ``x + attn(h) + ffn(h)``).
+A model is a stack of blocks cycled from ``cfg.block_pattern`` (attn |
+rglru | mlstm | slstm).  Layers are grouped into super-blocks (one full
+pattern cycle); the ``n_layers % len(pattern)`` remainder layers follow
+them, each of the kind its index in the pattern gives.
+
+  * ``attn``: pre-norm attention (GQA/MQA, optional q/k/v biases, full or
+    sliding-window) and an FFN — the GELU MLP, the gated SiLU MLP or a
+    top-k MoE — either in sequence (``norm2`` before the FFN) or in
+    parallel from one norm (``parallel_block``: ``x + attn(h) + ffn(h)``).
+  * ``rglru``: ``norm1`` and the RG-LRU block ``rec``
+    (``models/recurrent.py``), then ``norm2`` and the MLP when ``d_ff`` is
+    set.
+  * ``mlstm`` / ``slstm``: ``norm1`` and the xLSTM block ``cell``
+    (``models/xlstm.py``).
+
 Embeddings are the stable or the baseline one, the head untied or tied to
 the embedding table, and a modality frontend stub may prepend projected
-precomputed features (``embeds``).  The recurrent block kinds (rglru,
-mlstm, slstm) are ROADMAP A14b-2 and refused with ``ConfigError``.
+precomputed features (``embeds``).
 
 Parameters keep the JAX package's tree, names and leaf order: with
 ``scan_layers`` (the default) one parameter per weight kind with a leading
-layer axis (``blocks/b0_attn/attn/wq`` is ``(n_layers, d_model, H*Dh)``),
-else one block per layer (``blocks_list/<i>/b0_attn/attn/wq``), named with
-the path strings the JAX package's ``path_str`` gives, once '.' is read as
+layer axis (``blocks/b0_attn/attn/wq`` is ``(n_super, d_model, H*Dh)``),
+else one block per layer (``blocks_list/<i>/b0_attn/attn/wq``); the
+remainder layers are ``rem_blocks/<i>/<kind>/...``; all named with the
+path strings the JAX package's ``path_str`` gives, once '.' is read as
 '/'.  The layout is not cosmetic: the optimizer picks 8-bit or 32-bit
 state per leaf by its size, cuts blocks per leaf and seeds its stochastic
 rounding by the leaf's index in tree order.  Every leaf is held in
@@ -28,14 +38,20 @@ to that dtype.
     logits, cache = decode_step(cfg, model, token, cache, pos)
 
 Caches keep the JAX package's pytree layout, ``{"scan": {"b0_attn":
-{"k": (n_layers, B, eff, KV, Dh), ...}}, "rem": []}`` (a leading layer
+{"k": (n_super, B, eff, KV, Dh), ...}, "b1_rglru": {"h": (n_super, B, W),
+"conv": ...}, "b0_mlstm": (C, n, m)}, "rem": [...]}`` (a leading layer
 axis, as the parameters have; a list of per-layer dicts without
-``scan_layers``), so the two packages' caches compare leaf by leaf; ``eff``
-is ``min(max_len, window)`` under sliding-window attention, a ring.  They
-are updated in place: a decode step copies no cache and no page pool (the
-JAX package donates them instead).  The MoE metrics (``moe_aux_loss``,
-``moe_z_loss``, ``moe_drop_frac``) are the mean over the scanned layers,
-or the last layer's without ``scan_layers``, as in the JAX package.
+``scan_layers``), so the two packages' caches compare leaf by leaf; an
+attn layer's ``eff`` is ``min(max_len, window)`` under sliding-window
+attention, a ring.  A recurrent layer's cache is its block's f32 state:
+the RG-LRU dict ``{h, conv}``, mLSTM's tuple ``(C, n, m)``, sLSTM's ``(c,
+n, h, m)`` (m starting at -inf).  Caches are updated in place: a decode
+step copies no cache and no page pool (the JAX package donates them
+instead).  The paged cache keeps one quantized page pool per attn layer
+and the recurrent layers' dense state per slot.  The MoE metrics
+(``moe_aux_loss``, ``moe_z_loss``, ``moe_drop_frac``) are the mean over
+the scanned layers, or the last layer's without ``scan_layers``, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -51,15 +67,7 @@ from repro_torch import device as device_lib
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import paged_kv
 from repro_torch.models import embedding as emb
-from repro_torch.models import layers, moe
-
-
-def _check_supported(cfg) -> None:
-    """Raise ConfigError for the block kinds the port's model lacks."""
-    bad = sorted(set(cfg.block_pattern) - {"attn"})
-    if bad:
-        raise ConfigError(f"{cfg.arch_id}: block kinds {bad} not ported yet "
-                          f"(ROADMAP A14b-2)")
+from repro_torch.models import layers, moe, recurrent, xlstm
 
 
 class _Params(nn.Module):
@@ -75,7 +83,8 @@ class _Params(nn.Module):
 
 
 def _block_names(cfg) -> list:
-    return [f"b{i}_{kind}" for i, kind in enumerate(cfg.block_pattern)]
+    """(name, kind) of each block of a super-block: ``b<i>_<kind>``."""
+    return [(f"b{i}_{kind}", kind) for i, kind in enumerate(cfg.block_pattern)]
 
 
 def _norm(shape: tuple, norm_type: str, dev, dt) -> _Params:
@@ -85,13 +94,33 @@ def _norm(shape: tuple, norm_type: str, dev, dt) -> _Params:
     return _Params(**p)
 
 
-def _block(cfg, lead: tuple, dev, dt) -> _Params:
-    """One attn block's parameters, each with the leading dims ``lead``
-    (the layer axis when stacked)."""
+def _block(cfg, kind: str, lead: tuple, dev, dt) -> _Params:
+    """One block's parameters of ``kind``, each with the leading dims
+    ``lead`` (the layer axis when stacked)."""
     d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     e = lambda *s: torch.empty(lead + s, device=dev, dtype=dt)
     norm = lambda: _norm(lead + (d,), cfg.norm_type, dev, dt)
 
+    def mlp():
+        f = cfg.d_ff
+        p = dict(w_in=e(d, f), w_out=e(f, d))
+        if cfg.gated_mlp:
+            p["w_gate"] = e(d, f)
+        return _Params(**p)
+
+    if kind == "rglru":
+        p = {"norm1": norm(), "rec": _Params(
+            **recurrent.init_rglru_block(cfg, lead, dev, dt))}
+        if cfg.d_ff:
+            p.update(norm2=norm(), mlp=mlp())
+        return _Params(**p)
+    if kind in ("mlstm", "slstm"):
+        init = xlstm.init_mlstm_block if kind == "mlstm" else \
+            xlstm.init_slstm_block
+        return _Params(norm1=norm(), cell=_Params(**init(cfg, lead, dev,
+                                                          dt)))
+    if kind != "attn":
+        raise ConfigError(f"unknown block kind {kind!r}")
     attn = dict(wq=e(d, H * Dh), wk=e(d, KV * Dh), wv=e(d, KV * Dh),
                 wo=e(H * Dh, d))
     if cfg.qkv_bias:
@@ -103,14 +132,15 @@ def _block(cfg, lead: tuple, dev, dt) -> _Params:
         p["moe"] = _Params(router=e(d, E), w_gate=e(E, d, f),
                            w_in=e(E, d, f), w_out=e(E, f, d))
     else:
-        f = cfg.d_ff
-        mlp = dict(w_in=e(d, f), w_out=e(f, d))
-        if cfg.gated_mlp:
-            mlp["w_gate"] = e(d, f)
-        p["mlp"] = _Params(**mlp)
+        p["mlp"] = mlp()
     if not cfg.parallel_block:
         p["norm2"] = norm()
     return _Params(**p)
+
+
+def _rem_kind(cfg, i: int) -> str:
+    """The block kind of remainder layer ``i``."""
+    return cfg.block_pattern[i % len(cfg.block_pattern)]
 
 
 class Model(nn.Module):
@@ -119,7 +149,6 @@ class Model(nn.Module):
 
     def __init__(self, cfg, *, device="cuda"):
         super().__init__()
-        _check_supported(cfg)
         dev = device_lib.resolve(device)
         self.cfg = cfg
         dt = getattr(torch, cfg.param_dtype)
@@ -131,18 +160,22 @@ class Model(nn.Module):
         if cfg.frontend != "none" and cfg.frontend_tokens:
             self.frontend = _Params(proj=torch.empty(d, d, device=dev,
                                                      dtype=dt))
-        names, n_super = _block_names(cfg), cfg.n_superblocks
+        n_super = cfg.n_superblocks
+        names = _block_names(cfg)
         if cfg.scan_layers and n_super > 0:
-            self.blocks = _Params(**{n: _block(cfg, (n_super,), dev, dt)
-                                     for n in names})
+            self.blocks = _Params(**{n: _block(cfg, kind, (n_super,), dev, dt)
+                                     for n, kind in names})
         elif n_super > 0:
             self.blocks_list = nn.ModuleList(
-                _Params(**{n: _block(cfg, (), dev, dt) for n in names})
+                _Params(**{n: _block(cfg, kind, (), dev, dt)
+                           for n, kind in names})
                 for _ in range(n_super))
         if cfg.n_remainder_layers:
+            # keyed by their kind, as the JAX tree's {kind: block}
             self.rem_blocks = nn.ModuleList(
-                _Params(attn=_block(cfg, (), dev, dt))
-                for _ in range(cfg.n_remainder_layers))
+                _Params(**{_rem_kind(cfg, i): _block(cfg, _rem_kind(cfg, i),
+                                                     (), dev, dt)})
+                for i in range(cfg.n_remainder_layers))
         self.final_norm = _norm((d,), cfg.norm_type, dev, dt)
         if not cfg.tie_embeddings:
             self.head = _Params(w=torch.empty(d, V, device=dev, dtype=dt))
@@ -191,11 +224,44 @@ def _nested(module: nn.Module, n: Optional[int]):
     return out if n else out[0]
 
 
-def _apply_block(p, x, cfg, *, positions, state=None, cache_len=None,
-                 paged=None):
-    """One attn block; returns (x_out, metrics)."""
+def _pairs(a, b) -> list:
+    """The matching tensors of two layer caches of one kind: a dict's by
+    key, a recurrent block's state tuple's by position."""
+    if isinstance(a, dict):
+        return [(a[k], b[k]) for k in a]
+    return list(zip(a, b))
+
+
+def _store(state, new) -> None:
+    """Write a recurrent block's new state into its cache views in place
+    (the cache's counterpart of the JAX package's returned state)."""
+    if state is not None:
+        for dst, src in _pairs(state, new):
+            dst.copy_(src)
+
+
+def _apply_block(p, x, cfg, kind: str, *, positions, state=None,
+                 cache_len=None, paged=None):
+    """One block of ``kind``; returns (x_out, metrics).  ``state``: the
+    layer's cache views (updated in place) or None.  ``paged``: the paged
+    decode's context, which only attn blocks read; recurrent kinds keep
+    their per-slot dense state."""
     norm = lambda q, h: layers.apply_norm(q["scale"], q.get("bias"), h,
                                           cfg.norm_type)
+    if kind == "rglru":
+        r, new = recurrent.apply_rglru_block(p["rec"], norm(p["norm1"], x),
+                                             cfg, state=state)
+        _store(state, new)
+        x = x + r
+        if cfg.d_ff:
+            x = x + layers.apply_mlp(p["mlp"], norm(p["norm2"], x), cfg)
+        return x, {}
+    if kind in ("mlstm", "slstm"):
+        fn = xlstm.apply_mlstm_block if kind == "mlstm" else \
+            xlstm.apply_slstm_block
+        c, new = fn(p["cell"], norm(p["norm1"], x), cfg, state=state)
+        _store(state, new)
+        return x + c, {}
 
     def ffn(h):
         if cfg.is_moe:
@@ -218,6 +284,14 @@ def _mean(values: list) -> torch.Tensor:
     return values[0] if len(values) == 1 else torch.stack(values).mean()
 
 
+def _map_cache(layer, fn):
+    """A layer cache (a dict, or a recurrent block's tuple) with ``fn``
+    applied to every tensor."""
+    if isinstance(layer, dict):
+        return {k: fn(t) for k, t in layer.items()}
+    return tuple(fn(t) for t in layer)
+
+
 def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
                 paged=None):
     """All layers over x (B, S, d).  ``caches``: None (no state io) or the
@@ -231,8 +305,9 @@ def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
         """One super-block; its blocks' metrics averaged (JAX's agg)."""
         nonlocal x
         acc = []
-        for name in names:
-            x, mt = _apply_block(ps[name], x, cfg, state=states(name), **kw)
+        for name, kind in names:
+            x, mt = _apply_block(ps[name], x, cfg, kind,
+                                 state=states(name), **kw)
             if mt:
                 acc.append(mt)
         return {k: _mean([m[k] for m in acc]) for k in acc[0]} if acc \
@@ -242,12 +317,13 @@ def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
     if hasattr(model, "blocks"):
         n = cfg.n_superblocks
         per_layer = {name: _nested(getattr(model.blocks, name), n)
-                     for name in names}
+                     for name, _ in names}
         layer_mts = []
         for i in range(n):
-            states = lambda name: None if caches is None else {
-                k: t[i] for k, t in caches["scan"][name].items()}
-            mt = superblock({nm: per_layer[nm][i] for nm in names}, states)
+            states = lambda name: None if caches is None else _map_cache(
+                caches["scan"][name], lambda t: t[i])
+            mt = superblock({nm: per_layer[nm][i] for nm, _ in names},
+                            states)
             if mt:
                 layer_mts.append(mt)
         if layer_mts:
@@ -258,10 +334,11 @@ def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
             states = lambda name: None if caches is None else \
                 caches["scan"][i][name]
             metrics.update(superblock(
-                {nm: _nested(getattr(sb, nm), None) for nm in names},
+                {nm: _nested(getattr(sb, nm), None) for nm, _ in names},
                 states))
     for i, rb in enumerate(getattr(model, "rem_blocks", ())):
-        x, mt = _apply_block(_nested(rb.attn, None), x, cfg,
+        kind = _rem_kind(cfg, i)
+        x, mt = _apply_block(_nested(getattr(rb, kind), None), x, cfg, kind,
                              state=None if caches is None
                              else caches["rem"][i], **kw)
         metrics.update(mt)
@@ -277,7 +354,10 @@ def _logits(model: Model, x):
                           model.embed.table)
 
 
-# JAX initializers by leaf name: (kind, scale from the config)
+# The JAX package's N(0, scale^2) initializers of the attn block, its MLP,
+# the frontend projection and the head, by leaf name within those modules
+# (the recurrent blocks' own leaves are initialized by recurrent.py and
+# xlstm.py, where the same names have other scales)
 def _init_scale(cfg, name: str) -> float:
     d, f = cfg.d_model, cfg.d_ff
     if name in ("wq", "wk", "wv", "w_in", "w_gate", "proj", "w"):
@@ -301,12 +381,22 @@ def init_model(cfg, generator: Optional[torch.Generator] = None, *,
     draw = lambda shape: torch.randn(shape, generator=generator,
                                      device=gen_dev)
 
+    uniform = lambda shape: torch.rand(shape, generator=generator,
+                                       device=gen_dev)
+
     def normal(p, scale):
         p.copy_(draw(p.shape) * scale)
 
-    def block(b):
-        for name in ("wq", "wk", "wv", "wo"):
-            normal(getattr(b.attn, name), _init_scale(cfg, name))
+    def block(b, kind):
+        if kind == "rglru":
+            recurrent.init_rglru_values(b.rec, cfg, draw, uniform)
+        elif kind == "mlstm":
+            xlstm.init_mlstm_values(b.cell, cfg, draw)
+        elif kind == "slstm":
+            xlstm.init_slstm_values(b.cell, cfg, draw)
+        else:
+            for name in ("wq", "wk", "wv", "wo"):
+                normal(getattr(b.attn, name), _init_scale(cfg, name))
         if hasattr(b, "mlp"):
             for name in ("w_gate", "w_in", "w_out"):
                 if hasattr(b.mlp, name):
@@ -323,20 +413,21 @@ def init_model(cfg, generator: Optional[torch.Generator] = None, *,
         t = model.embed.table
         if cfg.stable_embedding:                      # Xavier-uniform
             lim = math.sqrt(6.0 / (t.shape[0] + t.shape[1]))
-            t.copy_(torch.rand(t.shape, generator=generator, device=gen_dev)
-                    * (2 * lim) - lim)
+            t.copy_(uniform(t.shape) * (2 * lim) - lim)
         else:                                         # N(0, 1) / sqrt(d)
             normal(t, 1.0 / math.sqrt(cfg.d_model))
         if hasattr(model, "frontend"):
             normal(model.frontend.proj, _init_scale(cfg, "proj"))
+        names = _block_names(cfg)
         if hasattr(model, "blocks"):
-            for name in _block_names(cfg):
-                block(getattr(model.blocks, name))
+            for name, kind in names:
+                block(getattr(model.blocks, name), kind)
         for sb in getattr(model, "blocks_list", ()):
-            for name in _block_names(cfg):
-                block(getattr(sb, name))
-        for rb in getattr(model, "rem_blocks", ()):
-            block(rb.attn)
+            for name, kind in names:
+                block(getattr(sb, name), kind)
+        for i, rb in enumerate(getattr(model, "rem_blocks", ())):
+            kind = _rem_kind(cfg, i)
+            block(getattr(rb, kind), kind)
         if hasattr(model, "head"):
             normal(model.head.w, _init_scale(cfg, "w"))
     return model
@@ -360,24 +451,53 @@ def _check_model(cfg, model: Model) -> None:
         raise ConfigError("model was built for another config")
 
 
-def _cache_tree(cfg, layer_cache) -> dict:
-    """The {"scan", "rem"} pytree of ``layer_cache(lead)`` per attn layer:
-    ``lead`` the stacked layer axis, or () per layer without
+def _recurrent_cache(cfg, kind: str, lead: tuple, batch: int, dev):
+    """A recurrent layer's f32 state for ``batch`` rows (the JAX package's
+    ``_init_layer_cache``): RG-LRU ``{h, conv}``, mLSTM ``(C, n, m)``,
+    sLSTM ``(c, n, h, m)`` with m at -inf.  Every tensor is its own (they
+    are updated in place)."""
+    z = lambda *s: torch.zeros(lead + (batch,) + s, dtype=torch.float32,
+                               device=dev)
+    if kind == "rglru":
+        W = cfg.lru_width or cfg.d_model
+        return {"h": z(W), "conv": z(cfg.conv_width - 1, W)}
+    if kind == "mlstm":
+        H = cfg.n_heads
+        D = int(cfg.d_model * cfg.mlstm_proj_factor) // H
+        return (z(H, D, D), z(H, D), z(H))
+    if kind == "slstm":
+        d = cfg.d_model
+        return (z(d), z(d), z(d), torch.full(lead + (batch, d), -math.inf,
+                                             dtype=torch.float32, device=dev))
+    raise ConfigError(f"unknown block kind {kind!r}")
+
+
+def _cache_tree(cfg, attn_cache, batch: int, dev) -> dict:
+    """The {"scan", "rem"} pytree of the layer caches: ``attn_cache(lead)``
+    per attn layer, the recurrent state of ``batch`` rows per recurrent
+    layer; ``lead`` the stacked layer axis, or () per layer without
     ``scan_layers``."""
-    _check_supported(cfg)
+    def layer(kind, lead):
+        if kind == "attn":
+            return attn_cache(lead)
+        return _recurrent_cache(cfg, kind, lead, batch, dev)
+
     names, n = _block_names(cfg), cfg.n_superblocks
     if cfg.scan_layers and n > 0:
-        scan = {name: layer_cache((n,)) for name in names}
+        scan = {name: layer(kind, (n,)) for name, kind in names}
     else:
-        scan = [{name: layer_cache(()) for name in names} for _ in range(n)]
+        scan = [{name: layer(kind, ()) for name, kind in names}
+                for _ in range(n)]
     return {"scan": scan,
-            "rem": [layer_cache(()) for _ in range(cfg.n_remainder_layers)]}
+            "rem": [layer(_rem_kind(cfg, i), ())
+                    for i in range(cfg.n_remainder_layers)]}
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
-    """Contiguous decode cache: per layer k/v rows in the compute dtype, or
-    block-wise int8 rows when ``cfg.kv_cache_bits == 8``; a ring of
-    ``min(max_len, window)`` rows under sliding-window attention."""
+    """Contiguous decode cache: per attn layer k/v rows in the compute
+    dtype, or block-wise int8 rows when ``cfg.kv_cache_bits == 8``; a ring
+    of ``min(max_len, window)`` rows under sliding-window attention; per
+    recurrent layer its f32 state."""
     dev = device_lib.resolve(device)
     KV, Dh = cfg.n_kv_heads, cfg.head_dim
     eff = min(max_len, cfg.window) if cfg.attn_type == "swa" and \
@@ -394,7 +514,7 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
         dt = getattr(torch, cfg.compute_dtype)
         return {"k": z(rows + (Dh,), dt), "v": z(rows + (Dh,), dt)}
 
-    return _cache_tree(cfg, layer)
+    return _cache_tree(cfg, layer, batch, dev)
 
 
 @torch.no_grad()
@@ -432,8 +552,9 @@ def init_paged_cache(cfg, n_slots: int, n_pages: int, page_size: int,
     """Paged serving cache (the ``init_cache`` layout): per attn layer one
     pool of ``n_pages`` pages of ``page_size`` positions, block-wise
     quantized to ``kv_bits`` (8-bit codes or packed 4-bit).  The pool has
-    no slot axis: page tables map slots to pages."""
-    del n_slots           # only recurrent layers keep per-slot state
+    no slot axis: page tables map slots to pages.  Recurrent layers keep
+    their dense state per slot (``n_slots`` rows), as the contiguous cache
+    does."""
     dev = device_lib.resolve(device)
     KV = cfg.n_kv_heads
     W = paged_kv.packed_row_width(cfg.head_dim, kv_bits)
@@ -446,7 +567,7 @@ def init_paged_cache(cfg, n_slots: int, n_pages: int, page_size: int,
                 "v_codes": z(rows + (W,), torch.uint8),
                 "v_absmax": z(rows, torch.float32)}
 
-    return _cache_tree(cfg, layer)
+    return _cache_tree(cfg, layer, n_slots, dev)
 
 
 @torch.no_grad()
@@ -498,24 +619,28 @@ def commit_prefill_to_paged(cfg, paged_caches: dict, dense_caches: dict,
     """Admit one prefilled request into the paged cache.
 
     ``dense_caches`` is a batch-1 ``prefill`` cache built with a 16-bit
-    config (max_len == prompt_len); its k/v rows are quantized into the
-    pages named by ``table_row`` ((max_pages_per_seq,) integer tensor on
-    the cache's device) with the row quantizer the decode append uses.
-    Returns ``paged_caches``, updated in place.  ``slot`` would place
-    recurrent layers' state, which the port does not have yet (A14b-2)."""
-    _check_supported(cfg)
-    del slot
-    stacked = lambda layer: {k: v[None] for k, v in layer.items()}
-    pairs = []
+    config (max_len == prompt_len); its attn k/v rows are quantized into
+    the pages named by ``table_row`` ((max_pages_per_seq,) integer tensor
+    on the cache's device) with the row quantizer the decode append uses,
+    and every recurrent layer's state is inserted at batch row ``slot``.
+    Returns ``paged_caches``, updated in place."""
+    stacked = lambda layer: _map_cache(layer, lambda t: t[None])
+    kind = lambda name: name.split("_", 1)[1]
+    triples = []                  # (kind, paged layer, dense layer), stacked
     if isinstance(paged_caches["scan"], dict):
-        pairs += [(paged_caches["scan"][n], dense_caches["scan"][n])
-                  for n in paged_caches["scan"]]
+        triples += [(kind(n), paged_caches["scan"][n],
+                     dense_caches["scan"][n]) for n in paged_caches["scan"]]
     else:
-        pairs += [(stacked(sb[n]), stacked(dense_caches["scan"][i][n]))
-                  for i, sb in enumerate(paged_caches["scan"]) for n in sb]
-    pairs += [(stacked(pg), stacked(dn)) for pg, dn in
-              zip(paged_caches["rem"], dense_caches["rem"])]
-    for paged_layer, dense_layer in pairs:
-        _commit_attn_pages(paged_layer, dense_layer, table_row, prompt_len,
-                           kv_bits)
+        triples += [(kind(n), stacked(sb[n]),
+                     stacked(dense_caches["scan"][i][n]))
+                    for i, sb in enumerate(paged_caches["scan"]) for n in sb]
+    triples += [(_rem_kind(cfg, i), stacked(pg), stacked(dn)) for i, (pg, dn)
+                in enumerate(zip(paged_caches["rem"], dense_caches["rem"]))]
+    for k, paged_layer, dense_layer in triples:
+        if k == "attn":
+            _commit_attn_pages(paged_layer, dense_layer, table_row,
+                               prompt_len, kv_bits)
+            continue
+        for pg, dn in _pairs(paged_layer, dense_layer):
+            pg[:, slot] = dn[:, 0]
     return paged_caches

@@ -21,7 +21,12 @@ of the JAX package's tree:
   * bit-packed codes (:class:`~repro_torch.core.lowbit.PackedCodes`) are
     stored as their packed uint8 bytes under the key of the codes they
     replace, with a ``"packed": {"bits", "n_codes"}`` annotation in the
-    manifest entry, as the JAX package stores them.
+    manifest entry, as the JAX package stores them;
+  * a bf16 tensor (bf16 parameters or masters) is stored as its raw bytes,
+    a two-byte void (``<V2`` in the ``.npy`` header; numpy has no bf16),
+    with ``"dtype": "bfloat16"`` in the manifest entry: the bytes, header
+    and entry the JAX package's ml_dtypes arrays give.  It is read back by
+    the manifest's dtype.
 
 Writes are atomic (a ``.tmp_*`` directory, then a rename), ``keep_last``
 old steps are pruned, and ``latest_step`` scans the directory.  The
@@ -62,6 +67,7 @@ import json
 import os
 import shutil
 import tempfile
+import zipfile
 from typing import Any, Mapping, Optional
 
 import numpy as np
@@ -124,14 +130,60 @@ def _flatten(tree, prefix: str = "") -> list:
                     f"{type(tree).__name__}")
 
 
+BF16 = "bfloat16"      # the manifest's name of a bf16 leaf's dtype
+
+
 def _to_numpy(leaf) -> np.ndarray:
+    """The array a leaf is stored as; a bf16 tensor as its raw ``|V2``
+    bytes."""
     if isinstance(leaf, int):
         return np.asarray(leaf, dtype=np.int32)
     if isinstance(leaf, PackedCodes):
         leaf = leaf.packed
     if isinstance(leaf, np.ndarray):
         return leaf
-    return leaf.detach().cpu().numpy()
+    leaf = leaf.detach().cpu()
+    if leaf.dtype == torch.bfloat16:
+        return leaf.view(torch.int16).numpy().view("V2")
+    return leaf.numpy()
+
+
+def _savez(path: str, arrays: dict, names: dict) -> None:
+    """``np.savez(path, **arrays)``, but a bf16 leaf's ``|V2`` array gets
+    the header ml_dtypes gives it (``'descr': '<V2'``), so the file's
+    members are byte for byte the JAX package's.  ``np.load`` reads either
+    header; the bytes matter to whoever compares or checksums checkpoint
+    files across the two packages (``tests/test_torch_checkpoint.py``
+    holds a save to the JAX package's file byte for byte).  ``names``:
+    array name -> manifest dtype."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for name, a in arrays.items():
+            with zf.open(f"{name}.npy", "w", force_zip64=True) as f:
+                if names[name] == BF16:
+                    np.lib.format.write_array_header_1_0(f, {
+                        "descr": "<V2", "fortran_order": False,
+                        "shape": a.shape})
+                    f.write(np.ascontiguousarray(a).tobytes())
+                else:
+                    np.lib.format.write_array(f, np.asanyarray(a),
+                                              allow_pickle=False)
+
+
+def _dtype_name(leaf, array: np.ndarray) -> str:
+    """The manifest's dtype of a leaf stored as ``array``."""
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        return BF16
+    return str(array.dtype)
+
+
+def _from_numpy(array: np.ndarray, dtype: str):
+    """A stored array by its manifest dtype: ``|V2`` bytes of a bf16 leaf
+    become a bf16 tensor, any other array stays as it is."""
+    if dtype == BF16:
+        return torch.from_numpy(array.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return array
 
 
 def state_dict(tree) -> dict:
@@ -174,10 +226,11 @@ def save(ckpt_dir: str, step: int, tree, *, keep_last: int = 3) -> str:
             if key in sd["packed"]:
                 entry["packed"] = sd["packed"][key]
             arrays[name] = _to_numpy(leaf)
-            entry.update(dtype=str(arrays[name].dtype),
+            entry.update(dtype=_dtype_name(leaf, arrays[name]),
                          shape=list(arrays[name].shape))
             index.append(entry)
-        np.savez(os.path.join(tmp, "leaves.npz"), **arrays)
+        _savez(os.path.join(tmp, "leaves.npz"), arrays,
+               {e["name"]: e["dtype"] for e in index})
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump({"step": step, "index": index}, f)
         if os.path.exists(final):
@@ -230,12 +283,14 @@ def _with_ints(tree, prefix: str, values: dict):
 
 
 def read(ckpt_dir: str, step: int) -> dict:
-    """Checkpoint ``step`` in :func:`state_dict`'s form, as numpy arrays."""
+    """Checkpoint ``step`` in :func:`state_dict`'s form, as numpy arrays
+    (a bf16 leaf as a bf16 tensor: numpy has no bf16)."""
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "leaves.npz")) as data:
-        state = {ent["key"]: data[ent["name"]] for ent in manifest["index"]}
+        state = {ent["key"]: _from_numpy(data[ent["name"]], ent["dtype"])
+                 for ent in manifest["index"]}
     return {"state": state,
             "packed": {ent["key"]: ent["packed"] for ent in manifest["index"]
                        if "packed" in ent}}

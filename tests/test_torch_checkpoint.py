@@ -264,3 +264,132 @@ def test_packed_and_pooled_checkpoints_raise(tmp_path):
                for a, b in zip(_tensors(per_leaf), _tensors(tstate)))
     with pytest.raises(ValueError, match="OptState"):
         TC.save(str(tmp_path / "orphan"), 0, tstate.opt_state.leaves)
+
+
+# ------------------------------------------------------------ bf16 leaves
+
+def _bits(t) -> np.ndarray:
+    """A tensor's or array's raw bits (bf16 as int16)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach()
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16
+                else t).numpy()
+    a = np.asarray(t)
+    return a.view(np.int16) if a.dtype.name == "bfloat16" else a
+
+
+def _members(path):
+    import zipfile
+    with zipfile.ZipFile(os.path.join(path, "leaves.npz")) as z:
+        return {n: z.read(n) for n in z.namelist()}
+
+
+def test_bf16_bytes_and_manifest_match_jax(tmp_path):
+    """A bf16 leaf (and a 0-d one) is written as the JAX package writes it:
+    the same ``.npy`` bytes (``<V2`` header, raw bits) and the manifest's
+    ``"dtype": "bfloat16"``, byte for byte; an f32 leaf beside it too."""
+    vals = np.random.RandomState(0).randn(3, 5).astype(np.float32)
+    jp = JC.save(str(tmp_path / "jax"), 1, {
+        "a": jnp.asarray(vals).astype(jnp.bfloat16), "b": jnp.asarray(vals),
+        "c": jnp.asarray(1.5, jnp.bfloat16)})
+    tp = TC.save(str(tmp_path / "port"), 1, {
+        "a": torch.from_numpy(vals).to(torch.bfloat16),
+        "b": torch.from_numpy(vals),
+        "c": torch.tensor(1.5, dtype=torch.bfloat16)})
+    assert _manifest(tp) == _manifest(jp)
+    assert [e["dtype"] for e in _manifest(tp)["index"]] == \
+        ["bfloat16", "float32", "bfloat16"]
+    assert _members(tp) == _members(jp)
+
+
+def test_jax_bf16_checkpoint_restores_exactly(tmp_path):
+    """A JAX state with bf16 masters (adamw8, ``master_dtype="bfloat16"``)
+    after 2 steps restores into the port's state bit for bit, its bf16
+    masters by the manifest's dtype; a template of another dtype is
+    refused with ValueError before anything is written."""
+    kw = dict(master_dtype="bfloat16", pooled=False)
+    _, jstate, jstep = _jax_run("adamw8", 2, **kw)
+    for i in range(2):
+        jstate, _ = jstep(jstate, _jbatch(i))
+    JC.save(str(tmp_path), 2, jstate)
+    kw.pop("pooled")
+    _, tstate, _, _ = _port("adamw8", pooled=False, **kw)
+    tstate = TC.restore(str(tmp_path), 2, tstate)
+    flat = {jax.tree_util.keystr(p): leaf for p, leaf in
+            jax.tree_util.tree_flatten_with_path(jstate)[0]}
+    n_bf16 = 0
+    for key, leaf in TC._flatten(tstate):
+        if isinstance(leaf, int):
+            assert leaf == int(flat[key])
+            continue
+        n_bf16 += leaf.dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(leaf), _bits(flat[key]),
+                                      err_msg=key)
+    assert n_bf16 > 0
+    _, f32_state, _, _ = _port("adamw8", pooled=False)
+    before = [t.clone() for t in _tensors(f32_state)
+              if isinstance(t, torch.Tensor)]
+    with pytest.raises(ValueError, match="dtype"):
+        TC.restore(str(tmp_path), 2, f32_state)
+    assert all(torch.equal(a, b) for a, b in zip(
+        before, [t for t in _tensors(f32_state)
+                 if isinstance(t, torch.Tensor)]))
+
+
+def _bf16_run():
+    """A reduced bf16-parameter model with bf16 masters on the pooled
+    dispatch after 2 adamw8 steps: (optimizer, state, model)."""
+    cfg = tcb.reduced(tcb.get_config("qwen1.5-32b"), param_dtype="bfloat16")
+    to = topt.make_optimizer("adamw8", lr=LR, master_dtype="bfloat16",
+                             device="cpu")
+    state, model = TL.init_train_state(cfg, to,
+                                       torch.Generator().manual_seed(0),
+                                       device="cpu")
+    step = TL.make_train_step(cfg, model, to)
+    tok = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 9))
+    for _ in range(2):
+        state, _ = step(state, {"tokens": tok})
+    return to, state, model, cfg
+
+
+def _fresh(to, cfg):
+    state, model = TL.init_train_state(cfg, to,
+                                       torch.Generator().manual_seed(5),
+                                       device="cpu")
+    return state, model
+
+
+def test_bf16_master_state_and_model_round_trip(tmp_path):
+    """A pooled state with bf16 masters and the bf16 model tree beside it
+    round-trip bit for bit."""
+    to, state, model, cfg = _bf16_run()
+    tree = {"state": state, "params": model.param_dict()}
+    assert any(p.dtype == torch.bfloat16 for p in tree["params"].values())
+    TC.save(str(tmp_path), 2, tree)
+    fstate, fmodel = _fresh(to, cfg)
+    got = TC.restore(str(tmp_path), 2,
+                     {"state": fstate, "params": fmodel.param_dict()})
+    want = TC._flatten(tree)
+    have = TC._flatten(got)
+    assert [k for k, _ in have] == [k for k, _ in want]
+    for (key, a), (_, b) in zip(have, want):
+        if isinstance(a, int):
+            assert a == b, key
+        else:
+            np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=key)
+
+
+def test_bf16_master_flight_dump_restores(tmp_path):
+    """The flight recorder's dump of a bf16-master state (a checkpoint
+    underneath) restores bit for bit."""
+    from repro_torch.telemetry import flight
+    to, state, _, cfg = _bf16_run()
+    fr = flight.FlightRecorder()
+    fr.snapshot(2, state)
+    fr.dump(str(tmp_path), reason="test", trigger_step=3)
+    fstate, _ = _fresh(to, cfg)
+    step, got = flight.restore_state(str(tmp_path), fstate)
+    assert step == 2
+    for (key, a), (_, b) in zip(TC._flatten(got), TC._flatten(state)):
+        if isinstance(a, torch.Tensor):
+            np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=key)

@@ -37,7 +37,6 @@ from repro.train import loop as JL
 from repro_torch import convert
 from repro_torch.configs import base as TB
 from repro_torch.core import optim as topt
-from repro_torch.errors import ConfigError
 from repro_torch.models import layers as TLy
 from repro_torch.models import model as TM
 from repro_torch.train import loop as TL
@@ -254,10 +253,11 @@ def check_greedy(steps, atol=LOGIT_ATOL):
 # ----------------------------------------------------------------- registry
 
 def test_registry_matches_jax():
-    """The port registers every JAX architecture but the recurrent ones
-    (ROADMAP A14b-2), with the JAX package's values."""
-    want = sorted(set(JB.list_archs()) - set(RECURRENT))
-    assert TB.list_archs() == want
+    """The port registers every JAX architecture (the twelve, the recurrent
+    ones included), with the JAX package's values."""
+    want = sorted(JB.list_archs())
+    assert TB.list_archs() == want and len(want) == 12
+    assert set(RECURRENT) <= set(want)
     for arch in want:
         assert dataclasses.asdict(TB.get_config(arch)) == \
             dataclasses.asdict(JB.get_config(arch)), arch
@@ -265,11 +265,22 @@ def test_registry_matches_jax():
 
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_recurrent_kinds_refused(arch):
-    cfg = TB.reduced(dataclasses.replace(
-        TB.get_config("paper-lm-209m"),
-        block_pattern=JB.get_config(arch).block_pattern))
-    with pytest.raises(ConfigError, match="A14b-2"):
-        TM.Model(cfg, device="cpu")
+    """The recurrent block kinds were refused before they were ported; they
+    now build, in a pattern of their own on another architecture's
+    widths, with the JAX package's tree (the architectures themselves are
+    ``test_torch_recurrent.py``'s)."""
+    kw = dict(block_pattern=JB.get_config(arch).block_pattern, n_layers=3,
+              lru_width=64)
+    cfg = TB.reduced(dataclasses.replace(TB.get_config("paper-lm-209m"),
+                                         **kw))
+    jcfg = JB.reduced(dataclasses.replace(JB.get_config("paper-lm-209m"),
+                                          **kw))
+    got = TM.Model(cfg, device="cpu").param_dict()
+    params, _ = JM.init_model(jcfg, jax.random.PRNGKey(0))
+    flat, _ = jax.tree_util.tree_flatten_with_path(params)
+    assert topt.blockopt.leaf_order(got) == [path_str(p) for p, _ in flat]
+    for p, leaf in flat:
+        assert tuple(got[path_str(p)].shape) == leaf.shape, path_str(p)
 
 
 @pytest.mark.parametrize("arch", DENSE)

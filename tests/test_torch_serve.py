@@ -16,7 +16,7 @@ from repro.models import model as JM
 from repro.serve import engine as JE
 from repro_torch import convert
 from repro_torch.configs.base import ModelConfig
-from repro_torch.errors import ConfigError, FormatError
+from repro_torch.errors import FormatError
 from repro_torch.models import model as M
 from repro_torch.serve import engine as E
 from repro_torch.serve.kvcache import PagedKVConfig
@@ -87,15 +87,22 @@ def test_cache_layout_matches_jax():
 
 
 def test_refuses_unported_configs():
-    """The recurrent block kinds are the next slice (ROADMAP A14b-2); the
-    attention family's features (sliding windows, gated MLPs, MoE) are
-    ported and build their caches."""
+    """Every block kind builds its paged cache now: the recurrent kinds'
+    per-slot state (refused before they were ported) has the JAX
+    package's tree and shapes; the attention family's features (sliding
+    windows, gated MLPs, MoE) build too."""
     import dataclasses
-    for kw in (dict(block_pattern=("rglru", "attn")),
+    for kw in (dict(block_pattern=("rglru", "attn"), lru_width=16),
                dict(block_pattern=("mlstm",)), dict(block_pattern=("slstm",))):
-        with pytest.raises(ConfigError, match="A14b-2"):
-            M.init_paged_cache(dataclasses.replace(CFG, **kw), 2, 4, 4,
-                               device="cpu")
+        jp = JM.init_paged_cache(JConfig(**dict(WIDTHS, **kw)), 2, 4, 4)
+        tp = M.init_paged_cache(dataclasses.replace(CFG, **kw), 2, 4, 4,
+                                device="cpu")
+        jl, jdef = jax.tree_util.tree_flatten(jp)
+        tl, tdef = jax.tree_util.tree_flatten(tp)
+        assert tdef == jdef
+        for t, leaf in zip(tl, jl):
+            assert tuple(t.shape) == leaf.shape
+            assert torch.equal(t, torch.from_numpy(np.array(leaf)))
     for kw in (dict(attn_type="swa", window=8), dict(gated_mlp=True),
                dict(n_experts=4, top_k=2)):
         M.init_paged_cache(dataclasses.replace(CFG, **kw), 2, 4, 4,
