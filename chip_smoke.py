@@ -203,6 +203,21 @@ are held to them bit for bit.  Phases, one line or more each:
    shape; those numbers ride in the paged_gather rows as ``kv1x256_*``.
    ``--phase recurrent`` runs phases 1-2, that B7 check and this phase
    alone, with the 8-bit B7 row at recurrentgemma's shape.
+11. dryrun — the dry run (fourteenth slice; ``launch/dryrun.py``), no
+   kernel of its own: (a) DRYRUN_CELLS on the 256-device pod mesh at full
+   width, each in a process of its own over a fake process group of 256
+   (on the CPU: started after the build and traced while the card runs
+   phases 3-10, DRYRUN_LANES processes at a time, each on one thread at
+   the lowest priority, pinned to the host's last DRYRUN_LANES cores, so
+   that the main path's host-bound timings keep the other cores), every
+   cell ``ok`` with argument bytes equal to the
+   sharding rules' arithmetic (the dry run checks them), its per-device
+   total printed against the card's 80 GB; (b) the calibration: the dry
+   run of paper-lm-209m at this script's train shape (SEQ_LEN x BATCH,
+   adam8, ``impl="torch"``) on a mesh of one device, against the same step
+   run on the card: its FLOPs equal ``FlopCounterMode``'s over the card's
+   step, its peak within DRYRUN_PEAK_RTOL of ``max_memory_allocated``
+   from a reset.  ``--phase dryrun`` runs phase 1 and this phase alone.
 
 Any failure raises: the script then exits non-zero without the last line.
 """
@@ -434,6 +449,17 @@ RG_GATHER_KEY = "kv1x256_"
 VARIANTS = {"adamw8": ("adamw", False), "adamw8_sr": ("adamw", True),
             "momentum8": ("momentum", False), "lars8": ("lars", False),
             "lamb8": ("lamb", False), "adagrad8": ("adagrad", False)}
+
+
+# the dry run (fourteenth slice, phase 11): the pod cells, traced in
+# processes of their own on the CPU (longest first: the lanes take them
+# in turn), and the calibration's tolerance on the peak memory
+DRYRUN_CELLS = ("mixtral-8x22b:train_4k", "qwen1.5-32b:train_4k",
+                "paper-lm-209m:train_4k", "qwen1.5-32b:decode_32k",
+                "recurrentgemma-9b:decode_32k")
+DRYRUN_LANES = 2
+DRYRUN_PEAK_RTOL = 0.10
+CARD_BYTES = 80e9
 
 
 class SmokeFailure(RuntimeError):
@@ -3809,7 +3835,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "partition", "arch",
-                                        "recurrent"),
+                                        "recurrent", "dryrun"),
                     default="all",
                     help="all (the default), the partition phases alone "
                          "(device, build, the arena and partition kernels, "
@@ -3818,9 +3844,10 @@ def main(argv=None) -> int:
                          "the stablelm and mixtral runs, with their kernels "
                          "JSON rows) or the recurrent phase alone (device, "
                          "build, B7 at recurrentgemma's rows, the xlstm, "
-                         "recurrentgemma and bf16-master muon runs), for "
-                         "iterating on them; only a run of all prints the "
-                         "last line")
+                         "recurrentgemma and bf16-master muon runs) or the "
+                         "dry run alone (device, the pod cells, the "
+                         "calibration), for iterating on them; only a run "
+                         "of all prints the last line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -3841,6 +3868,14 @@ def main(argv=None) -> int:
     print(f"device: {torch.cuda.get_device_name(0)} "
           f"(count {torch.cuda.device_count()}); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
+
+    if args.phase == "dryrun":
+        dryrun_phase(torch, dev, start_dryrun())
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print("chip_smoke: the dry-run phase passed (a partial run: no "
+              "kernels JSON)")
+        return 0
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -3940,6 +3975,35 @@ def main(argv=None) -> int:
         print("chip_smoke: the recurrent phase passed (a partial run: no "
               "last line)")
         return 0
+
+    # ---- 11 (started): the dry run traces on the CPU meanwhile
+    dry_runs = start_dryrun()
+    try:
+        return _main_on_card(torch, dev, t_start, card, dry_runs)
+    finally:
+        finish_dryrun_quietly(dry_runs)
+
+
+def finish_dryrun_quietly(runs: dict) -> None:
+    """Stop every dry-run lane still running, and the cell it runs (its
+    process group)."""
+    import os
+    import signal
+    for proc in runs["lanes"]:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        proc.wait()
+
+
+def _main_on_card(torch, dev, t_start, card, dry_runs) -> int:
+    """Phases 3-11 and the summary of a whole run."""
+    from repro_torch.configs import base
+    from repro_torch.core.optim import Quant8Leaf
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import ops
 
     # ---- 3. kernels vs plain versions
     check_div_shortcut(torch, dev)
@@ -4141,6 +4205,10 @@ def main(argv=None) -> int:
     # ---- 10. the recurrent family: xlstm-350m, recurrentgemma-9b, and
     # muon8 on bf16 masters
     recurrent_phase(torch, dev, run_launches, step_launches, run_steps)
+    torch.cuda.empty_cache()
+
+    # ---- 11. the dry run: the pod cells, the calibration
+    dryrun_phase(torch, dev, dry_runs)
 
     # ---- 9. summary
     meta = [(name, source, replaces, counter,
@@ -4168,6 +4236,143 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# a dry-run cell's process: lowest priority, one thread, on the cores
+# given, then the dry run's command line
+DRYRUN_MAIN = ("import os, sys, torch; os.nice(19); "
+               "os.sched_setaffinity(0, {cores!r}); torch.set_num_threads(1); "
+               "from repro_torch.launch import dryrun; "
+               "sys.exit(dryrun.main(sys.argv[1:]))")
+
+
+def start_dryrun() -> dict:
+    """Start the dry run on the CPU (the card hidden from it): each pod
+    cell of DRYRUN_CELLS and the calibration's one-device cell, each in a
+    process over a fake process group of its own.  DRYRUN_LANES lanes (a
+    shell each, in a session of its own) run the cells one after another,
+    every process on one thread at the lowest priority, pinned to the
+    host's last DRYRUN_LANES cores.  Returns {"lanes": [process, ...],
+    "cells": {name: (artifact path, log path)}}."""
+    import os
+    import shlex
+    out = ROOT / "build" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    cores = set(sorted(os.sched_getaffinity(0))[-DRYRUN_LANES:])
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    jobs = []
+    for cell in DRYRUN_CELLS:
+        arch, shape = cell.split(":")
+        jobs.append((cell, ["--arch", arch, "--shape", shape, "--mesh",
+                            "pod", "--out", str(out / "pod")],
+                     out / "pod" / f"{arch}__{shape}__pod.json"))
+    jobs.append(("calibration",
+                 ["--arch", "paper-lm-209m", "--shape", "train_4k", "--mesh",
+                  "host", "--seq-len", str(SEQ_LEN), "--batch", str(BATCH),
+                  "--out", str(out / "host")],
+                 out / "host" / f"paper-lm-209m__train_4k__host__s{SEQ_LEN}"
+                 f"b{BATCH}.json"))
+    main = DRYRUN_MAIN.format(cores=cores)
+    cells, scripts = {}, [[] for _ in range(DRYRUN_LANES)]
+    for i, (name, args, artifact) in enumerate(jobs):
+        log = out / f"{name.replace(':', '__')}.log"
+        artifact.unlink(missing_ok=True)
+        cells[name] = (artifact, log)
+        scripts[i % DRYRUN_LANES].append(
+            shlex.join([sys.executable, "-c", main, *args, "--force"])
+            + f" > {shlex.quote(str(log))} 2>&1")
+    lanes = [subprocess.Popen(["sh", "-c", "; ".join(lane)], cwd=ROOT,
+                              env=env, start_new_session=True)
+             for lane in scripts if lane]
+    return {"lanes": lanes, "cells": cells}
+
+
+def finish_dryrun(runs: dict, timeout: float = 900) -> dict:
+    """Wait for the dry run's lanes (stopping any left at the end of
+    ``timeout`` or on a failure) and return {name: artifact}."""
+    deadline = time.perf_counter() + timeout
+    try:
+        for proc in runs["lanes"]:
+            proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        finish_dryrun_quietly(runs)
+    arts = {}
+    for name, (artifact, log) in runs["cells"].items():
+        require(artifact.exists(), f"dry run {name}: no artifact\n"
+                f"{Path(log).read_text()[-3000:]}")
+        arts[name] = json.loads(artifact.read_text())
+    return arts
+
+
+def dryrun_phase(torch, dev, runs: dict) -> None:
+    """Phase 11: the pod cells' artifacts, and the calibration against the
+    same train step on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import base
+    from repro_torch.core.optim import make_optimizer
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.launch import dryrun
+    from repro_torch.train import loop as L
+
+    arts = finish_dryrun(runs)
+    card = card_line()
+    for cell in DRYRUN_CELLS:
+        art = arts[cell]
+        require(art["status"] == "ok", f"dry run {cell}: {art}")
+        mem, rf = art["memory"], art["roofline"]
+        coll = {k: v for k, v in rf["coll_breakdown"].items()
+                if not k.startswith("_")}
+        print(f"dryrun {cell} pod ({art['n_chips']} devices): ok; per "
+              f"device {mem['total_per_device'] / 1e9:.2f} GB against the "
+              f"card's {CARD_BYTES / 1e9:.0f} GB "
+              f"({'fits' if mem['total_per_device'] <= CARD_BYTES else 'does not fit'}"
+              f"); arguments {mem['argument_bytes']} B (= the rules' "
+              f"arithmetic), temp {mem['temp_bytes']} B; "
+              f"{rf['flops_per_device']:.4e} FLOP, "
+              f"{rf['bytes_per_device']:.4e} B accessed, collectives "
+              + ", ".join(f"{k} {v:.4e} B" for k, v in sorted(coll.items()))
+              + f"; bound by {rf['bottleneck']}; traced in "
+              f"{art['compile_s']} s on the host")
+
+    # (b) the calibration: the same step on the card
+    dry = arts["calibration"]
+    require(dry["status"] == "ok" and dry["n_chips"] == 1,
+            f"dry run calibration: {dry}")
+    cfg = base.get_config("paper-lm-209m")
+    pipe = SyntheticLMPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=SEQ_LEN,
+                                          global_batch=BATCH, seed=SEED))
+    opt = make_optimizer("adam8", lr=dryrun.LR, weight_decay=0.1,
+                         impl="torch", device=dev)
+    state, model = L.init_train_state(
+        cfg, opt, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    step = L.make_train_step(cfg, model, opt, L.TrainHyper())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        state, metrics = step(state, pipe.batch_at(0))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    flops = fc.get_total_flops()
+    loss = metrics["loss"].item()
+    dry_peak = dry["memory"]["total_per_device"]
+    rel = abs(dry_peak - peak) / peak
+    print(f"dryrun calibration paper-lm-209m adam8 seq {SEQ_LEN} x batch "
+          f"{BATCH} (impl torch), one device: FLOPs dry run "
+          f"{dry['cost']['flops']:.0f}, FlopCounterMode on the card {flops}; "
+          f"peak dry run {dry_peak} B, max_memory_allocated {peak} B "
+          f"({100 * rel:.2f}% apart, limit {100 * DRYRUN_PEAK_RTOL:.0f}%); "
+          f"loss {loss:.6f}; {torch.cuda.get_device_name(0)}, {card}")
+    require(math.isfinite(loss), "calibration step: non-finite loss")
+    require(dry["cost"]["flops"] == flops,
+            f"calibration: dry-run FLOPs {dry['cost']['flops']} != "
+            f"the card's {flops}")
+    require(rel <= DRYRUN_PEAK_RTOL,
+            f"calibration: dry-run peak {dry_peak} B vs the card's {peak} B")
+    del state, model, step, opt
+    torch.cuda.empty_cache()
 
 
 def kernel_rows(kernels, meta, run_launches, step_launches,

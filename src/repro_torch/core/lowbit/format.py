@@ -56,7 +56,7 @@ class CodeFormat:
                               device=device)
         row = PackedCodes.from_codes(
             torch.full((1, block_size), zc, dtype=torch.int32), self.bits)
-        return PackedCodes(row.packed.repeat(n_blocks, 1).to(device),
+        return PackedCodes(row.packed.to(device).repeat(n_blocks, 1),
                            self.bits, block_size)
 
     def bytes_per_param(self, block_size: int) -> float:

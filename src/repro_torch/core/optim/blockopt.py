@@ -383,11 +383,14 @@ class Block8bitOptimizer:
         grid = max(cfg.shard_multiple, 1)
         if qsegs:
             total = qsegs[-1][0].offset + qsegs[-1][0].n_blocks
-            offsets = torch.cat([torch.arange(seg.n_blocks, dtype=torch.int32)
+            # made on the device, so a layout on "meta" (the dry run's, at
+            # up to 10^9 blocks) allocates nothing
+            offsets = torch.cat([torch.arange(seg.n_blocks, dtype=torch.int32,
+                                              device=dev)
                                  for seg, _ in qsegs])
             seeds = torch.cat([torch.full((seg.n_blocks,),
                                           kfu.to_i32(i * 7919),
-                                          dtype=torch.int32)
+                                          dtype=torch.int32, device=dev)
                                for seg, i in qsegs])
             segs = tuple(seg for seg, _ in qsegs)
             if shards:
@@ -936,7 +939,6 @@ class Block8bitOptimizer:
         per-block ``leaf_seeds`` plus this step's term, added on the device
         in int32 (wrapping, as the per-leaf seeds wrap).  Returns the
         summed health vector under ``cfg.sentinel`` (else None)."""
-        cfg = self.cfg
         nb = arena.total
         if isinstance(grads, GradBuffer):
             g0, gbuf = grads.start, grads.blocks
@@ -951,31 +953,32 @@ class Block8bitOptimizer:
                 arena, lambda r0, n: gbuf[r0 - g0:r0 - g0 + n], lr, step_f,
                 base_seed, gnorm_scale)
         else:
-            seeds = (torch.add(arena.leaf_seeds, base_seed)
-                     if cfg.stochastic_rounding else None)
-            res = kops.fused_update(
-                self._ew_algo, arena.master, gbuf[:nb], arena.codes_m,
-                arena.absmax_m, arena.codes_r, arena.absmax_r, self._qmap1,
-                self._qmap2, block_seeds=seeds,
-                block_offsets=arena.block_offsets,
-                segments=_segment_ranges(arena), **self._kernel_kw(
-                    lr, step_f, gnorm_scale))
-            # the "cuda" backend updated the arena in place; the "torch"
-            # oracle returned new tensors
-            for dst, src in zip((arena.master, arena.codes_m,
-                                 arena.absmax_m, arena.codes_r,
-                                 arena.absmax_r), res[:5]):
-                _store(dst, src)
-            health = res.health.sum(dim=0) if cfg.sentinel else None
-        # a block's tail past its leaf's n is zero on input, as the
-        # per-leaf dispatch pads it each step
-        bsz = arena.master.shape[1]
-        flat = arena.master.view(-1)
-        for seg in arena.segments:
-            if seg.n < seg.n_blocks * bsz:
-                flat[seg.offset * bsz + seg.n:
-                     (seg.offset + seg.n_blocks) * bsz].zero_()
+            health = self._launch(
+                arena, arena.master, gbuf[:nb], base_seed,
+                self._kernel_kw(lr, step_f, gnorm_scale),
+                segments=_segment_ranges(arena))
+        zero_block_tails(arena.master, arena.segments)
         return health
+
+    def _launch(self, stats, master, g, base_seed: int, kw: dict, **extra):
+        """One fused launch on the arena rows ``master`` and ``g`` with the
+        statistics, block offsets and seed terms of ``stats`` (the arena,
+        or one piece of a partitioned one), stored back in place; ``kw``:
+        :meth:`_kernel_kw`.  Returns the launch's summed health vector
+        under the sentinel (else None)."""
+        seeds = (torch.add(stats.leaf_seeds, base_seed)
+                 if self.cfg.stochastic_rounding else None)
+        res = kops.fused_update(
+            self._ew_algo, master, g, stats.codes_m, stats.absmax_m,
+            stats.codes_r, stats.absmax_r, self._qmap1, self._qmap2,
+            block_seeds=seeds, block_offsets=stats.block_offsets, **extra,
+            **kw)
+        # the "cuda" backend updated the rows in place; the "torch" oracle
+        # returned new tensors
+        for dst, src in zip((master, stats.codes_m, stats.absmax_m,
+                             stats.codes_r, stats.absmax_r), res[:5]):
+            _store(dst, src)
+        return res.health.sum(dim=0) if self.cfg.sentinel else None
 
     def _kernel_kw(self, lr, step_f, gnorm_scale) -> dict:
         """The fused update's keyword arguments shared by every launch of a
@@ -1013,23 +1016,15 @@ class Block8bitOptimizer:
             # one launch per piece of owner d's span (its buckets)
             for pc in by_owner[d]:
                 rows = slice(pc.start, pc.start + pc.n)
-                seeds = (torch.add(pc.leaf_seeds, base_seed)
-                         if cfg.stochastic_rounding else None)
-                res = kops.fused_update(
-                    self._ew_algo, arena.master[rows],
-                    grad_rows(pc.start, pc.n), pc.codes_m, pc.absmax_m,
-                    pc.codes_r, pc.absmax_r, self._qmap1, self._qmap2,
-                    block_seeds=seeds, block_offsets=pc.block_offsets,
+                h = self._launch(
+                    pc, arena.master[rows], grad_rows(pc.start, pc.n),
+                    base_seed, kw,
                     # a slice of the scales at an arbitrary row is not
                     # aligned: each piece gets its own copy
                     tensor_scale_blocks=None if tscale is None
-                    else tscale[rows].clone(), **kw)
-                for dst, src in zip((arena.master[rows], pc.codes_m,
-                                     pc.absmax_m, pc.codes_r, pc.absmax_r),
-                                    res[:5]):
-                    _store(dst, src)
+                    else tscale[rows].clone())
                 if health is not None:
-                    health.add_(res.health.sum(dim=0))
+                    health.add_(h)
 
         rules.shard_map_over_spans(part, span_update, self._group,
                                    self._rank)
@@ -1215,6 +1210,22 @@ def _fill_rows(dst: torch.Tensor, r0: int, r1: int, segs, grads) -> None:
             g = grads[seg.path].reshape(-1)
             out[e0 - r0 * bsz:e1 - r0 * bsz].copy_(
                 g[e0 - seg.offset * bsz:e1 - seg.offset * bsz])
+
+
+def zero_block_tails(master: torch.Tensor, segments, row0: int = 0
+                     ) -> None:
+    """Zero each segment's block tail past its leaf's n in ``master``, the
+    arena's rows from ``row0`` on: a block's tail is zero on input to the
+    next update, as the per-leaf dispatch pads it each step."""
+    bsz = master.shape[1]
+    flat = master.view(-1)
+    lo, hi = row0 * bsz, (row0 + master.shape[0]) * bsz
+    for seg in segments:
+        if seg.n < seg.n_blocks * bsz:
+            a = max(seg.offset * bsz + seg.n, lo)
+            b = min((seg.offset + seg.n_blocks) * bsz, hi)
+            if a < b:
+                flat[a - lo:b - lo].zero_()
 
 
 def _segment_ranges(arena: QuantArena) -> tuple:

@@ -12,6 +12,13 @@ import math
 import torch
 
 from repro_torch.models import layers
+from repro_torch.models import constrain as constrain_lib
+from repro_torch.models.constrain import constrain
+
+# logical axes of each parameter (the JAX package's init specs)
+EMBED_AXES = {"table": ("vocab", "embed")}
+HEAD_AXES = {"w": ("embed", "vocab")}
+FRONTEND_AXES = {"proj": ("embed", "embed_out")}
 
 
 def apply_embedding(embed, tokens, cfg):
@@ -22,7 +29,15 @@ def apply_embedding(embed, tokens, cfg):
     sqrt(d_model) in f32 (the JAX package's product with an f32 numpy
     scalar) before the cast back."""
     dt = getattr(torch, cfg.compute_dtype)
-    x = embed.table.to(dt)[tokens]
+    table = embed.table.to(dt)
+    if constrain_lib.active() and constrain_lib.is_dtensor(table):
+        # the table gathered whole (its vocab-parallel form, a masked
+        # partial sum, fails in some DTensor versions), then the same
+        # rows by the embedding op, whose backward DTensor can place
+        table = constrain_lib.replicated(table)
+        x = torch.nn.functional.embedding(tokens, table)
+    else:
+        x = table[tokens]
     if cfg.stable_embedding:
         x = layers.apply_norm(embed.norm.scale, embed.norm.bias, x,
                               "layernorm")
@@ -39,7 +54,8 @@ def apply_head(w, x, table=None):
     with tied embeddings it is None and the embedding ``table`` (V, d),
     transposed, takes its place."""
     w = table.to(x.dtype).T if w is None else w.to(x.dtype)
-    return x.to(torch.float32) @ w.to(torch.float32)
+    return constrain(x.to(torch.float32) @ w.to(torch.float32), "dp", None,
+                     "tp")
 
 
 def apply_frontend(proj, embeds, cfg):

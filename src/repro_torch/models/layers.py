@@ -25,6 +25,16 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import paged_kv
+from repro_torch.models import constrain as constrain_lib
+from repro_torch.models.constrain import constrain, head_split
+
+# logical axes of each parameter (the JAX package's init specs), by leaf name
+NORM_AXES = {"scale": ("embed",), "bias": ("embed",)}
+ATTN_AXES = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+             "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+             "bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)}
+MLP_AXES = {"w_gate": ("embed", "mlp"), "w_in": ("embed", "mlp"),
+            "w_out": ("mlp", "embed")}
 
 
 def apply_norm(scale, bias, x, norm_type: str, eps: float = 1e-6):
@@ -56,24 +66,51 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
-def causal_attention(q, k, v, window: int = 0):
-    """q: (B, S, H, D), k/v: (B, S, KV, D) with KV | H (GQA); f32 scores and
-    softmax.  ``window > 0`` also masks keys ``window`` or more positions
-    back (sliding-window attention).  Returns (B, S, H, D) f32."""
+def causal_attention(q, k, v, window: int = 0, q_offset: int = 0):
+    """q: (B, S, H, D), k/v: (B, Sk, KV, D) with KV | H (GQA); f32 scores
+    and softmax.  Query i sits at position ``q_offset + i``, key j at j.
+    ``window > 0`` also masks keys ``window`` or more positions back
+    (sliding-window attention).  Returns (B, S, H, D) f32."""
     B, S, H, D = q.shape
+    Sk = k.shape[1]
     G = H // k.shape[2]                       # query heads per kv head
     qh = (q * (D ** -0.5)).to(torch.float32).transpose(1, 2)   # (B,H,S,D)
     kh, vh = k.to(torch.float32), v.to(torch.float32)
     if G > 1:
         kh, vh = kh.repeat_interleave(G, 2), vh.repeat_interleave(G, 2)
     kh, vh = kh.transpose(1, 2), vh.transpose(1, 2)
-    scores = qh @ kh.transpose(-1, -2)                         # (B,H,S,S)
-    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    scores = qh @ kh.transpose(-1, -2)                         # (B,H,S,Sk)
+    causal = torch.ones(S, Sk, dtype=torch.bool,
+                        device=q.device).tril(q_offset)
     if window > 0:
-        causal = causal.triu(-(window - 1))
+        causal = causal.triu(q_offset - (window - 1))
     scores = scores.masked_fill(~causal, float("-inf"))
     out = torch.softmax(scores, dim=-1) @ vh
     return out.transpose(1, 2)
+
+
+def attention(q, k, v, window: int = 0):
+    """:func:`causal_attention`; under activation sharding (DTensor
+    inputs) each device runs it on its own share, as the JAX package's
+    score constraints (``constrain.attention_dims``) lay it out: its batch
+    rows and heads, or its batch rows and query rows against every key.
+    The keys' gradient is then a partial sum over the devices that share
+    them, summed where DTensor needs it."""
+    if not (constrain_lib.active() and constrain_lib.is_dtensor(q)):
+        return causal_attention(q, k, v, window)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    qd, kd = constrain_lib.attention_dims(k.shape[2], q.shape[2] // k.shape[2],
+                                          q.shape[1])
+    q = constrain_lib.place(q, *qd)
+    k, v = constrain_lib.place(k, *kd), constrain_lib.place(v, *kd)
+    grad = [Partial() if isinstance(pk, Replicate) and
+            not isinstance(pq, Replicate) else pk
+            for pq, pk in zip(q.placements, k.placements)]
+    out = causal_attention(q.to_local(), k.to_local(grad_placements=grad),
+                           v.to_local(grad_placements=grad), window,
+                           q_offset=constrain_lib.shard_offset(q, 1))
+    return DTensor.from_local(out, q.device_mesh, q.placements,
+                              run_check=False)
 
 
 # ------------------------------------------------- int8 KV cache (extension)
@@ -117,11 +154,25 @@ def _decode_attention(q, k_cache, v_cache, cache_len: int):
     """Single-position attention over a contiguous cache.
 
     q: (B, 1, H, D); k/v_cache: (B, eff, KV, D).  Slots [0, min(cache_len,
-    eff)) are valid (the current token's kv is already written)."""
-    B, _, H, D = q.shape
+    eff)) are valid (the current token's kv is already written).  Under
+    activation sharding with the kv heads on the tp axis, each device
+    attends with its own batch rows and heads; otherwise (a cache sharded
+    on its sequence) DTensor distributes the products and the softmax."""
     KV = k_cache.shape[2]
+    if constrain_lib.active() and constrain_lib.is_dtensor(q) and \
+            constrain_lib.kv_groups_local(KV):
+        from torch.distributed.tensor import DTensor
+        dims = ("dp", None, "tp", None)
+        q, k_cache, v_cache = (constrain_lib.place(t, *dims)
+                               for t in (q, k_cache, v_cache))
+        out = _decode_attention(q.to_local(), k_cache.to_local(),
+                                v_cache.to_local(), cache_len)
+        return DTensor.from_local(out, q.device_mesh, q.placements,
+                                  run_check=False)
+    B, _, H, D = q.shape
     G = H // KV
     eff = k_cache.shape[1]
+    q = constrain_lib.kv_groups(q, KV)
     qh = (q.reshape(B, KV, G, D) * (D ** -0.5)).to(torch.float32)
     scores = torch.einsum("bkgd,bckd->bkgc", qh, k_cache.to(torch.float32))
     mask = torch.arange(eff, device=q.device) < min(cache_len, eff)
@@ -140,6 +191,7 @@ def _masked_decode_attention(q, k, v, valid):
     B, _, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
+    q = constrain_lib.kv_groups(q, KV)
     qh = (q.reshape(B, KV, G, D) * (D ** -0.5)).to(torch.float32)
     scores = torch.einsum("bkgd,bckd->bkgc", qh, k.to(torch.float32))
     m = valid[:, None, None, :]
@@ -191,9 +243,11 @@ def _write_prefill_cache(buf, new):
     S, eff = new.shape[1], buf.shape[1]
     new = new.to(buf.dtype)
     if S >= eff:
-        buf.copy_(torch.roll(new[:, S - eff:], (S - eff) % eff, dims=1))
+        last, shift = new[:, S - eff:], (S - eff) % eff
+        # (a roll by 0 is the rows themselves; DTensor has no rule for it)
+        buf.copy_(torch.roll(last, shift, dims=1) if shift else last)
     else:
-        buf[:, :S] = new
+        constrain_lib.write_rows(buf, 0, new)
 
 
 def apply_attention(p, x, cfg, *, positions, cache=None, cache_len=None,
@@ -216,6 +270,8 @@ def apply_attention(p, x, cfg, *, positions, cache=None, cache_len=None,
     q, k, v = (x @ p[f"w{n}"].to(dt) for n in "qkv")
     if cfg.qkv_bias:
         q, k, v = (t + p[f"b{n}"].to(dt) for t, n in zip((q, k, v), "qkv"))
+    q = head_split(q, H)
+    k, v = head_split(k, KV), head_split(v, KV)
     q = q.reshape(B, S, H, Dh)
     k = k.reshape(B, S, KV, Dh)
     v = v.reshape(B, S, KV, Dh)
@@ -227,7 +283,7 @@ def apply_attention(p, x, cfg, *, positions, cache=None, cache_len=None,
     if paged is not None and cache is not None and S == 1:
         out, cache = _paged_decode_attention(q, k, v, cfg, cache, paged)
     elif cache is None or S > 1:
-        out = causal_attention(q, k, v, window=window)
+        out = attention(q, k, v, window=window)
         if quant_cache:
             for name, rows in (("k", k), ("v", v)):
                 codes, absmax = kv_quantize(rows)
@@ -242,17 +298,18 @@ def apply_attention(p, x, cfg, *, positions, cache=None, cache_len=None,
         if quant_cache:
             for name, row in (("k", k), ("v", v)):
                 codes, absmax = kv_quantize(row)     # (B,1,KV,D)/(B,1,KV)
-                cache[f"{name}_codes"][:, idx:idx + 1] = codes
-                cache[f"{name}_absmax"][:, idx:idx + 1] = absmax
+                constrain_lib.write_rows(cache[f"{name}_codes"], idx, codes)
+                constrain_lib.write_rows(cache[f"{name}_absmax"], idx, absmax)
             k_cache, v_cache = (kv_dequantize(
                 cache[f"{name}_codes"], cache[f"{name}_absmax"], dt)
                 for name in ("k", "v"))
         else:
-            cache["k"][:, idx:idx + 1] = k.to(cache["k"].dtype)
-            cache["v"][:, idx:idx + 1] = v.to(cache["v"].dtype)
+            constrain_lib.write_rows(cache["k"], idx, k.to(cache["k"].dtype))
+            constrain_lib.write_rows(cache["v"], idx, v.to(cache["v"].dtype))
             k_cache, v_cache = cache["k"], cache["v"]
         out = _decode_attention(q, k_cache, v_cache, cache_len)
-    return out.reshape(B, S, H * Dh).to(dt) @ p["wo"].to(dt), cache
+    out = constrain(out.reshape(B, S, H * Dh).to(dt), "dp", None, "tp")
+    return out @ p["wo"].to(dt), cache
 
 
 def apply_mlp(p, x, cfg):
@@ -264,4 +321,5 @@ def apply_mlp(p, x, cfg):
         h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_in"].to(dt))
     else:
         h = F.gelu(x @ p["w_in"].to(dt), approximate="tanh")
+    h = constrain(h, "dp", None, "tp")
     return h @ p["w_out"].to(dt)

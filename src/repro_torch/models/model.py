@@ -68,6 +68,8 @@ from repro_torch.errors import ConfigError
 from repro_torch.kernels import paged_kv
 from repro_torch.models import embedding as emb
 from repro_torch.models import layers, moe, recurrent, xlstm
+from repro_torch.models.constrain import (batch_local, constrain,
+                                          constrain_block_params)
 
 
 class _Params(nn.Module):
@@ -207,6 +209,46 @@ class Model(nn.Module):
         return self.embed.table.device
 
 
+def _block_leaf_axes(kind: str, container: str, leaf: str) -> tuple:
+    """Logical axes of a block parameter: ``container`` is its node within
+    the block ('norm1', 'attn', 'mlp', 'moe', 'rec', 'cell')."""
+    if container in ("norm1", "norm2"):
+        return layers.NORM_AXES[leaf]
+    table = {"attn": layers.ATTN_AXES, "mlp": layers.MLP_AXES,
+             "moe": moe.MOE_AXES, "rec": recurrent.RGLRU_AXES,
+             "cell": xlstm.MLSTM_AXES if kind == "mlstm"
+             else xlstm.SLSTM_AXES}[container]
+    return table[leaf]
+
+
+def logical_axes(cfg, model: Model) -> dict:
+    """{path: logical axes} for every parameter of ``model`` (paths as
+    ``param_dict`` names them): the JAX package's ``init_model`` specs,
+    one tuple of logical axis names per parameter dim, with "layers"
+    leading on the scan-stacked leaves."""
+    if model.cfg != cfg:
+        raise ConfigError("logical_axes: model was built for another config")
+    top = {"embed": {**emb.EMBED_AXES, **layers.NORM_AXES},
+           "frontend": emb.FRONTEND_AXES, "final_norm": layers.NORM_AXES,
+           "head": emb.HEAD_AXES}
+    out = {}
+    for path in model.param_dict():
+        parts = path.split("/")
+        if parts[0] in top:
+            out[path] = top[parts[0]][parts[-1]]
+            continue
+        container, leaf = parts[-2], parts[-1]
+        if parts[0] == "blocks":                 # blocks/b0_attn/...
+            kind = parts[1].split("_", 1)[1]
+            out[path] = ("layers",) + _block_leaf_axes(kind, container, leaf)
+        elif parts[0] == "blocks_list":          # blocks_list/<i>/b0_attn/...
+            kind = parts[2].split("_", 1)[1]
+            out[path] = _block_leaf_axes(kind, container, leaf)
+        else:                                    # rem_blocks/<i>/<kind>/...
+            out[path] = _block_leaf_axes(parts[2], container, leaf)
+    return out
+
+
 def _nested(module: nn.Module, n: Optional[int]):
     """A block's parameters as nested dicts keyed like the JAX tree
     ({"attn": {"wq": ...}, ...}): one dict, or with ``n`` (stacked) a list
@@ -249,8 +291,9 @@ def _apply_block(p, x, cfg, kind: str, *, positions, state=None,
     norm = lambda q, h: layers.apply_norm(q["scale"], q.get("bias"), h,
                                           cfg.norm_type)
     if kind == "rglru":
-        r, new = recurrent.apply_rglru_block(p["rec"], norm(p["norm1"], x),
-                                             cfg, state=state)
+        r, new = batch_local(
+            lambda q, h, s: recurrent.apply_rglru_block(q, h, cfg, state=s),
+            p["rec"], norm(p["norm1"], x), state)
         _store(state, new)
         x = x + r
         if cfg.d_ff:
@@ -259,7 +302,8 @@ def _apply_block(p, x, cfg, kind: str, *, positions, state=None,
     if kind in ("mlstm", "slstm"):
         fn = xlstm.apply_mlstm_block if kind == "mlstm" else \
             xlstm.apply_slstm_block
-        c, new = fn(p["cell"], norm(p["norm1"], x), cfg, state=state)
+        c, new = batch_local(lambda q, h, s: fn(q, h, cfg, state=s),
+                             p["cell"], norm(p["norm1"], x), state)
         _store(state, new)
         return x + c, {}
 
@@ -300,12 +344,20 @@ def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
     cfg = model.cfg
     names = _block_names(cfg)
     kw = dict(positions=positions, cache_len=cache_len, paged=paged)
+    scanned = hasattr(model, "blocks")
 
     def superblock(ps: dict, states) -> dict:
         """One super-block; its blocks' metrics averaged (JAX's agg)."""
         nonlocal x
+        ps = constrain_block_params(ps) if scanned else ps
         acc = []
         for name, kind in names:
+            # the residual stream between TP regions: batch on dp.  The JAX
+            # package also shards its sequence on tp (sequence
+            # parallelism); DTensor cannot move the strided shard that a
+            # product's reshape makes of a batch and a sequence both
+            # sharded, so the port keeps the sequence whole (ROADMAP C14)
+            x = constrain(x, "dp", None, None)
             x, mt = _apply_block(ps[name], x, cfg, kind,
                                  state=states(name), **kw)
             if mt:
@@ -519,15 +571,18 @@ def init_cache(cfg, batch: int, max_len: int, *, device="cuda") -> dict:
 
 @torch.no_grad()
 def prefill(cfg, model: Model, tokens: torch.Tensor, max_len: int,
-            embeds=None):
+            embeds=None, caches=None):
     """Run the whole prompt (B, S) (after the frontend's prefix when
     ``embeds`` is given); returns (logits (B, S', V), a cache ready for
-    decode at pos = S')."""
+    decode at pos = S').  ``caches``: an ``init_cache(cfg, B, max_len)``
+    to fill in place (placed by the caller, as the dry run places it),
+    else a new one."""
     _check_model(cfg, model)
     x = model._embed(tokens, embeds)
     S = x.shape[1]
     positions = torch.arange(S, device=x.device)[None, :]
-    caches = init_cache(cfg, x.shape[0], max_len, device=x.device)
+    if caches is None:
+        caches = init_cache(cfg, x.shape[0], max_len, device=x.device)
     x, _ = _run_blocks(model, x, positions, caches=caches, cache_len=S)
     return _logits(model, x), caches
 

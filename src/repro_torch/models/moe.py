@@ -18,6 +18,14 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.constrain import constrain, replicated
+
+# logical axes of each parameter (the JAX package's init specs)
+MOE_AXES = {"router": ("embed", "unsharded"),
+            "w_gate": ("expert", "embed", "mlp"),
+            "w_in": ("expert", "embed", "mlp"),
+            "w_out": ("expert", "mlp", "embed")}
+
 
 def apply_moe(p, x, cfg):
     """x: (B, S, d); ``p``: {router (d, E), w_gate, w_in (E, d, f), w_out
@@ -27,7 +35,9 @@ def apply_moe(p, x, cfg):
     E, k = cfg.n_experts, cfg.top_k
     dt = x.dtype
     T = B * S
-    xf = x.reshape(T, d)
+    # the routing and the sort-and-scatter dispatch have no sharded form:
+    # under activation sharding they run on every token, replicated
+    xf = replicated(x.reshape(T, d))
 
     # ---- routing (f32) ----
     logits = xf.to(torch.float32) @ p["router"].to(torch.float32)
@@ -46,7 +56,10 @@ def apply_moe(p, x, cfg):
     flat_tok = torch.arange(T, device=x.device).repeat_interleave(k)
     order = torch.argsort(flat_expert, stable=True)
     se, st, sg = flat_expert[order], flat_tok[order], flat_gate[order]
-    counts = torch.bincount(flat_expert, minlength=E)            # (E,)
+    # bincount(minlength=E) with its shape known before the data: the
+    # same counts, and a trace on shapes alone can follow it
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).index_add(
+        0, flat_expert, torch.ones_like(flat_expert))            # (E,)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * k, device=x.device) - starts[se]      # slot
     keep = pos < capacity
@@ -54,6 +67,8 @@ def apply_moe(p, x, cfg):
     src = torch.where(keep[:, None], xf[st], 0).to(dt)
     buf = torch.zeros(E, capacity, d, dtype=dt, device=x.device) \
         .index_put((se, pos_c), src, accumulate=True)
+    # experts on 'tp' when divisible (kimi), else capacity rows on 'dp'
+    buf = constrain(buf, "tp", "dp", None)
 
     # ---- expert FFN (grouped products) ----
     if cfg.gated_mlp:
@@ -61,13 +76,15 @@ def apply_moe(p, x, cfg):
             * torch.bmm(buf, p["w_in"].to(dt))
     else:
         h = F.gelu(torch.bmm(buf, p["w_in"].to(dt)), approximate="tanh")
-    out_buf = torch.bmm(h, p["w_out"].to(dt))                    # (E, C, d)
+    h = constrain(h, "tp", "dp", None)
+    out_buf = constrain(torch.bmm(h, p["w_out"].to(dt)),         # (E, C, d)
+                        "tp", "dp", None)
 
     # ---- combine (f32) ----
     gathered = torch.where(keep[:, None], out_buf[se, pos_c], 0)
     contrib = gathered.to(torch.float32) * sg[:, None]
     out = torch.zeros(T, d, dtype=torch.float32, device=x.device) \
-        .index_add(0, st, contrib)
+        .index_add(0, st, replicated(contrib))
     # 1 - kept / (T*k) as XLA evaluates the JAX package's 1 - mean(keep):
     # the kept count times the f32 reciprocal of T*k, subtracted from 1
     # with one rounding (a fused multiply-add; exact in f64, then rounded)

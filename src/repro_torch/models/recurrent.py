@@ -26,6 +26,12 @@ from repro_torch.models.scan_utils import checkpointed_scan
 
 _C = 8.0
 
+# logical axes of each parameter (the JAX package's init specs)
+RGLRU_AXES = {"w_rec_in": ("embed", "lru"), "w_gate_in": ("embed", "lru"),
+              "conv_w": ("unsharded", "lru"), "w_a": ("lru", "lru_out"),
+              "b_a": ("lru",), "w_x": ("lru", "lru_out"), "b_x": ("lru",),
+              "lam": ("lru",), "w_out": ("lru", "embed")}
+
 
 def init_rglru_block(cfg, lead: tuple, dev, dt) -> dict:
     """The block's parameters, uninitialized, each with the leading dims

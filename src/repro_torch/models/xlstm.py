@@ -25,6 +25,19 @@ import torch.nn.functional as F
 
 from repro_torch.models.scan_utils import checkpointed_scan
 
+# logical axes of each parameter (the JAX package's init specs); the two
+# cells share the names w_up and w_down with the same axes
+_HEAD_MAT = ("heads", "unsharded", "head_out")
+MLSTM_AXES = {"w_up": ("embed", "mlp"), "w_gate": ("embed", "mlp"),
+              "wq": _HEAD_MAT, "wk": _HEAD_MAT, "wv": _HEAD_MAT,
+              "w_if": ("mlp", "unsharded"), "b_i": ("unsharded",),
+              "b_f": ("unsharded",), "wo_gate": _HEAD_MAT,
+              "w_down": ("mlp", "embed")}
+SLSTM_AXES = {"w_zifo": ("embed", "mlp"),
+              "r_zifo": ("heads", "unsharded", "unsharded", "unsharded"),
+              "b_zifo": ("mlp",), "w_up": ("embed", "mlp"),
+              "w_down": ("mlp", "embed")}
+
 
 # ------------------------------------------------------------------- mLSTM
 

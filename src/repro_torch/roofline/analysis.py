@@ -1,0 +1,301 @@
+"""Roofline terms of a dry-run cell (mirrors ``repro.roofline.analysis``),
+per device:
+
+  compute term    = FLOPs_per_device / peak FLOP/s of one card
+  memory term     = bytes_per_device / HBM bandwidth
+  collective term = collective_bytes_per_device / link bandwidth
+
+Where the JAX package parses the compiled SPMD module's HLO, the port
+counts what one device runs: :class:`DeviceCounter` is a
+``TorchDispatchMode`` that sits beneath DTensor — it hands every DTensor
+op back to DTensor and sees the local ops DTensor issues on this device's
+shards — and counts their FLOPs (``torch.utils.flop_counter``'s formulas
+on the local shapes), the bytes every op reads and writes, the bytes of
+each ``_c10d_functional`` collective by kind (its result, as the JAX
+package counts an HLO collective's result shape), and the peak of the live
+allocations.  Counted above DTensor, the same formulas would give the
+global FLOPs.
+
+The peaks are one NVIDIA H100 SXM's (NVIDIA's data sheet, dense rates at
+the 700 W power limit): 989 TFLOP/s in bf16, 3.35 TB/s of HBM3, and 450
+GB/s per direction of NVLink 4 (900 GB/s bidirectional).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+PEAK_FLOPS = 989e12        # bf16 FLOP/s per card (dense)
+HBM_BW = 3.35e12           # bytes/s per card
+LINK_BW = 450e9            # NVLink bytes/s per direction per card
+
+# _c10d_functional op name -> the JAX package's collective kind
+_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+    "broadcast": "broadcast", "broadcast_": "broadcast",
+}
+
+
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for e in x for t in _tensors(e)]
+    if isinstance(x, dict):
+        return [t for e in x.values() for t in _tensors(e)]
+    return []
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class DeviceCounter(TorchDispatchMode):
+    """Per-device FLOPs, bytes, collective bytes and live-allocation peak of
+    what runs under it, beneath DTensor.
+
+    Enter it inside the ``FakeTensorMode`` (and over the DTensors) of the
+    traced step.  Tensors made under :meth:`arguments` are the step's
+    arguments (``tracked_bytes``), live from then on; ``peak_bytes`` is the
+    largest sum of live storages seen, arguments included.  DTensor's planning (its
+    shape inference on global-shape stand-ins, its redistribution costs)
+    is not counted."""
+
+    def __init__(self):
+        super().__init__()
+        from torch.utils.flop_counter import flop_registry
+        self._flop_registry = flop_registry
+        self.flops = 0
+        self.bytes_read = 0
+        self.bytes_written = 0
+        self.collectives: dict = {}
+        self.n_collectives = 0
+        self.n_ops = 0
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self.tracked_bytes = 0
+        self._storages: dict = {}
+        self._muted = 0
+        self._placing = False
+        self._patched = None
+
+    # ------------------------------------------------------- live storages
+    def _add_storage(self, t: torch.Tensor) -> int:
+        """Count ``t``'s storage as live (once); returns its new bytes.
+        A "meta" tensor (a shape the trace reads) allocates nothing."""
+        if t.is_meta:
+            return 0
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._storages:
+            return 0
+        n = st.nbytes()
+        self._storages[key] = n
+        self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(st, self._free, key)
+        return n
+
+    def _free(self, key) -> None:
+        self.live_bytes -= self._storages.pop(key, 0)
+
+    @contextlib.contextmanager
+    def arguments(self):
+        """Tensors made under this context and alive at its end are the
+        step's arguments (``tracked_bytes``); its ops are not counted, and
+        the peak starts from them."""
+        self._placing = True
+        try:
+            yield
+        finally:
+            self._placing = False
+            self.tracked_bytes = self.live_bytes
+            self.peak_bytes = self.live_bytes
+
+    # ------------------------------------------------------------ dispatch
+    def _planning(self, fn):
+        """``fn`` (a DTensor planning method) run muted and outside the
+        fake mode: its ops are DTensor's bookkeeping (small index tensors,
+        shape inference on global-shape stand-ins), not this device's
+        work, and outside the fake mode its results are cached."""
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+        counter = self
+
+        def planned(*args, **kwargs):
+            counter._muted += 1
+            try:
+                with unset_fake_temporarily():
+                    return fn(*args, **kwargs)
+            finally:
+                counter._muted -= 1
+
+        return planned
+
+    def __enter__(self):
+        from torch.distributed.tensor import _dispatch, _sharding_prop
+        targets = [(_dispatch.OpDispatcher,
+                    "_propagate_op_sharding_dispatch_slow_path"),
+                   (_sharding_prop.ShardingPropagator, "propagate")]
+        for cls, name in targets:
+            if name not in vars(cls):
+                raise RuntimeError(
+                    f"DeviceCounter: DTensor has no {cls.__name__}.{name}; "
+                    f"per-device counts would include its planning")
+        self._patched = []
+        for cls, name in targets:
+            orig = vars(cls)[name]
+            self._patched.append((cls, name, orig))
+            setattr(cls, name, self._planning(orig))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self._patched:
+            setattr(cls, name, orig)
+        return super().__exit__(*exc)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        if self._muted:
+            return out
+        outs = _tensors(out)
+        if self._placing:
+            for t in outs:
+                self._add_storage(t)
+            return out
+        ns = func.namespace
+        name = func._schema.name.split("::")[-1]
+        if ns in ("_c10d_functional", "_dtensor", "c10d"):
+            kind = _COLLECTIVES.get(name)
+            if kind is not None:
+                b = sum(_nbytes(t) for t in outs)
+                self.collectives[kind] = self.collectives.get(kind, 0) + b
+                self.n_collectives += 1
+        elif not func.is_view:
+            self.n_ops += 1
+            pk = func._overloadpacket
+            if pk in self._flop_registry:
+                self.flops += int(self._flop_registry[pk](
+                    *args, **kwargs, out_val=out))
+            self.bytes_read += sum(_nbytes(t) for t in
+                                   _tensors((args, kwargs)))
+            self.bytes_written += sum(_nbytes(t) for t in outs)
+        for t in outs:
+            self._add_storage(t)
+        return out
+
+    @property
+    def bytes_accessed(self) -> int:
+        return self.bytes_read + self.bytes_written
+
+    @property
+    def collective_bytes(self) -> int:
+        return sum(self.collectives.values())
+
+
+@dataclasses.dataclass
+class Roofline:
+    flops_per_device: float
+    bytes_per_device: float
+    coll_bytes_per_device: float
+    coll_breakdown: dict
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    bottleneck: str
+    model_flops: float            # 6*N*D (or 6*N_active*D) global
+    useful_flops_ratio: float     # model_flops / (flops_per_device * chips)
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+
+def analyze(counter: DeviceCounter, *, n_chips: int,
+            model_flops_global: float) -> Roofline:
+    """The roofline of one device from a :class:`DeviceCounter`'s counts
+    of the traced step."""
+    flops = float(counter.flops)
+    byts = float(counter.bytes_accessed)
+    coll = {k: float(v) for k, v in counter.collectives.items()}
+    coll["_n_ops"] = counter.n_collectives
+    cb = float(counter.collective_bytes)
+    compute_s = flops / PEAK_FLOPS
+    memory_s = byts / HBM_BW
+    collective_s = cb / LINK_BW
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
+    bottleneck = max(terms, key=terms.get)
+    total = flops * n_chips
+    ratio = (model_flops_global / total) if total > 0 else 0.0
+    return Roofline(flops_per_device=flops, bytes_per_device=byts,
+                    coll_bytes_per_device=cb, coll_breakdown=coll,
+                    compute_s=compute_s, memory_s=memory_s,
+                    collective_s=collective_s, bottleneck=bottleneck,
+                    model_flops=model_flops_global, useful_flops_ratio=ratio)
+
+
+def newton_schulz_flops(rows: int, cols: int, steps: int = 5) -> float:
+    """FLOPs of the tiled NS(steps) orthogonalization on an (rows, cols)
+    matrix (kernels/newton_schulz.py; DESIGN.md §11): per iteration one
+    gram (2·m²·n), one m×m finalize (2·m³) and one apply (2·m²·n), with
+    m = min dim.  The repo's first compute-bound optimizer kernel."""
+    m, n = sorted((rows, cols))
+    return float(steps) * (4.0 * m * m * n + 2.0 * m ** 3)
+
+
+def muon_update_roofline(shape: tuple, *, bits: int = 8,
+                         block_size: int = 2048, steps: int = 5) -> dict:
+    """Roofline position of one quantized-Muon matrix-leaf update.
+
+    Unlike the element-wise family (~11 B/param streamed, ~O(100) ops/param
+    → bandwidth-bound, §3 napkin math), Muon adds the NS matmul chain whose
+    FLOPs/param grow with min(m, n): ~4·steps·min_dim, vs ~14 bytes/param
+    streamed.  The update flips compute-bound once
+    min_dim ≳ bytes_per_param·(peak/bw)/(4·steps) ≈ 14·295/20 ≈ 210 on
+    the H100 — i.e. essentially every real weight matrix; the per-block
+    dequant/requant stays bandwidth-bound but no longer dominates.  Used
+    by ``bench_speed``'s muon sweep to derive the analytic position."""
+    rows, cols = shape
+    n = rows * cols
+    # p read+write (4+4), g read (4), momentum codes read+write
+    # (2 · bits/8), absmax amortized (8/block_size per state).
+    bytes_per_param = 12.0 + 2.0 * bits / 8.0 + 8.0 / block_size
+    flops = newton_schulz_flops(rows, cols, steps) + 8.0 * n  # + EMA/step
+    compute_s = flops / PEAK_FLOPS
+    memory_s = bytes_per_param * n / HBM_BW
+    return {
+        "flops": flops,
+        "bytes": bytes_per_param * n,
+        "compute_s": compute_s,
+        "memory_s": memory_s,
+        "bottleneck": "compute" if compute_s > memory_s else "memory",
+    }
+
+
+def model_flops(cfg, case) -> float:
+    """MODEL_FLOPS: 6*N*D for training (N = active params), 2*N*D for
+    inference forward (D = tokens processed by the step)."""
+    n_active = cfg.active_param_count()
+    if case.kind == "train":
+        tokens = case.global_batch * case.seq_len
+        return 6.0 * n_active * tokens
+    if case.kind == "prefill":
+        tokens = case.global_batch * case.seq_len
+        return 2.0 * n_active * tokens
+    # decode: one token per sequence
+    return 2.0 * n_active * case.global_batch

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch.kernels import fused_update as kfu
 from repro_torch.kernels import ops as kops
+from repro_torch.models import constrain as constrain_lib
 from repro_torch.models import model as M
 from repro_torch.telemetry import tracing
 
@@ -66,10 +67,21 @@ class TrainHyper:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   smoothing: float = 0.0) -> torch.Tensor:
-    """Mean token NLL in f32. logits (B, S, V), labels (B, S)."""
-    logits = logits.to(torch.float32)
+    """Mean token NLL in f32. logits (B, S, V), labels (B, S).
+
+    Under activation sharding (``models.constrain``) the gold logit is
+    taken with a vocab-local masked sum, as the JAX package takes it, so
+    vocab-sharded logits are not gathered; the sum of one logit and zeros
+    is that logit, the value ``gather`` reads."""
+    logits = constrain_lib.constrain(logits.to(torch.float32), "dp", None,
+                                     "tp")
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if constrain_lib.active():
+        iota = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.where(iota == labels.long()[..., None], logits,
+                           0.0).sum(dim=-1)
+    else:
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = logz - gold
     if smoothing > 0.0:
         mean_lp = (logits - logz[..., None]).mean(dim=-1)
@@ -117,6 +129,24 @@ def clip_by_global_norm(tree: Mapping[str, torch.Tensor], max_norm: float,
     return clipped, norm
 
 
+def microbatch_loss(cfg, model: M.Model, hyper: TrainHyper, mb, embeds):
+    """(the loss to differentiate, the model's metrics and ce_loss,
+    detached) of one microbatch ``mb`` (B, S+1) of tokens: inputs
+    [:, :-1], labels [:, 1:], the loss on the token positions only."""
+    logits, mx = M.forward(cfg, model, mb[:, :-1], embeds=embeds)
+    labels = mb[:, 1:]
+    if embeds is not None:
+        logits = logits[:, -labels.shape[1]:]  # loss on token positions
+    ce = cross_entropy(logits, labels, hyper.label_smoothing)
+    total = ce
+    if "moe_aux_loss" in mx:
+        total = total + hyper.moe_aux_coef * mx["moe_aux_loss"] \
+            + hyper.moe_z_coef * mx["moe_z_loss"]
+    mx = {k: v.detach() for k, v in mx.items()}
+    mx["ce_loss"] = ce.detach()
+    return total, mx
+
+
 def make_train_step(cfg, model: M.Model, optimizer,
                     hyper: TrainHyper = TrainHyper()):
     """Returns train_step(state, batch) -> (state, metrics).
@@ -141,22 +171,6 @@ def make_train_step(cfg, model: M.Model, optimizer,
     shard_grads = bool(getattr(opt_cfg, "shard_grads_active", False))
     buffered = dp is not None or shard_grads
 
-    def batch_loss(mb, embeds):
-        """(the loss to differentiate, the model's metrics and ce_loss,
-        detached) of one microbatch."""
-        logits, mx = M.forward(cfg, model, mb[:, :-1], embeds=embeds)
-        labels = mb[:, 1:]
-        if embeds is not None:
-            logits = logits[:, -labels.shape[1]:]  # loss on token positions
-        ce = cross_entropy(logits, labels, hyper.label_smoothing)
-        total = ce
-        if "moe_aux_loss" in mx:
-            total = total + hyper.moe_aux_coef * mx["moe_aux_loss"] \
-                + hyper.moe_z_coef * mx["moe_z_loss"]
-        mx = {k: v.detach() for k, v in mx.items()}
-        mx["ce_loss"] = ce.detach()
-        return total, mx
-
     def microbatches(tokens, embeds):
         n = hyper.microbatches
         parts = [None] * n if embeds is None else embeds.chunk(n, dim=0)
@@ -177,7 +191,7 @@ def make_train_step(cfg, model: M.Model, optimizer,
         mxs = []
         for mb, emb in microbatches(tokens, embeds):
             model.zero_grad(set_to_none=True)
-            loss, mx = batch_loss(mb, emb)
+            loss, mx = microbatch_loss(cfg, model, hyper, mb, emb)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             mxs.append(mx)
@@ -204,7 +218,7 @@ def make_train_step(cfg, model: M.Model, optimizer,
         loss_sum = torch.zeros((), device=device)
         mxs, acc = [], {}
         for mb, emb in microbatches(tokens, embeds):
-            loss, mx = batch_loss(mb, emb)
+            loss, mx = microbatch_loss(cfg, model, hyper, mb, emb)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             mxs.append(mx)

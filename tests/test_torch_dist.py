@@ -17,6 +17,7 @@ whole batch (see "against plain PyTorch" below).  The reference's
 ``impl="jnp"`` mesh tests are not run here: this file imports no JAX, so
 that the spawned ranks start fast.
 """
+import contextlib
 import datetime
 import hashlib
 import json
@@ -422,6 +423,175 @@ def case_config_guards(mesh, world, tmp):
         opt.cfg.partition_active and \
         ML.data_parallel_degree(mesh) == world
     return ok, f"raised {raised}, shards {opt.cfg.partition_shards}"
+
+
+# tensor parallelism: a (world / 2) x 2 ("data", "model") mesh, the
+# parameters placed by the port's rules and the activation constraints on,
+# against the same model unsharded in one process (f32 compute): the loss
+# to TP_LOSS_RTOL, each gradient to TP_GRAD_TOL of its largest magnitude
+# (the sharded products and reductions sum in another order); the serving
+# logits of prefill and decode_step, with the caches placed by
+# ``cache_shardings``, to TP_LOGIT_TOL of their largest magnitude
+TP_LOSS_RTOL = 1e-5
+TP_GRAD_TOL = 1e-5
+TP_LOGIT_TOL = 1e-5
+
+
+def _tp_cfgs():
+    base = tcb.get_config("paper-lm-209m")
+    small = lambda arch, **kw: tcb.reduced(tcb.get_config(arch),
+                                           vocab_size=128, **kw)
+    return {"paper_lm": _cfg(),
+            # 3 heads: the model axis (2) does not divide them
+            "heads_3": tcb.reduced(base, d_model=48, n_heads=3,
+                                   n_kv_heads=3, head_dim=16, n_layers=2,
+                                   vocab_size=128),
+            # the MoE's replicated dispatch and combine, experts on "model"
+            "mixtral": small("mixtral-8x22b", n_layers=2),
+            # the recurrent blocks run batch-local: RG-LRU + local attention
+            # (one kv head: the kv groups gathered; a window of 16, so the
+            # serving cache is a ring that the prompt wraps), mLSTM, sLSTM
+            "recurrentgemma": small("recurrentgemma-9b", n_layers=3,
+                                    window=16),
+            "xlstm": small("xlstm-350m")}
+
+
+def _tp_model(mesh, cfg):
+    """The reduced model of ``cfg`` from seed 0, its parameters placed by
+    the rules on ``mesh`` (as they are when ``mesh`` is None)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.models import model as TM
+    from repro_torch.sharding import rules as R
+    model = TM.init_model(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
+    if mesh is None:
+        return model, None
+    spec = R.param_shardings(TM.logical_axes(cfg, model), model.param_dict(),
+                             mesh, R.ShardingPolicy())
+    for path, p in list(model.param_dict().items()):
+        *parents, leaf = path.split("/")
+        mod = model
+        for name in parents:
+            mod = getattr(mod, name)
+        setattr(mod, leaf, torch.nn.Parameter(distribute_tensor(
+            p.detach(), mesh, R.placements(spec[path], mesh))))
+    return model, spec
+
+
+@contextlib.contextmanager
+def _tp_axes(mesh, spec):
+    """The activation axes of ``mesh`` set, as the dry run sets them (none
+    when ``mesh`` is None)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import constrain as C
+    from repro_torch.sharding import rules as R
+    if mesh is None:
+        yield
+        return
+    sizes = R.mesh_sizes(mesh)
+    C.set_activation_axes(("data",), "model", sizes["data"], sizes["model"])
+    C.set_block_param_specs({k[len("blocks/"):]: v for k, v in spec.items()
+                             if k.startswith("blocks/")})
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        C.clear_activation_axes()
+
+
+def _tp_batch(mesh, t):
+    """``t`` (batch first) placed by ``batch_sharding`` on ``mesh``."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.sharding import rules as R
+    if mesh is None:
+        return t
+    return distribute_tensor(t, mesh, R.placements(R.batch_sharding(
+        mesh, R.ShardingPolicy(), t.dim(), t.shape[0]), mesh))
+
+
+def _whole(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _tp_run(mesh, cfg, tokens):
+    """(loss, {path: gradient}) of one forward and backward of ``cfg``
+    from seed 0: unsharded when ``mesh`` is None, else on DTensors placed
+    by the rules on ``mesh`` with the activation axes set."""
+    model, spec = _tp_model(mesh, cfg)
+    with _tp_axes(mesh, spec):
+        loss, _ = TL.microbatch_loss(cfg, model, TL.TrainHyper(),
+                                     _tp_batch(mesh, tokens), None)
+        loss.backward()
+        return _whole(loss).detach(), {
+            k: _whole(p.grad) for k, p in model.param_dict().items()}
+
+
+def _tp_serve(mesh, cfg, tokens, prompt: int, steps: int):
+    """The logits of ``prefill`` over ``tokens[:, :prompt]`` and of
+    ``steps`` ``decode_step`` calls teacher-forced on the tokens after it,
+    the caches made by ``init_cache`` and placed by ``cache_shardings``
+    on ``mesh`` (unsharded when ``mesh`` is None)."""
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.launch.dryrun import _tree_map
+    from repro_torch.models import model as TM
+    from repro_torch.sharding import rules as R
+    model, spec = _tp_model(mesh, cfg)
+    max_len = prompt + steps
+    caches = TM.init_cache(cfg, tokens.shape[0], max_len, device="cpu")
+    if mesh is not None:
+        cspec = R.cache_shardings(caches, cfg, mesh, R.ShardingPolicy())
+        caches = _tree_map(caches, lambda path, t: distribute_tensor(
+            t, mesh, R.placements(cspec[path], mesh)))
+    with _tp_axes(mesh, spec):
+        logits, caches = TM.prefill(cfg, model,
+                                    _tp_batch(mesh, tokens[:, :prompt]),
+                                    max_len, caches=caches)
+        out = [_whole(logits)]
+        for i in range(prompt, max_len):
+            logits, caches = TM.decode_step(
+                cfg, model, _tp_batch(mesh, tokens[:, i:i + 1]), caches, i)
+            out.append(_whole(logits))
+    return torch.cat(out, dim=1)
+
+
+def _gap(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def case_tensor_parallel_matches_unsharded(mesh, world, tmp):
+    """The (world/2, 2) tensor-parallel forward and backward of every
+    config of ``_tp_cfgs`` equal the unsharded ones: loss to TP_LOSS_RTOL,
+    gradients to TP_GRAD_TOL of each leaf's largest magnitude."""
+    tp_mesh = ML.make_mesh((world // 2, 2), ("data", "model"), "cpu")
+    tokens = _batch_tokens(0)
+    ok, rows = True, []
+    for name, cfg in _tp_cfgs().items():
+        loss_ref, g_ref = _tp_run(None, cfg, tokens)
+        loss_tp, g_tp = _tp_run(tp_mesh, cfg, tokens)
+        rel = float(abs(loss_tp - loss_ref) / abs(loss_ref))
+        gap = max(_gap(g_tp[k], g_ref[k]) for k in g_ref)
+        good = rel <= TP_LOSS_RTOL and gap <= TP_GRAD_TOL \
+            and set(g_tp) == set(g_ref)
+        ok = ok and good
+        rows.append(f"{name}: loss rel {rel:.3g}, grads {gap:.3g} of the "
+                    f"largest")
+    return ok, "; ".join(rows)
+
+
+def case_tensor_parallel_serving_matches_unsharded(mesh, world, tmp):
+    """On the (world/2, 2) mesh, ``prefill`` of 24 tokens and 4
+    ``decode_step`` calls of every config of ``_tp_cfgs`` (the caches
+    placed by ``cache_shardings``) give the unsharded logits to
+    TP_LOGIT_TOL of their largest magnitude."""
+    tp_mesh = ML.make_mesh((world // 2, 2), ("data", "model"), "cpu")
+    tokens = _batch_tokens(1)
+    ok, rows = True, []
+    for name, cfg in _tp_cfgs().items():
+        ref = _tp_serve(None, cfg, tokens, 24, 4)
+        gap = _gap(_tp_serve(tp_mesh, cfg, tokens, 24, 4), ref)
+        ok = ok and gap <= TP_LOGIT_TOL
+        rows.append(f"{name}: logits {gap:.3g} of the largest")
+    return ok, "; ".join(rows)
 
 
 CASES = {name[5:]: fn for name, fn in globals().items()
