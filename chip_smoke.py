@@ -171,7 +171,7 @@ are held to them bit for bit.  Phases, one line or more each:
    bf16 kernels and this phase alone, with their two JSON rows.
 9. summary — the kernels JSON line, the card's name and power limit, and
    the last line ``{"ok": true, "device": {...}}``; printed last, after
-   phase 10.
+   phase 12.
 10. recurrent — the recurrent family (thirteenth slice), run after phase
    8: xlstm-350m at its published widths and depth (24 layers: 21 mLSTM,
    3 sLSTM; d_model 1024, 4 heads, vocab 50304; 0.348 B parameters, f32
@@ -180,7 +180,8 @@ are held to them bit for bit.  Phases, one line or more each:
    rglru layers; d_model and lru_width 4096, MQA kv 1 x 256, window 2048,
    a tied head over 256,000 tokens; 2.175 B f32 parameters).  Each trains
    adamw8 pooled for RECURRENT_STEPS steps of seq 512 x batch 8 (RG_BATCH
-   = 4 for recurrentgemma; the scans' checkpointed path: 8 chunks of 64)
+   for recurrentgemma, whose kernel run must peak below RG_PEAK_LIMIT;
+   the scans' checkpointed path: 8 chunks of 64)
    through the kernels and
    through their plain versions (every state array and step metric
    bit-identical, B3 once a step), adamw32 beside it (final losses within
@@ -190,7 +191,7 @@ are held to them bit for bit.  Phases, one line or more each:
    giving identical tokens and logits: xlstm (prompts 64-256, 16 new)
    launches no B7 and its tokens equal the contiguous cache's
    (``contiguous_greedy``), and so do those of one request of
-   XLSTM_LONG_PROMPT = 16384 tokens served alone; recurrentgemma
+   XLSTM_LONG_PROMPT = 8192 tokens served alone; recurrentgemma
    (prompts 64-2100, one past the
    2048-token window) launches B7 2 x 1 attn layer times a decode step.
    Then muon8 on bf16 masters at mixtral-8x22b's 1-layer cut (phase 8's
@@ -218,6 +219,23 @@ are held to them bit for bit.  Phases, one line or more each:
    run on the card: its FLOPs equal ``FlopCounterMode``'s over the card's
    step, its peak within DRYRUN_PEAK_RTOL of ``max_memory_allocated``
    from a reset.  ``--phase dryrun`` runs phase 1 and this phase alone.
+12. remat — activation remat (fifteenth slice; ``cfg.remat``,
+   ``cfg.attn_chunk``), no kernel of its own, after phase 11: (a)
+   paper-lm-209m at SEQ_LEN x BATCH, adamw8 pooled through the kernels,
+   REMAT_STEPS steps at remat "none", "full" and "dots" from the same
+   weights and batches: every step's loss, grad norm and health bits and
+   every state array bit-identical across the three (the recomputed ops
+   rerun on the same inputs), B3 once a step; each mode's
+   ``max_memory_allocated`` from a reset and its step time, the three in
+   turns.  (b) stablelm-1.6b at its published widths at train_4k's
+   length, LONG_SEQ x LONG_BATCH (4096 x 2), remat "full" and attn_chunk
+   1024 (its config's): LONG_STEPS adamw8 steps through the kernels,
+   finite losses, its peak; the dry run of the same step (adam8,
+   ``impl="torch"``) on a mesh of one device, traced on the host beside
+   phase 11's cells and calibrated as phase 11's is (equal FLOPs, the
+   peak within DRYRUN_PEAK_RTOL); and the dry run's count of that step at
+   remat "none", printed beside it.  ``--phase remat`` runs phases 1-2
+   and this phase alone.
 
 Any failure raises: the script then exits non-zero without the last line.
 """
@@ -420,16 +438,20 @@ MIXTRAL_PROMPT, MIXTRAL_NEW = 4200, 64
 # configuration), through the kernels and through impl="torch"
 RECURRENT_STEPS = 3
 RG_LAYERS = 5
-# recurrentgemma's train batch: at 8 its first adamw8 step needed ~73 GB
-# of the card's 80 (the tied head's 256,000 x 4096 table in f32 several
-# times over, beside 24 GB of masters and state); cut to 4
-RG_BATCH = 4
+# recurrentgemma's train batch, the other cells': with its super-block
+# under remat "full" a batch-8 adamw8 step peaks at 70.3 GB of an H100's
+# 80 (without remat its first step needed ~73 GB and batch 4 was run:
+# the tied head's 256,000 x 4096 table in f32 several times over, beside
+# 24 GB of masters and state)
+RG_BATCH = 8
 XLSTM_PROMPTS, RG_PROMPTS, RECURRENT_NEW = (64, 128, 192, 256), \
     (64, 512, 1024, 2100), 16
-# one long xlstm request served alone: the prefill's scans at 32x the
+# one long xlstm request served alone: the prefill's scans at 16x the
 # train length.  Cut from the repo's prefill_32k length (32768), whose
-# two prefills took 192 s on an H100 against the run's 1200 s limit
-XLSTM_LONG_PROMPT, XLSTM_LONG_NEW = 16384, 4
+# two prefills took 192 s on an H100 against the run's 1200 s limit, to
+# 16384 (130 s), then to 8192 when remat "full" made phase 10's xlstm
+# train steps 1.8x longer (its scans run a third time)
+XLSTM_LONG_PROMPT, XLSTM_LONG_NEW = 8192, 4
 MUON_BF16_STEPS = 3
 # the kernels JSON rows that report the recurrent phase's launches beside
 # their own run's ("other_runs": {run: launches})
@@ -452,14 +474,30 @@ VARIANTS = {"adamw8": ("adamw", False), "adamw8_sr": ("adamw", True),
 
 
 # the dry run (fourteenth slice, phase 11): the pod cells, traced in
-# processes of their own on the CPU (longest first: the lanes take them
-# in turn), and the calibration's tolerance on the peak memory
+# processes of their own on the CPU (longest first: the first has a lane
+# of its own, the others share the other lanes), and the calibration's
+# tolerance on the peak memory
 DRYRUN_CELLS = ("mixtral-8x22b:train_4k", "qwen1.5-32b:train_4k",
                 "paper-lm-209m:train_4k", "qwen1.5-32b:decode_32k",
                 "recurrentgemma-9b:decode_32k")
 DRYRUN_LANES = 2
 DRYRUN_PEAK_RTOL = 0.10
 CARD_BYTES = 80e9
+
+# activation remat (fifteenth slice, phase 12 and ``--phase remat``):
+# paper-lm-209m at SEQ_LEN x BATCH under each remat mode, REMAT_STEPS
+# steps from the same weights and batches; stablelm-1.6b at train_4k's
+# length, LONG_SEQ x LONG_BATCH, with its config's remat "full" and
+# attn_chunk 1024, and the dry run's count of the same step on one device
+# (at remat "full", calibrated against the card; at "none", counted only)
+REMAT_MODES = ("none", "full", "dots")
+REMAT_STEPS = 5
+LONG_ARCH, LONG_SEQ, LONG_BATCH, LONG_STEPS = "stablelm-1.6b", 4096, 2, 3
+# phase 4's per-leaf adamw8 median step on an H100 (700 W) before the port
+# read cfg.remat: every layer's activations kept
+PHASE4_NO_REMAT_MS = 89.7
+# recurrentgemma's peak at RG_BATCH must stay below this (of the card's 80)
+RG_PEAK_LIMIT = 76e9
 
 
 class SmokeFailure(RuntimeError):
@@ -2435,11 +2473,13 @@ def group_phase(torch, dev, cfg, batches) -> None:
         shutil.rmtree(store, ignore_errors=True)
 
 
-def step_turns(torch, label, runs, batch, reps: int = 8) -> None:
+def step_turns(torch, label, runs, batch, reps: int = 8,
+               ref: str = "pooled") -> None:
     """Step time of the per-leaf and the pooled run in turns (per-leaf,
     pooled, pooled, per-leaf, ...), each step on the host clock ending in
     a sync, on the same batch: the two layouts under the same conditions
-    (their states, compared already, move on)."""
+    (their states, compared already, move on).  Other runs are reported
+    against run ``ref``."""
     times = {k: [] for k in runs}
     for r in range(reps):
         for k in (list(runs) if r % 2 == 0 else list(reversed(runs))):
@@ -2460,7 +2500,7 @@ def step_turns(torch, label, runs, batch, reps: int = 8) -> None:
               + ", ".join(f"{t:.1f}" for t in times["per_leaf"]))
         return
     print(f"{label} in turns ({reps} steps each): median step "
-          + ", ".join(f"{k} {med[k]:.2f} ms ({med[k] / med['pooled']:.3f}x)"
+          + ", ".join(f"{k} {med[k]:.2f} ms ({med[k] / med[ref]:.3f}x)"
                       for k in runs) + "; "
           + "; ".join(f"{k} " + ", ".join(f"{t:.1f}" for t in v)
                       for k, v in times.items()))
@@ -3408,12 +3448,12 @@ def profiled_recurrent_step(torch, run, batch, label) -> None:
 
 def recurrent_train(torch, dev, cfg, batches, label, run_launches,
                     step_launches, run_steps, on_host=False,
-                    profile=False) -> None:
+                    profile=False, peak_limit=None) -> None:
     """adamw8 (pooled) through the kernels and their plain versions,
     bit-identical with B3 once a step (``on_host``: see
     :func:`arch_pair`); adamw32 beside it, its final loss within 1%; with
     ``profile``, one more adamw8 step under the profiler.  Peak memory of
-    each."""
+    each, the kernel run's below ``peak_limit`` bytes where given."""
     counts, ms_k, ms_p, peak, loss8 = arch_pair(
         torch, dev, cfg, "adamw8", batches, f"{label}_adamw8",
         steps=RECURRENT_STEPS, on_host=on_host, lr=LR,
@@ -3428,6 +3468,8 @@ def recurrent_train(torch, dev, cfg, batches, label, run_launches,
           f"array and step metric bit-identical to the plain versions' run; "
           f"launches {counts}; median step {ms_k:.1f} ms (plain versions "
           f"{ms_p:.1f} ms); peak device memory {peak:.2f} GB")
+    require(peak_limit is None or peak * 1e9 < peak_limit,
+            f"{label}_adamw8: peak {peak:.2f} GB")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base_b = torch.cuda.memory_allocated()
@@ -3590,7 +3632,8 @@ def recurrent_phase(torch, dev, run_launches, step_launches, run_steps,
               f"batch {batch}")
         recurrent_train(torch, dev, cfg, batches, label, run_launches,
                         step_launches, run_steps, on_host=rg,
-                        profile=profile)
+                        profile=profile,
+                        peak_limit=RG_PEAK_LIMIT if rg else None)
         prompts = RG_PROMPTS if rg else XLSTM_PROMPTS
         rng = np.random.RandomState(SEED)
         reqs = [Request(rid=i, prompt=tuple(rng.randint(
@@ -3835,7 +3878,7 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "partition", "arch",
-                                        "recurrent", "dryrun"),
+                                        "recurrent", "dryrun", "remat"),
                     default="all",
                     help="all (the default), the partition phases alone "
                          "(device, build, the arena and partition kernels, "
@@ -3846,17 +3889,15 @@ def main(argv=None) -> int:
                          "build, B7 at recurrentgemma's rows, the xlstm, "
                          "recurrentgemma and bf16-master muon runs) or the "
                          "dry run alone (device, the pod cells, the "
-                         "calibration), for iterating on them; only a run "
-                         "of all prints the last line")
+                         "calibration) or the remat phase alone (device, "
+                         "build, the remat modes' runs and the long step "
+                         "with its dry run), for iterating on them; only a "
+                         "run of all prints the last line")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from repro_torch.configs import base
-    from repro_torch.core.optim import Quant8Leaf
-    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
-    from repro_torch.kernels import build, ops
 
     # ---- 1. device
     t_start = time.perf_counter()
@@ -3868,6 +3909,22 @@ def main(argv=None) -> int:
     print(f"device: {torch.cuda.get_device_name(0)} "
           f"(count {torch.cuda.device_count()}); torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; nvidia-smi: {card}")
+
+    # the remat phase's dry-run cells trace on the CPU during the build
+    dry = start_dryrun(only=("long_calibration", "long_remat_none")) \
+        if args.phase == "remat" else {"lanes": [], "cells": {}}
+    try:
+        return _phases(args, torch, dev, t_start, card, dry)
+    finally:
+        finish_dryrun_quietly(dry)
+
+
+def _phases(args, torch, dev, t_start, card, dry: dict) -> int:
+    """Phases 2-12 of a whole run, or the phases ``--phase`` names; ``dry``:
+    the remat phase's dry-run lanes."""
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import build
 
     if args.phase == "dryrun":
         dryrun_phase(torch, dev, start_dryrun())
@@ -3959,6 +4016,13 @@ def main(argv=None) -> int:
               "line)")
         return 0
 
+    if args.phase == "remat":
+        remat_phase(torch, dev, finish_dryrun(dry), {}, {}, {})
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print("chip_smoke: the remat phase passed (a partial run: no "
+              "kernels JSON)")
+        return 0
     if args.phase == "recurrent":
         kernels = check_gather_kernel(torch, dev, RG_GATHER_SHAPE)
         torch.cuda.empty_cache()
@@ -4056,7 +4120,8 @@ def _main_on_card(torch, dev, t_start, card, dry_runs) -> int:
           f"{m8['opt_fused_dispatches']:.0f}/step; state_bytes_per_param "
           f"{m8['state_bytes_per_param']:.4f}; launches {launches}; "
           f"median step {statistics.median(run8['ms'][1:]):.1f} ms "
-          f"(steps 1..{STEPS - 1})")
+          f"(steps 1..{STEPS - 1}; remat {cfg.remat}; without remat, an "
+          f"earlier run: {PHASE4_NO_REMAT_MS} ms)")
     losses = run8["losses"]
     require(all(math.isfinite(x) for x in losses), "non-finite adamw8 loss")
     require(losses[-1] < losses[0], f"adamw8 loss did not fall: {losses}")
@@ -4208,7 +4273,11 @@ def _main_on_card(torch, dev, t_start, card, dry_runs) -> int:
     torch.cuda.empty_cache()
 
     # ---- 11. the dry run: the pod cells, the calibration
-    dryrun_phase(torch, dev, dry_runs)
+    arts = dryrun_phase(torch, dev, dry_runs)
+
+    # ---- 12. activation remat: the three modes, the long step
+    remat_phase(torch, dev, arts, run_launches, step_launches, run_steps)
+    torch.cuda.empty_cache()
 
     # ---- 9. summary
     meta = [(name, source, replaces, counter,
@@ -4246,10 +4315,23 @@ DRYRUN_MAIN = ("import os, sys, torch; os.nice(19); "
                "sys.exit(dryrun.main(sys.argv[1:]))")
 
 
-def start_dryrun() -> dict:
+def _host_cell(out: Path, arch: str, seq: int, batch: int,
+               remat: str | None = None) -> tuple:
+    """(arguments, artifact path) of the dry run of ``arch``'s train step at
+    seq x batch on a mesh of one device."""
+    args = ["--arch", arch, "--shape", "train_4k", "--mesh", "host",
+            "--seq-len", str(seq), "--batch", str(batch), "--out",
+            str(out / "host")] + (["--remat", remat] if remat else [])
+    tag = f"{arch}__train_4k__host__s{seq}b{batch}" + (
+        f"__remat_{remat}" if remat else "")
+    return args, out / "host" / f"{tag}.json"
+
+
+def start_dryrun(only: tuple | None = None) -> dict:
     """Start the dry run on the CPU (the card hidden from it): each pod
-    cell of DRYRUN_CELLS and the calibration's one-device cell, each in a
-    process over a fake process group of its own.  DRYRUN_LANES lanes (a
+    cell of DRYRUN_CELLS, the calibration's one-device cell (phase 11) and
+    the long step's two (phase 12), each in a process over a fake process
+    group of its own (``only``: those named alone).  DRYRUN_LANES lanes (a
     shell each, in a session of its own) run the cells one after another,
     every process on one thread at the lowest priority, pinned to the
     host's last DRYRUN_LANES cores.  Returns {"lanes": [process, ...],
@@ -4269,18 +4351,23 @@ def start_dryrun() -> dict:
                             "pod", "--out", str(out / "pod")],
                      out / "pod" / f"{arch}__{shape}__pod.json"))
     jobs.append(("calibration",
-                 ["--arch", "paper-lm-209m", "--shape", "train_4k", "--mesh",
-                  "host", "--seq-len", str(SEQ_LEN), "--batch", str(BATCH),
-                  "--out", str(out / "host")],
-                 out / "host" / f"paper-lm-209m__train_4k__host__s{SEQ_LEN}"
-                 f"b{BATCH}.json"))
+                 *_host_cell(out, "paper-lm-209m", SEQ_LEN, BATCH)))
+    jobs.append(("long_calibration",
+                 *_host_cell(out, LONG_ARCH, LONG_SEQ, LONG_BATCH)))
+    jobs.append(("long_remat_none",
+                 *_host_cell(out, LONG_ARCH, LONG_SEQ, LONG_BATCH, "none")))
+    if only is not None:
+        jobs = [job for job in jobs if job[0] in only]
     main = DRYRUN_MAIN.format(cores=cores)
     cells, scripts = {}, [[] for _ in range(DRYRUN_LANES)]
     for i, (name, args, artifact) in enumerate(jobs):
         log = out / f"{name.replace(':', '__')}.log"
         artifact.unlink(missing_ok=True)
         cells[name] = (artifact, log)
-        scripts[i % DRYRUN_LANES].append(
+        # the first (longest) cell has a lane of its own, the others take
+        # the other lanes in turn
+        lane = 0 if i == 0 else 1 + (i - 1) % (DRYRUN_LANES - 1)
+        scripts[lane].append(
             shlex.join([sys.executable, "-c", main, *args, "--force"])
             + f" > {shlex.quote(str(log))} 2>&1")
     lanes = [subprocess.Popen(["sh", "-c", "; ".join(lane)], cwd=ROOT,
@@ -4306,18 +4393,10 @@ def finish_dryrun(runs: dict, timeout: float = 900) -> dict:
     return arts
 
 
-def dryrun_phase(torch, dev, runs: dict) -> None:
+def dryrun_phase(torch, dev, runs: dict) -> dict:
     """Phase 11: the pod cells' artifacts, and the calibration against the
-    same train step on the card."""
-    from torch.utils.flop_counter import FlopCounterMode
-    from repro_torch.configs import base
-    from repro_torch.core.optim import make_optimizer
-    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
-    from repro_torch.launch import dryrun
-    from repro_torch.train import loop as L
-
+    same train step on the card.  Returns every dry-run artifact."""
     arts = finish_dryrun(runs)
-    card = card_line()
     for cell in DRYRUN_CELLS:
         art = arts[cell]
         require(art["status"] == "ok", f"dry run {cell}: {art}")
@@ -4337,13 +4416,29 @@ def dryrun_phase(torch, dev, runs: dict) -> None:
               f"{art['compile_s']} s on the host")
 
     # (b) the calibration: the same step on the card
-    dry = arts["calibration"]
-    require(dry["status"] == "ok" and dry["n_chips"] == 1,
-            f"dry run calibration: {dry}")
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
     cfg = base.get_config("paper-lm-209m")
     pipe = SyntheticLMPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                           seq_len=SEQ_LEN,
                                           global_batch=BATCH, seed=SEED))
+    calibrate(torch, dev, arts["calibration"], cfg, pipe.batch_at(0),
+              f"paper-lm-209m adam8 seq {SEQ_LEN} x batch {BATCH}")
+    return arts
+
+
+def calibrate(torch, dev, dry: dict, cfg, batch, label: str) -> None:
+    """The dry run's one-device artifact ``dry`` of the train step of
+    ``cfg`` (adam8, ``impl="torch"``, the dry run's hyperparameters)
+    against the same step on the card: FLOPs equal to ``FlopCounterMode``'s,
+    the peak within DRYRUN_PEAK_RTOL of ``max_memory_allocated`` from a
+    reset."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.core.optim import make_optimizer
+    from repro_torch.launch import dryrun
+    from repro_torch.train import loop as L
+    require(dry["status"] == "ok" and dry["n_chips"] == 1,
+            f"dry run calibration {label}: {dry}")
     opt = make_optimizer("adam8", lr=dryrun.LR, weight_decay=0.1,
                          impl="torch", device=dev)
     state, model = L.init_train_state(
@@ -4352,27 +4447,136 @@ def dryrun_phase(torch, dev, runs: dict) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with FlopCounterMode(display=False) as fc:
-        state, metrics = step(state, pipe.batch_at(0))
+        state, metrics = step(state, batch)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     flops = fc.get_total_flops()
     loss = metrics["loss"].item()
     dry_peak = dry["memory"]["total_per_device"]
     rel = abs(dry_peak - peak) / peak
-    print(f"dryrun calibration paper-lm-209m adam8 seq {SEQ_LEN} x batch "
-          f"{BATCH} (impl torch), one device: FLOPs dry run "
+    print(f"dryrun calibration {label} (impl torch, remat {cfg.remat}, "
+          f"attn_chunk {cfg.attn_chunk}), one device: FLOPs dry run "
           f"{dry['cost']['flops']:.0f}, FlopCounterMode on the card {flops}; "
           f"peak dry run {dry_peak} B, max_memory_allocated {peak} B "
           f"({100 * rel:.2f}% apart, limit {100 * DRYRUN_PEAK_RTOL:.0f}%); "
-          f"loss {loss:.6f}; {torch.cuda.get_device_name(0)}, {card}")
-    require(math.isfinite(loss), "calibration step: non-finite loss")
+          f"loss {loss:.6f}; traced in {dry['compile_s']} s on the host; "
+          f"{torch.cuda.get_device_name(0)}, {card_line()}")
+    require(math.isfinite(loss), f"calibration {label}: non-finite loss")
     require(dry["cost"]["flops"] == flops,
-            f"calibration: dry-run FLOPs {dry['cost']['flops']} != "
+            f"calibration {label}: dry-run FLOPs {dry['cost']['flops']} != "
             f"the card's {flops}")
-    require(rel <= DRYRUN_PEAK_RTOL,
-            f"calibration: dry-run peak {dry_peak} B vs the card's {peak} B")
+    require(rel <= DRYRUN_PEAK_RTOL, f"calibration {label}: dry-run peak "
+            f"{dry_peak} B vs the card's {peak} B")
     del state, model, step, opt
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 12
+def remat_phase(torch, dev, arts: dict, run_launches, step_launches,
+                run_steps) -> None:
+    """(a) paper-lm-209m at SEQ_LEN x BATCH, adamw8 pooled through the
+    kernels, REMAT_STEPS steps at each of REMAT_MODES from the same weights
+    and batches: every step's metrics and every state array bit-identical
+    across the modes (the recomputed ops rerun on the same inputs), B3 once
+    a step; each mode's peak from a reset, and its step in turns with the
+    others'.  (b) stablelm-1.6b at LONG_SEQ x LONG_BATCH with remat "full"
+    and attn_chunk 1024: LONG_STEPS adamw8 steps through the kernels,
+    finite losses, its peak; the dry run's one-device count of the step
+    calibrated against the card (``calibrate``), and its count at remat
+    "none" printed."""
+    import dataclasses
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    card = card_line()
+
+    # (a) the three modes
+    cfg0 = base.get_config("paper-lm-209m")
+    pipe = SyntheticLMPipeline(DataConfig(vocab_size=cfg0.vocab_size,
+                                          seq_len=SEQ_LEN,
+                                          global_batch=BATCH, seed=SEED))
+    batches = [pipe.batch_at(i) for i in range(REMAT_STEPS + 1)]
+    runs, peaks = {}, {}
+    for mode in REMAT_MODES:
+        label = f"remat_{mode}"
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_b = torch.cuda.memory_allocated()
+        runs[mode] = train(torch, dev, dataclasses.replace(cfg0, remat=mode),
+                           "adamw8", REMAT_STEPS, batches, label=label)
+        torch.cuda.synchronize()
+        peaks[mode] = torch.cuda.max_memory_allocated() - base_b
+        counts = ops.launch_counts()
+        require(counts["fused_update"] == REMAT_STEPS,
+                f"{label}: launches {counts}, expected B3 once per step")
+        run_launches[label] = step_launches[label] = counts
+        run_steps[label] = REMAT_STEPS
+    for mode in REMAT_MODES[1:]:
+        require(runs[mode]["trace"] == runs["none"]["trace"],
+                f"remat {mode}: per-step loss / grad norm / health bits "
+                f"differ from remat none's")
+        n_bad = _same_state(torch, runs[mode]["state"], runs["none"]["state"])
+        require(n_bad == 0, f"remat {mode}: {n_bad} state arrays differ "
+                f"from remat none's after {REMAT_STEPS} steps")
+    print(f"remat paper-lm-209m adamw8 seq {SEQ_LEN} x batch {BATCH}: "
+          f"{REMAT_STEPS} steps at remat {', '.join(REMAT_MODES)}, every "
+          f"step's metrics and every state array bit-identical; peak from "
+          f"a reset " + ", ".join(f"{m} {peaks[m]} B ({peaks[m] / 1e9:.3f} "
+                                  f"GB)" for m in REMAT_MODES)
+          + f"; {torch.cuda.get_device_name(0)}, {card}")
+    step_turns(torch, "remat paper-lm-209m adamw8", runs,
+               batches[REMAT_STEPS], ref="none")
+    del runs
+    torch.cuda.empty_cache()
+
+    # (b) the long step: stablelm-1.6b at train_4k's length
+    t0 = time.perf_counter()
+    cfg = base.get_config(LONG_ARCH)
+    require(cfg.remat == "full" and cfg.attn_chunk == 1024,
+            f"{LONG_ARCH}: remat {cfg.remat}, attn_chunk {cfg.attn_chunk}")
+    pipe = SyntheticLMPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=LONG_SEQ,
+                                          global_batch=LONG_BATCH, seed=SEED))
+    batches = [pipe.batch_at(i) for i in range(LONG_STEPS)]
+    label = "stablelm_long_adamw8"
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_b = torch.cuda.memory_allocated()
+    run = arch_train(torch, dev, cfg, "adamw8", LONG_STEPS, batches,
+                     label, lr=LR, weight_decay=WEIGHT_DECAY)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base_b
+    counts = ops.launch_counts()
+    require(counts["fused_update"] == LONG_STEPS,
+            f"{label}: launches {counts}, expected B3 once per step")
+    run_launches[label] = step_launches[label] = counts
+    run_steps[label] = LONG_STEPS
+    print(f"remat {LONG_ARCH} adamw8 seq {LONG_SEQ} x batch {LONG_BATCH} "
+          f"(remat {cfg.remat}, attn_chunk {cfg.attn_chunk}): losses "
+          + ", ".join(f"{x:.6f}" for x in run["losses"])
+          + f"; median step {statistics.median(run['ms'][1:]):.1f} ms; "
+          f"peak from a reset {peak} B ({peak / 1e9:.3f} GB); launches "
+          f"{counts}; {torch.cuda.get_device_name(0)}, {card}")
+    del run
+    torch.cuda.empty_cache()
+    calibrate(torch, dev, arts["long_calibration"], cfg, batches[0],
+              f"{LONG_ARCH} adam8 seq {LONG_SEQ} x batch {LONG_BATCH}")
+    none = arts["long_remat_none"]
+    require(none["status"] == "ok", f"dry run remat none: {none}")
+    full = arts["long_calibration"]
+    print(f"dryrun {LONG_ARCH} adam8 seq {LONG_SEQ} x batch {LONG_BATCH} "
+          f"one device: remat none {none['memory']['total_per_device']} B "
+          f"({none['memory']['total_per_device'] / 1e9:.2f} GB, "
+          f"{none['cost']['flops']:.4e} FLOP) against remat full "
+          f"{full['memory']['total_per_device']} B "
+          f"({full['memory']['total_per_device'] / 1e9:.2f} GB, "
+          f"{full['cost']['flops']:.4e} FLOP); the card holds "
+          f"{CARD_BYTES / 1e9:.0f} GB")
+    print(f"remat {LONG_ARCH}: {time.perf_counter() - t0:.1f} s")
+    print(f"remat phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def kernel_rows(kernels, meta, run_launches, step_launches,

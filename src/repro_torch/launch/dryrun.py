@@ -28,6 +28,12 @@ them; then one step runs at full width:
   * prefill / decode: ``prefill`` / ``decode_step`` with the caches placed
     by ``cache_shardings``.
 
+The model runs as the card runs it: a train forward under the config's
+``remat`` (every published config: "full"; ``--remat`` replaces it), so
+the count holds the recomputed forward, its redistributions and the
+checkpoints' frees, and train and prefill attention in KV chunks of
+``attn_chunk``.
+
 A :class:`~repro_torch.roofline.analysis.DeviceCounter` beneath DTensor
 counts what this device runs.  The artifact
 ``<out>/<arch>__<shape>__<mesh>.json`` has the JAX artifact's keys:
@@ -584,6 +590,9 @@ def main(argv=None):
                          "calibration against a run on the card)")
     ap.add_argument("--batch", type=int, default=None,
                     help="the shape's global batch replaced")
+    ap.add_argument("--remat", type=str, default=None,
+                    choices=("none", "full", "dots"),
+                    help="the config's activation remat replaced")
     args = ap.parse_args(argv)
 
     archs = cfgs.list_archs() if (args.all or args.arch is None) \
@@ -604,16 +613,18 @@ def main(argv=None):
             tag += f"__s{case.seq_len}b{case.global_batch}"
         if args.kv8:
             tag += "__kv8"
+        overrides = {"kv_cache_bits": 8} if args.kv8 else {}
+        if args.remat:
+            tag += f"__remat_{args.remat}"
+            overrides["remat"] = args.remat
         path = os.path.join(args.out, tag + ".json")
         if os.path.exists(path) and not args.force:
             print(f"[skip cached] {tag}")
             continue
         print(f"[dryrun] {tag} ...", flush=True)
         try:
-            art = lower_cell(
-                arch, shape_name, args.mesh,
-                overrides={"kv_cache_bits": 8} if args.kv8 else None,
-                case=case)
+            art = lower_cell(arch, shape_name, args.mesh,
+                             overrides=overrides, case=case)
         except Exception as e:  # a failure here is a framework bug
             failures += 1
             art = {"arch": arch, "shape": shape_name, "mesh": args.mesh,

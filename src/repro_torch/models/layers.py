@@ -11,11 +11,16 @@ JAX package's leaf names) and keeps the JAX package's casts: norms work in
 f32 and cast back, attention scores and softmax are f32, projections run
 in the compute dtype.  The JAX package has no Pallas kernel in its model,
 so plain PyTorch ops are its counterpart; the paged decode's
-gather-dequant is kernel B7 (``kernels/paged_kv.py``).  Attention is a
-plain masked softmax over the whole sequence (the JAX package's chunked
-online softmax computes the same function; only the f32 summation order
-differs, so the two agree to f32 rounding).  Caches are dicts of tensors,
-updated in place: the counterpart of the JAX package's donated caches.
+gather-dequant is kernel B7 (``kernels/paged_kv.py``).  Train and
+prefill attention is the JAX package's online softmax over KV chunks of
+``cfg.attn_chunk`` keys, in its chunk order and with its ``-inf`` guards
+(when one chunk holds every key, the softmax, the same function), each
+chunk recomputed in the backward (``torch.utils.checkpoint``, the
+counterpart of its ``jax.checkpoint``): no score tensor outlives its
+chunk.  The model draws no random numbers, so its checkpoints do not
+save and restore the RNG state (which costs more host time than a small
+chunk's ops).  Caches are dicts of tensors, updated in place: the counterpart
+of the JAX package's donated caches.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import paged_kv
 from repro_torch.models import constrain as constrain_lib
@@ -66,38 +72,114 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
-def causal_attention(q, k, v, window: int = 0, q_offset: int = 0):
-    """q: (B, S, H, D), k/v: (B, Sk, KV, D) with KV | H (GQA); f32 scores
-    and softmax.  Query i sits at position ``q_offset + i``, key j at j.
-    ``window > 0`` also masks keys ``window`` or more positions back
-    (sliding-window attention).  Returns (B, S, H, D) f32."""
-    B, S, H, D = q.shape
-    Sk = k.shape[1]
-    G = H // k.shape[2]                       # query heads per kv head
-    qh = (q * (D ** -0.5)).to(torch.float32).transpose(1, 2)   # (B,H,S,D)
-    kh, vh = k.to(torch.float32), v.to(torch.float32)
-    if G > 1:
-        kh, vh = kh.repeat_interleave(G, 2), vh.repeat_interleave(G, 2)
-    kh, vh = kh.transpose(1, 2), vh.transpose(1, 2)
-    scores = qh @ kh.transpose(-1, -2)                         # (B,H,S,Sk)
-    causal = torch.ones(S, Sk, dtype=torch.bool,
-                        device=q.device).tril(q_offset)
+def _chunk_scores(qh, k_c, q_pos, kv0: int, window: int):
+    """(masked f32 scores (B, KV, G, S, C), mask (S, C)) of queries ``qh``
+    (B, KV, G, S, D) at ``q_pos`` against the chunk ``k_c`` (B, C, KV, D)
+    of keys from position ``kv0``: causal, and within ``window`` keys
+    when it is > 0."""
+    kv_pos = kv0 + torch.arange(k_c.shape[1], device=qh.device)
+    scores = torch.einsum("bkgsd,bckd->bkgsc", qh, k_c.to(torch.float32))
+    mask = q_pos[:, None] >= kv_pos[None, :]                     # causal
     if window > 0:
-        causal = causal.triu(q_offset - (window - 1))
-    scores = scores.masked_fill(~causal, float("-inf"))
-    out = torch.softmax(scores, dim=-1) @ vh
-    return out.transpose(1, 2)
+        mask &= (q_pos[:, None] - kv_pos[None, :]) < window      # SWA
+    return scores.masked_fill(~mask, float("-inf")), mask
 
 
-def attention(q, k, v, window: int = 0):
-    """:func:`causal_attention`; under activation sharding (DTensor
-    inputs) each device runs it on its own share, as the JAX package's
+def _online_attention(qh, k, v, q_pos, window: int, chunk: int):
+    """The online softmax over the KV chunks of ``chunk`` keys (k/v
+    padded to a multiple): f32 running max, denominator and accumulator
+    with the JAX package's two ``-inf`` guards, each chunk under a
+    non-reentrant checkpoint when gradients are on.  Returns (B, KV, G, S,
+    D)."""
+    def body(m_run, d_run, acc, k_c, v_c, kv0: int):
+        scores, mask = _chunk_scores(qh, k_c, q_pos, kv0, window)
+        m_new = torch.maximum(m_run, scores.amax(dim=-1))
+        # rows with no valid key yet keep m = -inf: exp(-inf - -inf) guard
+        m_safe = torch.where(torch.isinf(m_new), 0.0, m_new)
+        p = torch.exp(scores - m_safe[..., None])
+        p = torch.where(mask, p, 0.0)
+        corr = torch.where(torch.isinf(m_run), 0.0,
+                           torch.exp(m_run - m_safe))
+        d_new = d_run * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgsc,bckd->bkgsd", p, v_c.to(torch.float32))
+        return m_new, d_new, acc * corr[..., None] + pv
+
+    f32 = dict(dtype=torch.float32, device=qh.device)
+    carry = (torch.full(qh.shape[:4], float("-inf"), **f32),
+             torch.zeros(qh.shape[:4], **f32), torch.zeros(qh.shape, **f32))
+    for kv0 in range(0, k.shape[1], chunk):
+        piece = (k[:, kv0:kv0 + chunk], v[:, kv0:kv0 + chunk], kv0)
+        if torch.is_grad_enabled():
+            carry = checkpoint(body, *carry, *piece, use_reentrant=False,
+                               preserve_rng_state=False)
+        else:
+            carry = body(*carry, *piece)
+    _, d_f, acc = carry
+    return acc / d_f[..., None].clamp_min(1e-30)
+
+
+def _softmax_attention(qh, k, v, q_pos, window: int):
+    """One chunk holding every key: the online softmax's single step is
+    the softmax (every causal row holds its own key, so no row is wholly
+    masked), computed by ``torch.softmax``'s fused forward and backward in
+    fewer launches than that step's (``scripts/attn_turns.py`` times the
+    two), under a non-reentrant checkpoint when gradients are on.
+    Returns (B, KV, G, S, D)."""
+    def body(k, v):
+        scores, _ = _chunk_scores(qh, k, q_pos, 0, window)
+        return torch.einsum("bkgsc,bckd->bkgsd", torch.softmax(scores, -1),
+                            v.to(torch.float32))
+
+    if torch.is_grad_enabled():
+        return checkpoint(body, k, v, use_reentrant=False,
+                          preserve_rng_state=False)
+    return body(k, v)
+
+
+def causal_attention(q, k, v, window: int = 0, q_offset: int = 0,
+                     chunk: int = 1024):
+    """Causal attention over KV chunks of ``chunk`` keys (the JAX
+    package's ``_chunked_causal_attention``).  q: (B, S, H, D), k/v: (B,
+    Sk, KV, D) with KV | H (GQA), grouped as (B, KV, G, S, D) without
+    copying k or v; f32 scores and softmax.  Query i sits at position
+    ``q_offset + i`` (a query-row split's rows; ``q_offset + S <= Sk``),
+    key j at j.  ``window > 0`` also masks keys ``window`` or more
+    positions back (sliding-window attention).  The keys are padded to a
+    multiple of ``min(chunk, Sk)`` (the padded keys lie after every query
+    and are masked as causal) and attended by the online softmax
+    (:func:`_online_attention`), or by the softmax when one chunk holds
+    them all (:func:`_softmax_attention`: the same function).  No
+    (S, Sk) score tensor outlives its chunk: with gradients on, each
+    chunk's scores are recomputed in the backward.  Returns (B, S, H, D)
+    f32."""
+    B, S, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV                               # query heads per kv head
+    chunk = int(min(chunk, Sk))
+    pad = -Sk % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qh = (q.reshape(B, S, KV, G, D) * (D ** -0.5)).to(torch.float32)
+    qh = qh.permute(0, 2, 3, 1, 4)                        # (B, KV, G, S, D)
+    q_pos = q_offset + torch.arange(S, device=q.device)
+    if chunk == Sk:
+        out = _softmax_attention(qh, k, v, q_pos, window)
+    else:
+        out = _online_attention(qh, k, v, q_pos, window, chunk)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
+
+
+def attention(q, k, v, window: int = 0, chunk: int = 1024):
+    """:func:`causal_attention` over KV chunks of ``chunk`` keys; under
+    activation sharding (DTensor inputs) each device runs it on its own
+    share, as the JAX package's
     score constraints (``constrain.attention_dims``) lay it out: its batch
     rows and heads, or its batch rows and query rows against every key.
     The keys' gradient is then a partial sum over the devices that share
     them, summed where DTensor needs it."""
     if not (constrain_lib.active() and constrain_lib.is_dtensor(q)):
-        return causal_attention(q, k, v, window)
+        return causal_attention(q, k, v, window, chunk=chunk)
     from torch.distributed.tensor import DTensor, Partial, Replicate
     qd, kd = constrain_lib.attention_dims(k.shape[2], q.shape[2] // k.shape[2],
                                           q.shape[1])
@@ -108,7 +190,8 @@ def attention(q, k, v, window: int = 0):
             for pq, pk in zip(q.placements, k.placements)]
     out = causal_attention(q.to_local(), k.to_local(grad_placements=grad),
                            v.to_local(grad_placements=grad), window,
-                           q_offset=constrain_lib.shard_offset(q, 1))
+                           q_offset=constrain_lib.shard_offset(q, 1),
+                           chunk=chunk)
     return DTensor.from_local(out, q.device_mesh, q.placements,
                               run_check=False)
 
@@ -261,8 +344,9 @@ def apply_attention(p, x, cfg, *, positions, cache=None, cache_len=None,
                             PagedContext) the cache is the shared quantized
                             page pool and per-slot positions and page
                             tables drive append + attend.
-    cache given, S > 1   -> prefill: full causal attention + bulk cache
-                            fill.
+    cache given, S > 1   -> prefill: causal attention + bulk cache fill.
+    Train and prefill attend in KV chunks of ``cfg.attn_chunk`` (the
+    online softmax of :func:`causal_attention`), as the JAX package does.
     Caches are updated in place.  Returns (out (B, S, d), cache)."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -283,7 +367,7 @@ def apply_attention(p, x, cfg, *, positions, cache=None, cache_len=None,
     if paged is not None and cache is not None and S == 1:
         out, cache = _paged_decode_attention(q, k, v, cfg, cache, paged)
     elif cache is None or S > 1:
-        out = attention(q, k, v, window=window)
+        out = attention(q, k, v, window=window, chunk=cfg.attn_chunk)
         if quant_cache:
             for name, rows in (("k", k), ("v", v)):
                 codes, absmax = kv_quantize(rows)

@@ -16,6 +16,11 @@ them, each of the kind its index in the pattern gives.
   * ``mlstm`` / ``slstm``: ``norm1`` and the xLSTM block ``cell``
     (``models/xlstm.py``).
 
+A train forward (no caches, gradients on) runs each scanned super-block
+under ``cfg.remat``'s activation checkpoint, as the JAX package wraps its
+scan body (``_remat_wrap``); attention goes over KV chunks of
+``cfg.attn_chunk`` keys (``layers.causal_attention``).
+
 Embeddings are the stable or the baseline one, the head untied or tied to
 the embedding table, and a modality frontend stub may prepend projected
 precomputed features (``embeds``).
@@ -56,12 +61,15 @@ JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import device as device_lib
 from repro_torch.errors import ConfigError
@@ -336,19 +344,51 @@ def _map_cache(layer, fn):
     return tuple(fn(t) for t in layer)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """remat "dots": keep the 2-D products (``aten.mm`` / ``aten.addmm``,
+    what ``x @ W`` folds to: the JAX package's dots with no batch dims),
+    recompute everything else (the attention's and the experts' ``bmm``,
+    norms, activations, rope)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(fn, cfg):
+    """``fn`` under the activation checkpoint ``cfg.remat`` names (the JAX
+    package's ``_remat_wrap``): "none" keeps every activation, "dots" a
+    selective checkpoint that keeps the 2-D products, anything else
+    ("full") a checkpoint that keeps only ``fn``'s inputs.  Non-reentrant
+    checkpoints keep the forward's autograd graph and recompute its saved
+    tensors in the backward, so values and gradients are the unwrapped
+    ones, bit for bit (the model draws no random numbers: no RNG state is
+    kept for the recompute)."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False, **kw)
+
+
 def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
                 paged=None):
     """All layers over x (B, S, d).  ``caches``: None (no state io) or the
-    cache pytree, whose per-layer views are updated in place.  Returns (x,
-    metrics)."""
+    cache pytree, whose per-layer views are updated in place.  Each
+    scanned super-block of a train forward (no caches, gradients on) runs
+    under ``cfg.remat``'s checkpoint, as the JAX package wraps its scan
+    body; the ``blocks_list`` and remainder layers run unwrapped, as
+    there.  Returns (x, metrics)."""
     cfg = model.cfg
     names = _block_names(cfg)
     kw = dict(positions=positions, cache_len=cache_len, paged=paged)
     scanned = hasattr(model, "blocks")
 
-    def superblock(ps: dict, states) -> dict:
-        """One super-block; its blocks' metrics averaged (JAX's agg)."""
-        nonlocal x
+    def superblock(x, ps: dict, states=lambda name: None):
+        """One super-block: (x, its blocks' metrics averaged: JAX's
+        agg)."""
         ps = constrain_block_params(ps) if scanned else ps
         acc = []
         for name, kind in names:
@@ -362,20 +402,25 @@ def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
                                  state=states(name), **kw)
             if mt:
                 acc.append(mt)
-        return {k: _mean([m[k] for m in acc]) for k in acc[0]} if acc \
-            else {}
+        return x, ({k: _mean([m[k] for m in acc]) for k in acc[0]} if acc
+                   else {})
 
     metrics = {}
-    if hasattr(model, "blocks"):
+    if scanned:
         n = cfg.n_superblocks
         per_layer = {name: _nested(getattr(model.blocks, name), n)
                      for name, _ in names}
+        wrapped = _remat_wrap(superblock, cfg) if caches is None and \
+            torch.is_grad_enabled() else None
         layer_mts = []
         for i in range(n):
-            states = lambda name: None if caches is None else _map_cache(
-                caches["scan"][name], lambda t: t[i])
-            mt = superblock({nm: per_layer[nm][i] for nm, _ in names},
-                            states)
+            ps = {nm: per_layer[nm][i] for nm, _ in names}
+            if wrapped is not None:
+                x, mt = wrapped(x, ps)
+            else:
+                x, mt = superblock(x, ps, lambda name: None if caches is None
+                                   else _map_cache(caches["scan"][name],
+                                                   lambda t: t[i]))
             if mt:
                 layer_mts.append(mt)
         if layer_mts:
@@ -383,11 +428,11 @@ def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
                        for k in layer_mts[0]}
     elif hasattr(model, "blocks_list"):
         for i, sb in enumerate(model.blocks_list):
-            states = lambda name: None if caches is None else \
-                caches["scan"][i][name]
-            metrics.update(superblock(
-                {nm: _nested(getattr(sb, nm), None) for nm, _ in names},
-                states))
+            x, mt = superblock(
+                x, {nm: _nested(getattr(sb, nm), None) for nm, _ in names},
+                lambda name: None if caches is None else
+                caches["scan"][i][name])
+            metrics.update(mt)
     for i, rb in enumerate(getattr(model, "rem_blocks", ())):
         kind = _rem_kind(cfg, i)
         x, mt = _apply_block(_nested(getattr(rb, kind), None), x, cfg, kind,

@@ -14,6 +14,9 @@ package's, without devices:
   * the command line writes an ``ok`` artifact for full-width
     paper-lm-209m train_4k on the 256-device pod mesh, and
     ``make_production_mesh`` builds the 512-device mesh over a fake group;
+  * the reduced paper-lm train cell on the smoke mesh at remat "full"
+    against the same cell at "none": equal argument bytes, fewer
+    temporary bytes, more FLOPs (the recomputed forward);
   * on a mesh of one device (its own fake group) the dry run's FLOPs equal
     ``FlopCounterMode`` over the same train step run for real on the CPU;
   * the update on one device's local share of a (1, 1, 2) mesh makes the
@@ -199,6 +202,21 @@ json.dump({"flops": counter.flops, "global": 3 * 2 * M * K * N,
 """
 
 
+# the reduced paper-lm smoke cell of SMOKE again, with remat "full" (the
+# SMOKE cells trace reduced()'s remat "none")
+REMAT_SCRIPT = r"""
+import dataclasses, json, sys
+from repro_torch.configs import base
+from repro_torch.launch import dryrun, shapes
+cfg = base.reduced(base.get_config("paper-lm-209m"))
+case = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=64,
+                           global_batch=16)
+art = dryrun.lower_cell("paper-lm-209m", "train_4k", "smoke",
+                        overrides={"remat": "full"}, cfg=cfg, case=case)
+json.dump(art, open(sys.argv[1], "w"))
+"""
+
+
 MESH_SCRIPT = r"""
 from repro_torch.launch import mesh
 mesh.init_fake_process_group(512)
@@ -225,6 +243,8 @@ def runs():
     procs["calib"] = run(["-c", CALIB_SCRIPT,
                           os.path.join(tmp, "calib.json")])
     procs["mesh"] = run(["-c", MESH_SCRIPT])
+    procs["remat"] = run(["-c", REMAT_SCRIPT,
+                          os.path.join(tmp, "remat.json")])
     for kind in ("host", "tp2"):
         procs[f"update_{kind}"] = run(["-c", UPDATE_SCRIPT, kind, os.path.join(
             tmp, f"update_{kind}.json")])
@@ -245,6 +265,7 @@ def runs():
     return {"rcs": rcs, "logs": logs, "smoke": smoke,
             "calib": load(os.path.join(tmp, "calib.json")),
             "counter": load(os.path.join(tmp, "counter.json")),
+            "remat": load(os.path.join(tmp, "remat.json")),
             **{f"update_{k}": load(os.path.join(tmp, f"update_{k}.json"))
                for k in ("host", "tp2")},
             "cli": load(os.path.join(
@@ -302,6 +323,19 @@ def test_lower_cell_smoke_mesh(runs, arch, shape, seq, batch):
     assert mem["total_per_device"] == mem["argument_bytes"] + \
         mem["temp_bytes"] > 0
     assert art["roofline"]["flops_per_device"] > 0
+
+
+def test_remat_full_against_none_smoke_mesh(runs):
+    """remat "full" holds the same arguments, fewer live bytes above them,
+    and more FLOPs (the recomputed forward) than "none"."""
+    full = runs["remat"]
+    assert full is not None, runs["logs"]["remat"][-3000:]
+    none = runs["smoke"]["paper-lm-209m:train_4k"]
+    assert full["status"] == none["status"] == "ok", full.get("error")
+    assert full["memory"]["argument_bytes"] == \
+        none["memory"]["argument_bytes"]
+    assert full["memory"]["temp_bytes"] < none["memory"]["temp_bytes"]
+    assert full["cost"]["flops"] > none["cost"]["flops"]
 
 
 def test_production_mesh_on_fake_group(runs):

@@ -5,10 +5,10 @@ steps, and greedy serving through the contiguous and the paged caches.
 Both packages start from the same weights, made by the JAX package's
 ``init_model`` and carried over with ``repro_torch.convert``.
 
-Tolerances: the port's attention is one masked softmax where the JAX
-package's is a chunked online softmax, and its matmuls sum in another
-order, so f32 logits agree to ``LOGIT_RTOL`` / ``LOGIT_ATOL`` (measured
-~1e-6 relative here); loss traces at the golden tests' rtol=2e-4; a code
+Tolerances: both packages' attention is the online softmax over KV
+chunks of ``attn_chunk`` keys, in the same chunk order, but the port's
+matmuls and einsums sum in another order than XLA's, so f32 logits agree
+to ``LOGIT_RTOL`` / ``LOGIT_ATOL`` (measured ~1e-6 relative here); loss traces at the golden tests' rtol=2e-4; a code
 may flip by one level where a state lies within rounding of a codebook
 midpoint (ROADMAP's midpoint rule), and over three steps the flipped
 element's moment carries that difference on (its code may then sit a few
@@ -351,9 +351,17 @@ def test_forward_matches_jax(arch):
 
 # -------------------------------------------------------------------- train
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_train_steps_match_jax(arch):
-    check_train(*train_both(arch))
+# (arch, remat): reduced() trains with remat "none"; one more case holds
+# the port's remat "full" (checkpointed super-blocks) to the JAX package's
+TRAIN_CASES = [(arch, None) for arch in DENSE] + [("paper-lm-209m", "full")]
+
+
+@pytest.mark.parametrize(
+    "arch,remat", TRAIN_CASES,
+    ids=[a if r is None else f"{a}-remat-{r}" for a, r in TRAIN_CASES])
+def test_train_steps_match_jax(arch, remat):
+    check_train(*train_both(arch, **({} if remat is None
+                                     else {"remat": remat})))
 
 
 # -------------------------------------------------------------------- serve
