@@ -236,6 +236,23 @@ are held to them bit for bit.  Phases, one line or more each:
    peak within DRYRUN_PEAK_RTOL); and the dry run's count of that step at
    remat "none", printed beside it.  ``--phase remat`` runs phases 1-2
    and this phase alone.
+13. analysis — the static-analysis package on the card
+   (``repro_torch.analysis``): (a) the contract matrix
+   (``runner.run_contracts``: 13 cells of the reduced paper LM, the bare
+   updates, the paged decode steps, the knob pairs) through the CUDA
+   route, one line a contract, and one full-width cell, paper-lm-209m
+   pooled adamw8 at BATCH x SEQ_LEN, whose recorded step must hold a B3
+   launch (its counters zeroed just before and read just after);
+   (b) the Hopper kernel budget of every built instance
+   (``kernel_budget.card_audit``): the model beside ptxas's registers,
+   spill and static shared memory and the occupancy API's CTAs per SM,
+   one line each; (c) the lint gate against its baseline; (d) host syncs
+   per step (``torch.cuda.set_sync_debug_mode("warn")``, the warnings
+   counted) of a pooled and a per-leaf adamw8 step of paper-lm-209m at
+   full width, each without and with ``percentile_clipping=95``.  A
+   failed contract, a budget line that disagrees with ptxas or the
+   occupancy API, or a new lint violation fails the run.
+   ``--phase analysis`` runs phases 1-2 and this phase alone.
 
 Any failure raises: the script then exits non-zero without the last line.
 """
@@ -244,7 +261,6 @@ from __future__ import annotations
 import ctypes
 import json
 import math
-import re
 import shutil
 import statistics
 import subprocess
@@ -662,28 +678,6 @@ def raw_quantize(torch, lib, x, q, codes, absmax, bits: int, seed=None,
         build.check(lib, fn(*args), entry)
         return keep
     return launch
-
-
-def ptxas_report(log: Path) -> list:
-    """``kernel<template arguments>: registers ...; spills`` for each kernel
-    instance in an nvcc build log (``-Xptxas -v``)."""
-    entry, spill, out = "?", "", []
-    for line in log.read_text().splitlines() if log.exists() else ():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1] if "'" in line else line
-        elif "spill" in line:
-            spill = line.split(":", 1)[-1].strip()
-        elif "registers" in line:
-            # kernel<template arguments> from the mangled name
-            hit = re.search(r"\d([a-z_]+_kernel)I(.+?)EEv", entry)
-            plain = re.search(r"([a-z_]+_kernel)E", entry)
-            types = {"f": ["f32"], "1": ["bf16"]}.get(    # float or
-                hit.group(2)[:1], []) if hit else []      # __nv_bfloat16
-            short = (f"{hit.group(1)}<" + ",".join(types + re.findall(
-                r"L[ib](\d+)E", hit.group(2))) + ">") if hit else (
-                plain.group(1) if plain else entry)
-            out.append(f"{short}: {line.split(':', 1)[-1].strip()}; {spill}")
-    return out
 
 
 def card_line() -> str:
@@ -3878,7 +3872,8 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase", choices=("all", "partition", "arch",
-                                        "recurrent", "dryrun", "remat"),
+                                        "recurrent", "dryrun", "remat",
+                                        "analysis"),
                     default="all",
                     help="all (the default), the partition phases alone "
                          "(device, build, the arena and partition kernels, "
@@ -3891,7 +3886,9 @@ def main(argv=None) -> int:
                          "dry run alone (device, the pod cells, the "
                          "calibration) or the remat phase alone (device, "
                          "build, the remat modes' runs and the long step "
-                         "with its dry run), for iterating on them; only a "
+                         "with its dry run) or the analysis phase alone "
+                         "(device, build, phase 13), for iterating on them; "
+                         "only a "
                          "run of all prints the last line")
     args = ap.parse_args(argv)
     import torch
@@ -3941,6 +3938,7 @@ def _phases(args, torch, dev, t_start, card, dry: dict) -> int:
           f"{time.perf_counter() - t0:.1f} s wall "
           f"({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}) "
           f"into {build.build_dir().relative_to(ROOT)}")
+    from repro_torch.analysis.kernel_budget import ptxas_report
     for name in build.LIBRARIES:
         for line in ptxas_report(build.build_dir() / f"{name}.log"):
             print(f"build: {name}: {line}")
@@ -4016,6 +4014,13 @@ def _phases(args, torch, dev, t_start, card, dry: dict) -> int:
               "line)")
         return 0
 
+    if args.phase == "analysis":
+        analysis_phase(torch, dev)
+        print(f"total {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print("chip_smoke: the analysis phase passed (a partial run: no "
+              "kernels JSON)")
+        return 0
     if args.phase == "remat":
         remat_phase(torch, dev, finish_dryrun(dry), {}, {}, {})
         print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -4277,6 +4282,10 @@ def _main_on_card(torch, dev, t_start, card, dry_runs) -> int:
 
     # ---- 12. activation remat: the three modes, the long step
     remat_phase(torch, dev, arts, run_launches, step_launches, run_steps)
+    torch.cuda.empty_cache()
+
+    # ---- 13. the static analysis: contracts, kernel budget, lint, syncs
+    analysis_phase(torch, dev)
     torch.cuda.empty_cache()
 
     # ---- 9. summary
@@ -4577,6 +4586,114 @@ def remat_phase(torch, dev, arts: dict, run_launches, step_launches,
           f"{CARD_BYTES / 1e9:.0f} GB")
     print(f"remat {LONG_ARCH}: {time.perf_counter() - t0:.1f} s")
     print(f"remat phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+# ------------------------------------------------------------------ phase 13
+PCLIP = 95                  # the host-sync steps' percentile clipping
+
+
+def analysis_phase(torch, dev) -> None:
+    """Phase 13: the contract matrix and a full-width cell on the card,
+    the kernel budget against ptxas and the occupancy API, the lint gate,
+    host syncs per step (see the module doc)."""
+    from repro_torch.analysis import contracts, kernel_budget, lint, runner
+    from repro_torch.configs import base
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMPipeline
+    from repro_torch.kernels import build, ops
+
+    t0 = time.perf_counter()
+    failed = []         # every check runs and prints; the phase fails after
+    check = lambda ok, what: None if ok else failed.append(what)
+    lines = []
+    ops.reset_launch_counts()
+    ops.reset_fused_update_count()
+    results = runner.run_contracts(device=dev, log=lines.append)
+    torch.cuda.synchronize()
+    launches, routes = ops.launch_counts(), ops.fused_update_routes()
+    for line in lines:
+        print(f"analysis: contract {line}")
+    bad = runner.failures(results)
+    check(not bad, f"{len(bad)} contract(s) failed on the card: "
+          f"{[str(r) for r in bad]}")
+    check(set(routes) == {"cuda"} and launches["fused_update"] > 0,
+          f"the matrix's updates by route {routes}, launches {launches}")
+    print(f"analysis: contracts {len(results)}/{len(results)} passed on "
+          f"the card in {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches}; dispatches by route {routes}")
+
+    # the full-width cell: its counters zeroed just before, read just after
+    cfg = base.get_config("paper-lm-209m")
+    pipe = SyntheticLMPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=SEQ_LEN,
+                                          global_batch=BATCH, seed=SEED))
+    cell = runner.Cell("paper-lm-209m-adamw8-pooled", "adamw8", (8, 8))
+    ops.reset_launch_counts()
+    ops.reset_fused_update_count()
+    trace = runner.trace_step(cell, device=dev, cfg=cfg,
+                              batch=pipe.batch_at(0))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    routes = ops.fused_update_routes()
+    b3 = sum(1 for e in trace.events
+             if e.kind == "kernel" and e.name == "fused_update")
+    print(f"analysis: full width {cell.name} at {BATCH}x{SEQ_LEN}: "
+          f"{len(trace.events)} events, {b3} B3 launch(es) in the traced "
+          f"step; launches of the two steps {launches}; dispatches by "
+          f"route {routes}")
+    check(b3 >= 1 and launches["fused_update"] >= 2 and
+          set(routes) == {"cuda"},
+          f"the full-width step's trace holds {b3} B3 launches "
+          f"(counters {launches}, routes {routes})")
+    runner.register_all()
+    for spec in contracts.contracts_for("step"):
+        r = contracts.evaluate(spec, trace, cell)
+        if r is not None:
+            print(f"analysis: contract {r}")
+            check(r.ok, f"full-width {r}")
+    del trace
+    torch.cuda.empty_cache()
+
+    # the kernel budget of every built instance
+    rows = kernel_budget.card_audit(build.build_dir(), build.library)
+    for r in rows:
+        print(f"analysis: budget {r['library']}: {r['instance']}: "
+              f"{r['threads']} threads, smem {r['static_smem']} + "
+              f"{r['dynamic_smem']} B (ptxas {r['ptxas_smem']}), registers "
+              f"{r['registers']} of cap {r['cap']}, spill "
+              f"{r['spill_stores']} B, local {r['local']} B, CTAs/SM "
+              f"assumed {r['assumed']} / model {r['model_ctas']} / API "
+              f"{r['api_ctas']}: {'ok' if r['ok'] else r['problems']}")
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"{len(bad)} of {len(rows)} budget lines disagree with "
+          f"ptxas or the occupancy API")
+    print(f"analysis: budget {len(rows) - len(bad)}/{len(rows)} instances "
+          f"agree with ptxas and the occupancy API")
+
+    # the lint gate
+    ok, lint_lines = lint.run(str(ROOT / "src" / "repro_torch"))
+    for line in lint_lines:
+        print(f"analysis: lint {line}")
+    check(ok, "new lint violations")
+
+    # host syncs per step, after two warm-up steps
+    batches = [pipe.batch_at(i) for i in range(3)]
+    for pooled in (True, False):
+        for pclip in (100, PCLIP):
+            label = (f"adamw8 {'pooled' if pooled else 'per-leaf'}"
+                     f"{f' pclip {pclip}' if pclip < 100 else ''}")
+            run = train(torch, dev, cfg, "adamw8", 2, batches,
+                        label=f"sync {label}", pooled=pooled,
+                        percentile_clipping=pclip)
+            torch.cuda.synchronize()
+            (_, m), n, sites = runner.host_syncs(
+                lambda: run["step"](run["state"], batches[2]))
+            torch.cuda.synchronize()
+            check(math.isfinite(m["loss"].item()), f"{label}: loss")
+            print(f"analysis: host syncs {label}: {n} per step ({sites})")
+            del run
+            torch.cuda.empty_cache()
+    print(f"analysis: phase 13 {time.perf_counter() - t0:.1f} s")
+    require(not failed, "; ".join(failed))
 
 
 def kernel_rows(kernels, meta, run_launches, step_launches,

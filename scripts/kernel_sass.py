@@ -2,6 +2,7 @@
 """Static SASS instruction counts of the port's CUDA kernels.
 
     python3 scripts/kernel_sass.py [SOURCE ...] [--filter REGEX] [--dump FILE]
+        [--against CSRC]
 
 Builds the named sources of ``src/repro_torch/kernels/csrc`` (default:
 fused_update and norm_partials) with the port's own flags (``repro_torch.kernels.build``),
@@ -10,14 +11,17 @@ kernel instance whose name matches ``--filter``, its static instruction
 count and the counts of a few opcode families (barriers, shuffles,
 compares, selects, float adds and FMAs, tensor-core products (HMMA),
 shared and global loads, cp.async copies (LDGSTS)).  The names read
-``kernel<template arguments>``, e.g.
-``fused_update_kernel<0,2,0,1>`` = adam, 2 vectors per thread, not
-stochastic, with the sentinel; ``fused_update_packed_kernel<0,1,0,0>`` =
-adam, 1 group of 8 elements per thread, not stochastic, no sentinel;
-``norm_partials_kernel<1,2,1>`` = lamb, 2 vectors per thread, packed
-rows.  ``--dump FILE`` writes the matching
-kernels' SASS to FILE.  Needs the CUDA toolkit (nvcc, cuobjdump):
-it runs on the machine with the card.
+``kernel<template arguments>`` (``repro_torch.analysis.kernel_budget.
+demangle``, the element type first where the first argument is one),
+e.g. ``fused_update_kernel<f32,0,256,0,1>`` = f32 p, adam, 256 threads,
+not stochastic, with the sentinel; ``norm_partials_kernel<f32,1,2,1>`` =
+lamb, 2 vectors per thread, packed rows.  ``--dump FILE`` writes the
+matching kernels' SASS to FILE.  ``--against CSRC`` also builds the same
+libraries from another tree's ``csrc`` directory (e.g. a ``git archive``
+of the parent commit) and compares every kernel's counts with this
+tree's: it prints each instance that differs, or that only one tree has,
+and exits 1 if any does.  Needs the CUDA toolkit (nvcc, cuobjdump): it
+runs on the machine with the card.
 """
 from __future__ import annotations
 
@@ -30,19 +34,11 @@ import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+from repro_torch.analysis.kernel_budget import demangle  # noqa: E402
 
 FAMILIES = ("BAR", "SHFL", "ISETP", "FSETP", "IADD3", "LOP3", "SEL", "FMUL",
             "FADD", "FFMA", "HMMA", "LDS", "LDG", "LDGSTS", "STG", "BRA")
 ADDR = re.compile(r"^\s+/\*[0-9a-f]{4,}\*/\s+(.*?);")
-
-
-def short_name(mangled: str) -> str:
-    hit = re.search(r"\d([a-z_]+_kernel)I(.+?)EEv", mangled)
-    if not hit:
-        plain = re.search(r"([a-z_]+_kernel)E", mangled)
-        return plain.group(1) if plain else mangled
-    args = re.findall(r"L[ib](\d+)E", hit.group(2))
-    return f"{hit.group(1)}<{','.join(args)}>"
 
 
 def sass_counts(lib: Path) -> tuple[dict, dict]:
@@ -54,7 +50,7 @@ def sass_counts(lib: Path) -> tuple[dict, dict]:
     counts, text, name = {}, {}, None
     for line in out.splitlines():
         if "Function :" in line:
-            name = short_name(line.split("Function :", 1)[1].strip())
+            name = demangle(line.split("Function :", 1)[1].strip())
             counts[name] = collections.Counter()
             text[name] = []
             continue
@@ -74,7 +70,11 @@ def main(argv=None) -> int:
                     default=["fused_update", "norm_partials"])
     ap.add_argument("--filter", default=".")
     ap.add_argument("--dump")
+    ap.add_argument("--against", help="another tree's csrc directory to "
+                    "compare every kernel's counts with")
     args = ap.parse_args(argv)
+    if args.against:
+        return compare(args.sources, Path(args.against))
     build.build(tuple(args.sources))
     dump = []
     for src in args.sources:
@@ -89,6 +89,35 @@ def main(argv=None) -> int:
     if args.dump:
         Path(args.dump).write_text("\n".join(dump))
     return 0
+
+
+def compare(sources, other: Path) -> int:
+    """Every kernel's opcode counts of this tree's libraries against those
+    built from ``other`` (a csrc directory); 1 if any differ."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import build
+    with ThreadPoolExecutor(2) as pool:     # both trees' nvcc at once
+        builds = [pool.submit(build.build, tuple(sources), csrc)
+                  for csrc in (build.CSRC, other)]
+        for b in builds:
+            b.result()
+    n, bad = 0, 0
+    for src in sources:
+        mine, _ = sass_counts(build.build_dir() / f"{src}.so")
+        theirs, _ = sass_counts(build.build_dir(other) / f"{src}.so")
+        for name in sorted(set(mine) | set(theirs)):
+            n += 1
+            a, b = mine.get(name), theirs.get(name)
+            if a != b:
+                bad += 1
+                print(f"{src}: {name}: "
+                      f"{'missing' if a is None else sum(a.values())} "
+                      f"instructions here, "
+                      f"{'missing' if b is None else sum(b.values())} in "
+                      f"{other}")
+    print(f"sass: {n - bad}/{n} kernel instances with identical opcode "
+          f"counts to {other}")
+    return 1 if bad else 0
 
 
 if __name__ == "__main__":

@@ -214,6 +214,7 @@ def turns(torch, dev, olds: dict, nb: int = 40960, bsz: int = 2048) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     import chip_smoke as cs
+    from repro_torch.analysis import kernel_budget
     from repro_torch.core import qmap
     from repro_torch.kernels import blockwise_quant as bq
     from repro_torch.kernels import build
@@ -237,10 +238,10 @@ def turns(torch, dev, olds: dict, nb: int = 40960, bsz: int = 2048) -> dict:
                 for k, d in olds.items())
     for tree, d in dirs.items():
         for name in TURNS_SOURCES:
-            for line in cs.ptxas_report(d / f"{name}.log"):
-                if "fused_update_kernel<0,256" in line or \
-                        "quantize_kernel<8,256" in line or \
-                        "fused_update_kernel<0,2," in line:
+            for line in kernel_budget.ptxas_report(d / f"{name}.log"):
+                if line.startswith(("fused_update_kernel<f32,0,256",
+                                    "fused_update_kernel<bf16,0,256",
+                                    "quantize_kernel<8,256")):
                     print(f"turns: {tree} {name}: {line}")
     sms = build.sm_count(dev)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
@@ -408,6 +409,7 @@ def gather_phase(torch, dev, olds: dict) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     import chip_smoke as cs
+    from repro_torch.analysis import kernel_budget
     from repro_torch.kernels import build
     names = ("paged_gather",)
     with ThreadPoolExecutor(len(olds) + 1) as pool:
@@ -419,7 +421,7 @@ def gather_phase(torch, dev, olds: dict) -> dict:
         k: build.build_dir(d / "repro_torch" / "kernels" / "csrc")
         for k, d in olds.items()}}
     for tree, d in dirs.items():
-        for line in cs.ptxas_report(d / "paged_gather.log"):
+        for line in kernel_budget.ptxas_report(d / "paged_gather.log"):
             print(f"gather: {tree}: {line}")
     res = gather_turns(torch, dev, trees)
     for k, v in res.items():

@@ -822,8 +822,14 @@ class Block8bitOptimizer:
         if not (res.p is mb and mb.data_ptr() == leaf.master.data_ptr()):
             leaf.master.copy_(blocks_to_param(res.p, leaf.shape, leaf.n,
                                               mdt))
-        leaf.codes_m, leaf.absmax_m = res.codes_m, res.absmax_m
-        leaf.codes_r, leaf.absmax_r = res.codes_r, res.absmax_r
+        # the statistics too stay in place (train_step.donates): the "cuda"
+        # element-wise backend wrote them there, the muon entries and the
+        # "torch" oracle returned new tensors, copied in
+        for dst, src in ((leaf.codes_m, res.codes_m),
+                         (leaf.absmax_m, res.absmax_m),
+                         (leaf.codes_r, res.codes_r),
+                         (leaf.absmax_r, res.absmax_r)):
+            _store(dst, src)
         return res.health.sum(dim=0) if cfg.sentinel else None
 
     def _apply_full32(self, leaf: Full32Leaf, g: torch.Tensor, lr, step_f,

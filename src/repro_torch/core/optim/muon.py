@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core.optim import base
 from repro_torch.core.optim.base import Full32Leaf, OptimConfig, Quant8Leaf
-from repro_torch.core.optim.blockopt import Block8bitOptimizer
+from repro_torch.core.optim.blockopt import Block8bitOptimizer, _store
 from repro_torch.errors import ConfigError
 from repro_torch.kernels import newton_schulz as kns
 from repro_torch.kernels import ops as kops
@@ -110,8 +110,11 @@ class MuonOptimizer(Block8bitOptimizer):
             weight_decay=cfg.weight_decay, gnorm_scale=gnorm_scale,
             stochastic=cfg.stochastic_rounding, seed=seed,
             ns_steps=cfg.ns_steps, impl=self._impl, sentinel=cfg.sentinel)
+        # the entry returns new tensors: written back into the state's own,
+        # which stays in place (train_step.donates)
         leaf.master.copy_(res.p)
-        leaf.codes_m, leaf.absmax_m = res.codes_m, res.absmax_m
+        _store(leaf.codes_m, res.codes_m)
+        _store(leaf.absmax_m, res.absmax_m)
         return res.health.sum(dim=0) if cfg.sentinel else None
 
     def _math32(self, g, p, m, r, lr, step_f):

@@ -103,3 +103,16 @@ extern "C" int blockwise_dequantize(const uint8_t* codes, const float* absmax,
   return launch<true>(codes, absmax, qmap, out, out_bf16, n_blocks,
                       block_size, bits, stream);
 }
+
+#ifdef __CUDACC__
+// rq_occupancy of dequantize_kernel<f32 or bf16 (out_bf16), packed> (no
+// dynamic shared memory); out: 5 ints.
+extern "C" int blockwise_dequantize_occupancy(int out_bf16, int packed,
+                                              int* out) {
+  if (out_bf16)
+    return packed ? rq_occupancy(dequantize_kernel<__nv_bfloat16, true>, rq::kThreads, 0, out)
+                  : rq_occupancy(dequantize_kernel<__nv_bfloat16, false>, rq::kThreads, 0, out);
+  return packed ? rq_occupancy(dequantize_kernel<float, true>, rq::kThreads, 0, out)
+                : rq_occupancy(dequantize_kernel<float, false>, rq::kThreads, 0, out);
+}
+#endif

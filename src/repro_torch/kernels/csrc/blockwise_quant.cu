@@ -229,3 +229,40 @@ extern "C" int blockwise_quantize(const float* x, const float* qmap,
                                  block_size, bits, stochastic, seed, n_blocks,
                                  stream);
 }
+
+#ifdef __CUDACC__
+namespace {
+
+// The occupancy query of one instance (rq_occupancy).
+template <int BITS, bool STOCH>
+int occupancy_threads(int threads, int smem, int* out) {
+  switch (threads) {
+    case 256: return rq_occupancy(quantize_kernel<BITS, 256, STOCH>, 256, smem, out);
+    case 512: return rq_occupancy(quantize_kernel<BITS, 512, STOCH>, 512, smem, out);
+    case 1024: return rq_occupancy(quantize_kernel<BITS, 1024, STOCH>, 1024, smem, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int BITS>
+int occupancy_bits(int threads, int stochastic, int smem, int* out) {
+  return stochastic ? occupancy_threads<BITS, true>(threads, smem, out)
+                    : occupancy_threads<BITS, false>(threads, smem, out);
+}
+
+}  // namespace
+
+// rq_occupancy of quantize_kernel<bits, threads, stochastic> at `smem`
+// bytes of dynamic shared memory; out: 5 ints.
+extern "C" int blockwise_quantize_occupancy(int bits, int threads,
+                                            int stochastic, int smem,
+                                            int* out) {
+  switch (bits) {
+    case 4: return occupancy_bits<4>(threads, stochastic, smem, out);
+    case 5: return occupancy_bits<5>(threads, stochastic, smem, out);
+    case 6: return occupancy_bits<6>(threads, stochastic, smem, out);
+    case 8: return occupancy_bits<8>(threads, stochastic, smem, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+#endif

@@ -600,15 +600,48 @@ static inline int rq_walk_ctas(int n_blocks, int sms, int per_sm) {
   return ctas < n_blocks ? static_cast<int>(ctas) : n_blocks;
 }
 
-// Let a kernel take more than the default 48 KB of dynamic shared memory.
+// Let a kernel take more than the default 48 KB of shared memory.  The
+// default bounds static and dynamic shared memory together, and the
+// kernels' static arrays take up to 4.6 KB (analysis/kernel_budget.py), so
+// the limit is raised from 40 KB of dynamic shared memory on: at exactly
+// 48 KB of it (the bf16 two-state 8-bit update at B = 4096) the launch
+// would otherwise be refused.
+constexpr int kSmemAttributeFrom = 40 * 1024;
 template <class K>
 static inline cudaError_t rq_allow_smem(K kernel, int smem) {
-  return smem > 48 * 1024
+  return smem > kSmemAttributeFrom
              ? cudaFuncSetAttribute(kernel,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     smem)
              : cudaSuccess;
 }
+
+#ifdef __CUDACC__
+// What the runtime says of one kernel instance, for the static analysis's
+// kernel budget (analysis/kernel_budget.py; host code only, so no kernel's
+// code changes): out = {resident CTAs per SM at `threads` threads and
+// `smem` bytes of dynamic shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers a thread,
+// static shared memory, local memory a thread, the largest CTA the
+// instance launches}.  Returns the CUDA error.
+template <class K>
+static inline int rq_occupancy(K kernel, int threads, int smem, int* out) {
+  cudaError_t e = rq_allow_smem(kernel, smem);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  int ctas = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads,
+                                                      smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = ctas;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = attr.maxThreadsPerBlock;
+  return 0;
+}
+#endif
 
 // Threads of the CTA of a kernel in which each thread owns one group of 8
 // consecutive elements of a block: the fewest of 256, 512 and 1024 that

@@ -953,3 +953,67 @@ extern "C" int fused_update_div_check(const float* divisors, int n,
   return static_cast<int>(cudaGetLastError());
 }
 #endif  // __CUDACC__
+
+#ifdef __CUDACC__
+namespace {
+
+// The occupancy query of one instance (rq_occupancy): the template
+// arguments as the launch picks them, the dynamic shared memory given.
+template <bool PACKED, int ALGO, int THREADS, bool STOCH, bool SENT>
+int occupancy(int smem, int* out) {
+  if constexpr (PACKED)
+    return rq_occupancy(
+        fused_update_packed_kernel<PElem, ALGO, THREADS, STOCH, SENT>,
+        THREADS, smem, out);
+  else
+    return rq_occupancy(fused_update_kernel<PElem, ALGO, THREADS, STOCH, SENT>,
+                        THREADS, smem, out);
+}
+
+template <bool PACKED, int ALGO, int THREADS>
+int occupancy_flags(int stochastic, int sentinel, int smem, int* out) {
+  if (stochastic)
+    return sentinel ? occupancy<PACKED, ALGO, THREADS, true, true>(smem, out)
+                    : occupancy<PACKED, ALGO, THREADS, true, false>(smem, out);
+  return sentinel ? occupancy<PACKED, ALGO, THREADS, false, true>(smem, out)
+                  : occupancy<PACKED, ALGO, THREADS, false, false>(smem, out);
+}
+
+template <bool PACKED, int ALGO>
+int occupancy_threads(int threads, int stochastic, int sentinel, int smem,
+                      int* out) {
+  switch (threads) {
+    case 256: return occupancy_flags<PACKED, ALGO, 256>(stochastic, sentinel, smem, out);
+    case 512: return occupancy_flags<PACKED, ALGO, 512>(stochastic, sentinel, smem, out);
+    case 1024: return occupancy_flags<PACKED, ALGO, 1024>(stochastic, sentinel, smem, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool PACKED>
+int occupancy_algo(int algo, int threads, int stochastic, int sentinel,
+                   int smem, int* out) {
+  switch (algo) {
+    case rq::kAdam: return occupancy_threads<PACKED, rq::kAdam>(threads, stochastic, sentinel, smem, out);
+    case rq::kLamb: return occupancy_threads<PACKED, rq::kLamb>(threads, stochastic, sentinel, smem, out);
+    case rq::kMomentum: return occupancy_threads<PACKED, rq::kMomentum>(threads, stochastic, sentinel, smem, out);
+    case rq::kLars: return occupancy_threads<PACKED, rq::kLars>(threads, stochastic, sentinel, smem, out);
+    case rq::kAdagrad: return occupancy_threads<PACKED, rq::kAdagrad>(threads, stochastic, sentinel, smem, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// rq_occupancy of fused_update_kernel (packed 0) or
+// fused_update_packed_kernel (packed 1) <PElem, algo, threads, stochastic,
+// sentinel> at `smem` bytes of dynamic shared memory; out: 5 ints.
+extern "C" int fused_update_occupancy(int packed, int algo, int threads,
+                                      int stochastic, int sentinel, int smem,
+                                      int* out) {
+  return packed ? occupancy_algo<true>(algo, threads, stochastic, sentinel,
+                                       smem, out)
+                : occupancy_algo<false>(algo, threads, stochastic, sentinel,
+                                        smem, out);
+}
+#endif

@@ -496,3 +496,21 @@ extern "C" int ns_apply(const float* x, const float* b, float* out,
              ? launch_apply<1>(x, b, out, alpha, m, n, stream)
              : launch_apply<4>(x, b, out, alpha, m, n, stream);
 }
+
+#ifdef __CUDACC__
+// rq_occupancy of the gram (which 0: ns_gram_kernel<kmi>), the apply (1:
+// ns_apply_kernel<kmi>) or the gram's reduction (2: ns_gram_reduce_kernel),
+// each with the dynamic shared memory it launches with; out: 5 ints.
+extern "C" int ns_occupancy(int which, int kmi, int* out) {
+  if (which == 2)
+    return rq_occupancy(ns_gram_reduce_kernel, kThreads, 0, out);
+  if (kmi != 1 && kmi != 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (which == 0)
+    return kmi == 1 ? rq_occupancy(ns_gram_kernel<1>, kThreads, gram_smem<1>(), out)
+                    : rq_occupancy(ns_gram_kernel<4>, kThreads, gram_smem<4>(), out);
+  if (which == 1)
+    return kmi == 1 ? rq_occupancy(ns_apply_kernel<1>, kThreads, apply_smem<1>(), out)
+                    : rq_occupancy(ns_apply_kernel<4>, kThreads, apply_smem<4>(), out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif

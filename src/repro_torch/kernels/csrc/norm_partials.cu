@@ -355,3 +355,40 @@ extern "C" int norm_partials_packed(
                             one_minus_beta1, beta2, one_minus_beta2, eps,
                             weight_decay, c1, c2, gnorm_scale, stream);
 }
+
+#ifdef __CUDACC__
+namespace {
+
+// The occupancy query of one instance (rq_occupancy).  lars reads no
+// codes: its kernel has no packed instance, and none is made here.
+template <int KIND, int VPT, bool PACKED>
+int occupancy(int smem, int* out) {
+  return rq_occupancy(norm_partials_kernel<PElem, KIND, VPT, PACKED>,
+                      rq::kThreads, smem, out);
+}
+
+template <int KIND, bool PACKED>
+int occupancy_vpt(int vpt, int smem, int* out) {
+  switch (vpt) {
+    case 1: return occupancy<KIND, 1, PACKED>(smem, out);
+    case 2: return occupancy<KIND, 2, PACKED>(smem, out);
+    case 4: return occupancy<KIND, 4, PACKED>(smem, out);
+    case 8: return occupancy<KIND, 8, PACKED>(smem, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// rq_occupancy of norm_partials_kernel<PElem, kind, vpt, packed> at `smem`
+// bytes of dynamic shared memory (packed lamb only); out: 5 ints.
+extern "C" int norm_partials_occupancy(int kind, int vpt, int packed,
+                                       int smem, int* out) {
+  if (kind == kLarsNorms && !packed)
+    return occupancy_vpt<kLarsNorms, false>(vpt, smem, out);
+  if (kind == kLambNorms)
+    return packed ? occupancy_vpt<kLambNorms, true>(vpt, smem, out)
+                  : occupancy_vpt<kLambNorms, false>(vpt, smem, out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif

@@ -273,3 +273,28 @@ extern "C" int paged_gather(const uint8_t* codes, const float* absmax,
                                        stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+#ifdef __CUDACC__
+namespace {
+
+template <typename OutT, int BITS>
+int occupancy(int any, int* out) {
+  return any ? rq_occupancy(paged_gather_any_kernel<OutT, BITS>, rq::kThreads, 0, out)
+             : rq_occupancy(paged_gather_kernel<OutT, BITS>, rq::kThreads, 0, out);
+}
+
+}  // namespace
+
+// rq_occupancy of paged_gather_kernel (any 0) or paged_gather_any_kernel
+// (any 1) <f32 or bf16 (out_bf16), bits 8 or 4>; out: 5 ints.
+extern "C" int paged_gather_occupancy(int any, int out_bf16, int bits,
+                                      int* out) {
+  if (bits == 8)
+    return out_bf16 ? occupancy<__nv_bfloat16, 8>(any, out)
+                    : occupancy<float, 8>(any, out);
+  if (bits == 4)
+    return out_bf16 ? occupancy<__nv_bfloat16, 4>(any, out)
+                    : occupancy<float, 4>(any, out);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+#endif

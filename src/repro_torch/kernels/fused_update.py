@@ -69,6 +69,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.analysis import contracts as _contracts
 from repro_torch.core.lowbit.packing import (pack_codes, packed_width,
                                              unpack_codes)
 from repro_torch.device import to_device
@@ -202,8 +203,10 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded f32 square root, as the kernel's ``__fsqrt_rn``
     and XLA's ``sqrt`` are.  PyTorch's vectorized CPU ``sqrt`` is off by one
     ULP on about 0.7% of f32 inputs; the square root taken in f64 and
-    rounded to f32 is exact (53 >= 2*24 + 2 bits)."""
-    return torch.sqrt(x.double()).to(x.dtype)
+    rounded to f32 is exact (53 >= 2*24 + 2 bits).  The float64 stays
+    inside the named exempt scope of the no_f64 contracts."""
+    with _contracts.exempt("f64", "sqrt_rn"):
+        return torch.sqrt(x.double()).to(x.dtype)
 
 
 def adam_moments(g, m, r, s):

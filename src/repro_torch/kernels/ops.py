@@ -58,6 +58,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.analysis import contracts as _contracts
+from repro_torch.analysis import mutations as _mutations
 from repro_torch.core.lowbit.packing import (PackedCodes, pack_codes,
                                              unpack_codes, unwrap_codes)
 from repro_torch.kernels import blockwise_dequant, blockwise_quant, ref
@@ -312,6 +314,11 @@ def fused_update(algo: str, p, g, codes_m, absmax_m, codes_r=None,
         hyper.update(ns_steps=ns_steps, blockwise=blockwise)
     elif impl == "torch":
         hyper["blockwise"] = blockwise
+    if _mutations.active("promote_f64"):
+        # Seeded violation for the no_dtype(f64) auditor: the gradient
+        # through float64.  The backends take f32 g, so it comes back to
+        # f32 before them, with its values unchanged.
+        g = g.to(torch.float64).to(torch.float32)
     _FUSED_UPDATE_CALLS[0] += 1
     _ROUTES[impl] += 1
     res = fn(p, g, codes_m, absmax_m, codes_r, absmax_r, qmap_m, qmap_r,
@@ -321,6 +328,21 @@ def fused_update(algo: str, p, g, codes_m, absmax_m, codes_r=None,
     if ncodes_r is not None and res.codes_r is not None:
         res = res._replace(codes_r=PackedCodes(res.codes_r, bits_r, ncodes_r))
     return res
+
+
+# ------------------------------------------------------------ contracts
+# The fused-update chain is where a silent promotion or a low-precision
+# accumulation would hide: every algorithm routes through fused_update, so
+# the contracts bind to one bare update per (algo, bits) of the matrix.
+_contracts.register(
+    "fused_update.no_f64", "update",
+    lambda trace, cell: _contracts.check_no_dtype(trace, "f64"),
+    doc="the update chain never promotes past f32 (master-dtype policy)")
+_contracts.register(
+    "fused_update.accumulates_in_f32", "update",
+    lambda trace, cell: _contracts.check_accumulates_in(trace, "f32"),
+    doc="every product and sum/norm reduction of the update (the lamb/lars "
+        "norms, the Newton–Schulz chain) accumulates in f32")
 
 
 def segment_tensor_scales(algo: str, p, g, codes_m, absmax_m, codes_r=None,

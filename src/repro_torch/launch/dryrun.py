@@ -60,6 +60,7 @@ import traceback
 import torch
 from torch import nn
 
+from repro_torch.analysis.dtypes import nbytes
 from repro_torch.configs import base as cfgs
 from repro_torch.core.optim import blockopt, make_optimizer
 from repro_torch.core.optim.base import (Full32Leaf, Pool32Leaf,
@@ -179,10 +180,6 @@ def _tree_map(tree, fn, prefix=""):
         return type(tree)(_tree_map(v, fn, f"{prefix}{i}/")
                           for i, v in enumerate(tree))
     return fn(prefix[:-1], tree)
-
-
-def _nbytes(t) -> int:
-    return t.numel() * t.element_size()
 
 
 def _dp_axes(sizes: dict) -> tuple:
@@ -566,7 +563,7 @@ def _serve_step(cell: _Cell, model, ins: dict):
         token, _ = cell.batch(ins["token"])
         run = lambda: M.decode_step(cfg, model, token, caches,
                                     case.seq_len - 1)[0]
-    return lambda: _nbytes(_local_of(run()))
+    return lambda: nbytes(_local_of(run()))
 
 
 def _local_of(t):

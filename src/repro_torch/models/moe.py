@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import contracts as _contracts
 from repro_torch.models.constrain import constrain, replicated
 
 # logical axes of each parameter (the JAX package's init specs)
@@ -87,9 +88,11 @@ def apply_moe(p, x, cfg):
         .index_add(0, st, replicated(contrib))
     # 1 - kept / (T*k) as XLA evaluates the JAX package's 1 - mean(keep):
     # the kept count times the f32 reciprocal of T*k, subtracted from 1
-    # with one rounding (a fused multiply-add; exact in f64, then rounded)
+    # with one rounding (a fused multiply-add; exact in f64, then rounded;
+    # the float64 stays inside the no_f64 contracts' named exempt scope)
     inv = torch.tensor(1.0 / keep.numel(), dtype=torch.float32)
-    drop = (1.0 - keep.sum().double() * inv.double()).float()
+    with _contracts.exempt("f64", "moe_drop_frac"):
+        drop = (1.0 - keep.sum().double() * inv.double()).float()
     metrics = {"moe_aux_loss": aux_loss, "moe_z_loss": z_loss,
                "moe_drop_frac": drop}
     return out.reshape(B, S, d).to(dt), metrics

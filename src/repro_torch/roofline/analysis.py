@@ -29,6 +29,8 @@ import weakref
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.analysis.dtypes import nbytes
+
 PEAK_FLOPS = 989e12        # bf16 FLOP/s per card (dense)
 HBM_BW = 3.35e12           # bytes/s per card
 LINK_BW = 450e9            # NVLink bytes/s per direction per card
@@ -56,10 +58,6 @@ def _tensors(x):
     if isinstance(x, dict):
         return [t for e in x.values() for t in _tensors(e)]
     return []
-
-
-def _nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
 
 
 class DeviceCounter(TorchDispatchMode):
@@ -183,7 +181,7 @@ class DeviceCounter(TorchDispatchMode):
         if ns in ("_c10d_functional", "_dtensor", "c10d"):
             kind = _COLLECTIVES.get(name)
             if kind is not None:
-                b = sum(_nbytes(t) for t in outs)
+                b = sum(nbytes(t) for t in outs)
                 self.collectives[kind] = self.collectives.get(kind, 0) + b
                 self.n_collectives += 1
         elif not func.is_view:
@@ -192,9 +190,9 @@ class DeviceCounter(TorchDispatchMode):
             if pk in self._flop_registry:
                 self.flops += int(self._flop_registry[pk](
                     *args, **kwargs, out_val=out))
-            self.bytes_read += sum(_nbytes(t) for t in
+            self.bytes_read += sum(nbytes(t) for t in
                                    _tensors((args, kwargs)))
-            self.bytes_written += sum(_nbytes(t) for t in outs)
+            self.bytes_written += sum(nbytes(t) for t in outs)
         for t in outs:
             self._add_storage(t)
         return out

@@ -16,8 +16,8 @@ Host-side bookkeeping over the device page pool that
     arrays in place, so a caller that hands them to the device uploads
     copies (``serve/scheduler.py``).
 
-The JAX package also registers compile contracts on the decode step here;
-their counterparts are ROADMAP A14.
+The decode step's contracts are registered here, as in the JAX package
+(``analysis/runner.py`` traces ``models.model.paged_decode_step``).
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.analysis import contracts as _contracts
 from repro_torch.errors import ConfigError
 from repro_torch.kernels.paged_kv import packed_row_width
 
@@ -226,3 +227,18 @@ def kv_bytes_per_token(cfg, kv_bits: int) -> float:
         return float(2 * KV * per_row * n_attn)          # k and v
     per_row = packed_row_width(Dh, kv_bits) + 4          # codes + absmax f32
     return float(2 * KV * per_row * n_attn)
+
+
+# ------------------------------------------------------------ contracts
+# Registered here, next to the serving cache they protect; evaluated on the
+# trace of one paged decode step (analysis/runner.py::trace_serve).
+
+_contracts.register(
+    "serve_decode.donates_cache", "serve",
+    lambda trace, cell: _contracts.check_donates(trace, "caches"),
+    doc="the paged decode step appends to its KV pages in place: no "
+        "shadow copy of the pool")
+_contracts.register(
+    "serve_decode.no_f64", "serve",
+    lambda trace, cell: _contracts.check_no_dtype(trace, "f64"),
+    doc="no f64 anywhere in the paged decode step")

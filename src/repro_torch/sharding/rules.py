@@ -64,6 +64,8 @@ from typing import Callable, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import contracts as _contracts
+from repro_torch.analysis import mutations as _mutations
 from repro_torch.errors import ConfigError
 
 
@@ -132,8 +134,23 @@ def replicate_for_scales(part, partials: dict, group=None) -> torch.Tensor:
     """Per-block partials ({owner: (n_d, k)}) of every span, as the whole
     arena's ``(total, k)`` rows on every rank: block-local rows need no
     codes gathered, and the finalize that follows reads the same rows in
-    the same order as the unpartitioned dispatch."""
-    return gather_span_rows(part, partials, group)
+    the same order as the unpartitioned dispatch.  Records the
+    ``replicated_scales`` marker of the contract auditors (the rows
+    gathered and the arena's)."""
+    if _mutations.active("drop_replication_pin"):
+        # Seeded violation for the replicated(...) auditor: only the
+        # caller's own span's rows (the first held without a group), the
+        # rest zero, so each rank would finalize other trust ratios.
+        d = min(partials)
+        rows = partials[d]
+        out = rows.new_zeros((part.total,) + tuple(rows.shape[1:]))
+        start = part.spans[d][0]
+        out[start:start + rows.shape[0]] = rows
+        return out
+    rows = gather_span_rows(part, partials, group)
+    _contracts.mark(_contracts.REPLICATION_MARK, rows=int(rows.shape[0]),
+                    total=part.total)
+    return rows
 
 
 def owner_routed(owner: int, fn: Callable, outputs: Callable, group=None,
@@ -467,3 +484,44 @@ def cache_shardings(cache, cfg, mesh, policy: ShardingPolicy) -> dict:
 
     return {path: one(tuple(t.shape))
             for path, t in flatten_tree(cache).items()}
+
+
+# ------------------------------------------------------------ contracts
+# replicate_for_scales gathers the per-block partials of every span before
+# the lamb/lars trust ratios are finalized; dropping it would not change
+# one process's numbers while every span is held, only the trace shows it.
+# Only the partitioned lamb/lars cells carry the contract: the other
+# algorithms have no trust ratio to gather.  (The JAX package's pins also
+# come from percentile clipping on adamw/muon; the port's percentile
+# clipping sums whole gradients on every rank in one order — under ZeRO-2
+# on a group, the buffer all-gathered first — so it has no pin to drop.)
+
+def _trust_ratio_cell(cell) -> bool:
+    return getattr(cell, "partition", 1) > 1 and \
+        getattr(cell, "algo", "").rstrip("0123456789") in ("lamb", "lars")
+
+
+def _check_replicated_scales(trace, cell):
+    if not _trust_ratio_cell(cell):
+        return None
+    return _contracts.check_replicated(trace, min_pins=1)
+
+
+def _check_partition_pins(pair, cell):
+    """pair:partition — the partitioned step gathers the partials whole;
+    its unpartitioned twin, which holds them whole, gathers nothing."""
+    pins = {k: _contracts.replicated_pins(t) for k, t in pair.items()}
+    on, off = pins.get("on", 0), pins.get("off", 0)
+    return on >= 1 and on > off, \
+        f"whole-arena gathers per partition setting: {pins}"
+
+
+_contracts.register(
+    "partitioned_step.replicated_scales", "step", _check_replicated_scales,
+    doc="a partitioned lamb/lars step finalizes its trust ratios from the "
+        "partials of every span gathered whole")
+_contracts.register(
+    "partitioned_step.partition_pins", "pair:partition",
+    _check_partition_pins,
+    doc="turning partitioning on introduces the whole-arena gather; off, "
+        "the step needs none")

@@ -41,6 +41,7 @@ from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import torch
 
+from repro_torch.analysis import contracts as _contracts
 from repro_torch.kernels import fused_update as kfu
 from repro_torch.kernels import ops as kops
 from repro_torch.models import constrain as constrain_lib
@@ -317,3 +318,54 @@ def warmup_cosine(lr: float, warmup: int, total: int, floor: float = 0.1):
         cos = floor + (1 - floor) * 0.5 * (1 + torch.cos(torch.pi * frac))
         return torch.where(step < warmup, warm, lr * cos)
     return sched
+
+
+# ------------------------------------------------------------ contracts
+# Registered here, next to the step they protect; evaluated over the
+# config matrix by `python -m repro_torch.analysis` (analysis/runner.py),
+# each on the recorded trace of one train step.
+
+def _sentinel_invariant(pair, cell):
+    """The sentinel's zero-overhead contract: the default and an explicit
+    sentinel=False run the identical op sequence, and turning it on keeps
+    the same state in place (it only adds the health outputs)."""
+    off = {k: t for k, t in pair.items() if k != "on"}
+    ok, detail = _contracts.lowering_invariant(off)
+    if not ok:
+        return False, f"sentinel off not identical: {detail}"
+    return _contracts.lowering_invariant(pair, compare_aliases_only=True)
+
+
+_contracts.register(
+    "train_step.donates", "step",
+    lambda trace, cell: _contracts.check_donates(trace, "opt_state"),
+    doc="the step updates the optimizer state (masters, codes, absmax, "
+        "32-bit moments) in place: every piece keeps its storage")
+_contracts.register(
+    "train_step.no_f64", "step",
+    lambda trace, cell: _contracts.check_no_dtype(trace, "f64"),
+    doc="no f64 anywhere in the step outside a named exempt scope")
+_contracts.register(
+    "train_step.collective_order", "step",
+    lambda trace, cell: (_contracts.check_collective_order(
+        trace, "reduce_scatter", "fused_update_dispatch", "all_gather")
+        if getattr(cell, "shard_grads", False)
+        and getattr(cell, "world", 1) > 1 else None),
+    doc="ZeRO-2 on a process group: the gradients' reduce-scatter, then "
+        "the span's fused update, then the masters' all-gather (in one "
+        "process the step runs no collective)")
+_contracts.register(
+    "train_step.telemetry_invariant", "pair:telemetry",
+    lambda pair, cell: _contracts.lowering_invariant(pair),
+    doc="telemetry_every 0 vs N run the identical op sequence (the probes "
+        "run on the host's schedule, outside the step)")
+_contracts.register(
+    "train_step.overlap_donation_invariant", "pair:overlap",
+    lambda pair, cell: _contracts.lowering_invariant(
+        pair, compare_aliases_only=True),
+    doc="overlap_buckets 1 vs K restructures the launches but keeps the "
+        "same state in place")
+_contracts.register(
+    "train_step.sentinel_invariant", "pair:sentinel", _sentinel_invariant,
+    doc="sentinel off runs the identical op sequence; on keeps the same "
+        "state in place")
