@@ -213,7 +213,11 @@ are held to them bit for bit.  Phases, one line or more each:
    that the main path's host-bound timings keep the other cores), every
    cell ``ok`` with argument bytes equal to the
    sharding rules' arithmetic (the dry run checks them), its per-device
-   total printed against the card's 80 GB; (b) the calibration: the dry
+   total printed against the card's 80 GB with its collective bytes by
+   kind and what was live at its peak by the allocating op (the
+   residual sequence-sharded between blocks: command-r-35b's and
+   stablelm-1.6b's train_4k cells were the two dense cells above the
+   card); (b) the calibration: the dry
    run of paper-lm-209m at this script's train shape (SEQ_LEN x BATCH,
    adam8, ``impl="torch"``) on a mesh of one device, against the same step
    run on the card: its FLOPs equal ``FlopCounterMode``'s over the card's
@@ -494,6 +498,7 @@ VARIANTS = {"adamw8": ("adamw", False), "adamw8_sr": ("adamw", True),
 # of its own, the others share the other lanes), and the calibration's
 # tolerance on the peak memory
 DRYRUN_CELLS = ("mixtral-8x22b:train_4k", "qwen1.5-32b:train_4k",
+                "command-r-35b:train_4k", "stablelm-1.6b:train_4k",
                 "paper-lm-209m:train_4k", "qwen1.5-32b:decode_32k",
                 "recurrentgemma-9b:decode_32k")
 DRYRUN_LANES = 2
@@ -4406,6 +4411,7 @@ def dryrun_phase(torch, dev, runs: dict) -> dict:
     """Phase 11: the pod cells' artifacts, and the calibration against the
     same train step on the card.  Returns every dry-run artifact."""
     arts = finish_dryrun(runs)
+    arts_logs = {name: log for name, (_, log) in runs["cells"].items()}
     for cell in DRYRUN_CELLS:
         art = arts[cell]
         require(art["status"] == "ok", f"dry run {cell}: {art}")
@@ -4423,6 +4429,10 @@ def dryrun_phase(torch, dev, runs: dict) -> dict:
               + ", ".join(f"{k} {v:.4e} B" for k, v in sorted(coll.items()))
               + f"; bound by {rf['bottleneck']}; traced in "
               f"{art['compile_s']} s on the host")
+        # what was live at the peak, by the op that allocated it
+        log = Path(arts_logs[cell]).read_text().splitlines()
+        for line in (ln.strip() for ln in log if "peak:" in ln):
+            print(f"dryrun {cell} {line}")
 
     # (b) the calibration: the same step on the card
     from repro_torch.configs import base

@@ -42,8 +42,10 @@ the sum over the local shapes the rules give), ``temp_bytes`` (the peak of
 live allocations above the arguments), ``alias_bytes`` (arguments updated
 in place: the train state, the caches), ``total_per_device``, ``cost``,
 ``roofline``; ``lower_s`` is the seconds to build and place, ``compile_s``
-the seconds of the traced step.  A cell that fails records ``"status":
-"FAILED"`` with the error and the run exits 1.
+the seconds of the traced step.  The command line also prints what was
+live at the peak above the arguments, by the op that allocated it
+(``DeviceCounter.peak_breakdown``: "peak:" lines).  A cell that fails
+records ``"status": "FAILED"`` with the error and the run exits 1.
 """
 from __future__ import annotations
 
@@ -434,10 +436,13 @@ def _piece_rows(piece, arena) -> int:
 
 
 def lower_cell(arch: str, shape_name: str, mesh_kind: str,
-               overrides: dict | None = None, cfg=None, case=None) -> dict:
+               overrides: dict | None = None, cfg=None, case=None,
+               counter: roofline.DeviceCounter | None = None) -> dict:
     """Trace one cell; returns the artifact dict.  ``cfg`` / ``case``: the
     model config / ``ShapeCase`` in place of the registry's and
     ``SHAPES[shape_name]`` (reduced ones, a calibration's shape).
+    ``counter``: the ``DeviceCounter`` to count with (a new one by
+    default), whose ``peak_breakdown`` the caller may read after.
 
     On a mesh of one device nothing is sharded: the step traced is the
     port's own (``make_train_step``, ``prefill``, ``decode_step``) on fake
@@ -471,7 +476,7 @@ def lower_cell(arch: str, shape_name: str, mesh_kind: str,
         constrain_lib.set_activation_axes(
             dp_axes=dp_axes, tp_axis="model" if tp_size > 1 else None,
             dp_size=dp_size, tp_size=tp_size)
-    counter = roofline.DeviceCounter()
+    counter = counter or roofline.DeviceCounter()
     train = case.kind == "train"
     micro = overrides.get("microbatches", MICROBATCHES.get(arch, 1))
     try:
@@ -619,9 +624,10 @@ def main(argv=None):
             print(f"[skip cached] {tag}")
             continue
         print(f"[dryrun] {tag} ...", flush=True)
+        counter = roofline.DeviceCounter()
         try:
             art = lower_cell(arch, shape_name, args.mesh,
-                             overrides=overrides, case=case)
+                             overrides=overrides, case=case, counter=counter)
         except Exception as e:  # a failure here is a framework bug
             failures += 1
             art = {"arch": arch, "shape": shape_name, "mesh": args.mesh,
@@ -639,6 +645,9 @@ def main(argv=None):
                   f"bottleneck={r['bottleneck']} "
                   f"useful={r['useful_flops_ratio']:.2f} "
                   f"(trace {art['compile_s']}s)", flush=True)
+            for b, op, shape, dt in counter.peak_breakdown():
+                print(f"  peak: {b / 1e9:.3f} GB live from {op} "
+                      f"{list(shape)} {dt}", flush=True)
     print(f"done; {failures} failures")
     return 1 if failures else 0
 

@@ -11,6 +11,21 @@ caller can count.  Every axis is dropped if it does not divide the
 corresponding dim, which is what lets one model code serve every
 architecture on a fixed (pod, data, model) mesh.
 
+Sequence parallelism (Megatron-LM's, Korthikanti et al. 2022; the JAX
+package pins the same layout and leaves the moves to GSPMD): between
+blocks the residual stream is (batch on dp, sequence on tp), so norms and
+residual adds run on a device's sequence shard.  Two explicit moves bound
+each tensor-parallel region, so that no product sees the sharded
+sequence:
+
+  * :func:`seq_gather`, before a branch's first product: the sequence
+    gathered whole on the tp axis (an all-gather; its backward a
+    reduce-scatter of the gradient, which the products leave partial);
+  * :func:`seq_scatter`, on a branch's output before the residual add:
+    the residual layout (a reduce-scatter from a partial sum on the tp
+    axis, a local slice from a replicated value; its backward an
+    all-gather).
+
 Without configured axes (every single-device run) each call returns its
 input, and so does a call on a plain tensor: only a ``DTensor`` has a
 placement to change.
@@ -124,6 +139,31 @@ def _spec(x, dims) -> tuple:
         spec.append(axes)
         used.add(want)
     return tuple(spec)
+
+
+def seq_scatter(x: torch.Tensor):
+    """A (B, S, d) branch output (or the embedding) moved to the residual
+    layout, ``constrain(x, "dp", "tp", None)``: the tp axis is dropped
+    where it does not divide S (decode's S = 1, a frontend prefix that
+    breaks divisibility) and the stream keeps batch on dp alone."""
+    return constrain(x, "dp", "tp", None)
+
+
+def seq_gather(x: torch.Tensor):
+    """The residual ``x`` (B, S, ...) with its sequence gathered whole on
+    the tp axis, its other placements kept: the input of a branch's
+    products.  A tensor whose sequence is not on the tp axis is returned
+    as it is."""
+    if not active() or not is_dtensor(x) or _CTX["tp"] is None:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    i = x.device_mesh.mesh_dim_names.index(_CTX["tp"])
+    p = x.placements[i]
+    if not (isinstance(p, Shard) and p.dim == 1):
+        return x
+    whole = list(x.placements)
+    whole[i] = Replicate()
+    return x.redistribute(x.device_mesh, whole)
 
 
 def replicated(x):

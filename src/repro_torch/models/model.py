@@ -76,8 +76,8 @@ from repro_torch.errors import ConfigError
 from repro_torch.kernels import paged_kv
 from repro_torch.models import embedding as emb
 from repro_torch.models import layers, moe, recurrent, xlstm
-from repro_torch.models.constrain import (batch_local, constrain,
-                                          constrain_block_params)
+from repro_torch.models.constrain import (batch_local, constrain_block_params,
+                                          seq_gather, seq_scatter)
 
 
 class _Params(nn.Module):
@@ -210,7 +210,8 @@ class Model(nn.Module):
                                     torch.as_tensor(embeds).to(x.device),
                                     self.cfg)
             x = torch.cat([fx.to(x.dtype), x], dim=1)
-        return x
+        # the residual layout (the table is replicated: a local slice)
+        return seq_scatter(x)
 
     @property
     def device(self) -> torch.device:
@@ -295,17 +296,27 @@ def _apply_block(p, x, cfg, kind: str, *, positions, state=None,
     """One block of ``kind``; returns (x_out, metrics).  ``state``: the
     layer's cache views (updated in place) or None.  ``paged``: the paged
     decode's context, which only attn blocks read; recurrent kinds keep
-    their per-slot dense state."""
+    their per-slot dense state.  Under activation sharding ``x`` is the
+    residual, its sequence on the tp axis: each norm runs on the shard,
+    its output is gathered whole before the branch (``seq_gather``) and
+    the branch's output scattered back before the residual add
+    (``seq_scatter``); the recurrent blocks' ``batch_local`` gathers the
+    sequence itself."""
     norm = lambda q, h: layers.apply_norm(q["scale"], q.get("bias"), h,
                                           cfg.norm_type)
+
+    def mlp(x):
+        return seq_scatter(layers.apply_mlp(
+            p["mlp"], seq_gather(norm(p["norm2"], x)), cfg))
+
     if kind == "rglru":
         r, new = batch_local(
             lambda q, h, s: recurrent.apply_rglru_block(q, h, cfg, state=s),
             p["rec"], norm(p["norm1"], x), state)
         _store(state, new)
-        x = x + r
+        x = x + seq_scatter(r)
         if cfg.d_ff:
-            x = x + layers.apply_mlp(p["mlp"], norm(p["norm2"], x), cfg)
+            x = x + mlp(x)
         return x, {}
     if kind in ("mlstm", "slstm"):
         fn = xlstm.apply_mlstm_block if kind == "mlstm" else \
@@ -313,23 +324,25 @@ def _apply_block(p, x, cfg, kind: str, *, positions, state=None,
         c, new = batch_local(lambda q, h, s: fn(q, h, cfg, state=s),
                              p["cell"], norm(p["norm1"], x), state)
         _store(state, new)
-        return x + c, {}
+        return x + seq_scatter(c), {}
 
     def ffn(h):
         if cfg.is_moe:
             return moe.apply_moe(p["moe"], h, cfg)
         return layers.apply_mlp(p["mlp"], h, cfg), {}
 
-    h = norm(p["norm1"], x)
+    h = seq_gather(norm(p["norm1"], x))
     a, _ = layers.apply_attention(p["attn"], h, cfg, positions=positions,
                                   cache=state, cache_len=cache_len,
                                   paged=paged)
     if cfg.parallel_block:
+        # both branches take the one gathered h; their sum, still partial,
+        # is reduce-scattered once
         f, metrics = ffn(h)
-        return x + a + f, metrics
-    x = x + a
-    f, metrics = ffn(norm(p["norm2"], x))
-    return x + f, metrics
+        return x + seq_scatter(a + f), metrics
+    x = x + seq_scatter(a)
+    f, metrics = ffn(seq_gather(norm(p["norm2"], x)))
+    return x + seq_scatter(f), metrics
 
 
 def _mean(values: list) -> torch.Tensor:
@@ -392,12 +405,9 @@ def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
         ps = constrain_block_params(ps) if scanned else ps
         acc = []
         for name, kind in names:
-            # the residual stream between TP regions: batch on dp.  The JAX
-            # package also shards its sequence on tp (sequence
-            # parallelism); DTensor cannot move the strided shard that a
-            # product's reshape makes of a batch and a sequence both
-            # sharded, so the port keeps the sequence whole (ROADMAP C14)
-            x = constrain(x, "dp", None, None)
+            # sequence parallelism: the residual stream between TP regions
+            # is sharded on (batch -> dp, sequence -> tp)
+            x = seq_scatter(x)
             x, mt = _apply_block(ps[name], x, cfg, kind,
                                  state=states(name), **kw)
             if mt:
@@ -443,9 +453,11 @@ def _run_blocks(model: Model, x, positions, caches=None, cache_len=None,
 
 
 def _logits(model: Model, x):
+    """The final norm on the residual's sequence shard, then the head on
+    the sequence gathered whole."""
     fn = model.final_norm
-    x = layers.apply_norm(fn.scale, getattr(fn, "bias", None), x,
-                          model.cfg.norm_type)
+    x = seq_gather(layers.apply_norm(fn.scale, getattr(fn, "bias", None), x,
+                                     model.cfg.norm_type))
     head = getattr(model, "head", None)
     return emb.apply_head(None if head is None else head.w, x,
                           model.embed.table)

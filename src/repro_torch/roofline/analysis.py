@@ -67,7 +67,9 @@ class DeviceCounter(TorchDispatchMode):
     Enter it inside the ``FakeTensorMode`` (and over the DTensors) of the
     traced step.  Tensors made under :meth:`arguments` are the step's
     arguments (``tracked_bytes``), live from then on; ``peak_bytes`` is the
-    largest sum of live storages seen, arguments included.  DTensor's planning (its
+    largest sum of live storages seen, arguments included, and
+    ``peak_by_op`` what was live then above the arguments, by the op that
+    allocated it: {(op, shape, dtype): bytes}.  DTensor's planning (its
     shape inference on global-shape stand-ins, its redistribution costs)
     is not counted."""
 
@@ -84,6 +86,9 @@ class DeviceCounter(TorchDispatchMode):
         self.live_bytes = 0
         self.peak_bytes = 0
         self.tracked_bytes = 0
+        self.peak_by_op: dict = {}
+        self._live_by_op: dict = {}
+        self._op = None               # the name of the op being counted
         self._storages: dict = {}
         self._muted = 0
         self._placing = False
@@ -100,14 +105,34 @@ class DeviceCounter(TorchDispatchMode):
         if key in self._storages:
             return 0
         n = st.nbytes()
-        self._storages[key] = n
+        origin = None if self._placing else \
+            (self._op, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+        self._storages[key] = (n, origin)
         self.live_bytes += n
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        if origin is not None:
+            self._live_by_op[origin] = self._live_by_op.get(origin, 0) + n
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            self.peak_by_op = dict(self._live_by_op)
         weakref.finalize(st, self._free, key)
         return n
 
     def _free(self, key) -> None:
-        self.live_bytes -= self._storages.pop(key, 0)
+        n, origin = self._storages.pop(key, (0, None))
+        self.live_bytes -= n
+        if origin is not None:
+            left = self._live_by_op[origin] - n
+            if left:
+                self._live_by_op[origin] = left
+            else:
+                del self._live_by_op[origin]
+
+    def peak_breakdown(self, top: int = 8) -> list:
+        """The ``top`` largest entries of ``peak_by_op``: [(bytes, op,
+        shape, dtype)], largest first."""
+        rows = sorted(((b, *k) for k, b in self.peak_by_op.items()),
+                      key=lambda r: -r[0])
+        return rows[:top]
 
     @contextlib.contextmanager
     def arguments(self):
@@ -121,6 +146,7 @@ class DeviceCounter(TorchDispatchMode):
             self._placing = False
             self.tracked_bytes = self.live_bytes
             self.peak_bytes = self.live_bytes
+            self.peak_by_op = {}
 
     # ------------------------------------------------------------ dispatch
     def _planning(self, fn):
@@ -171,6 +197,7 @@ class DeviceCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if self._muted:
             return out
+        self._op = func._schema.name.split("::")[-1]
         outs = _tensors(out)
         if self._placing:
             for t in outs:

@@ -10,7 +10,8 @@ package's, without devices:
     recurrent scans are Python loops over time), with the key set of the
     JAX package's artifact and, for the serving cells, argument bytes
     equal to the rules' arithmetic recomputed here (the train cells hold
-    their own: ``lower_cell`` raises when they differ);
+    their own: ``lower_cell`` raises when they differ); the paper-lm train
+    cell reduce-scatters its block outputs (sequence parallelism);
   * the command line writes an ``ok`` artifact for full-width
     paper-lm-209m train_4k on the 256-device pod mesh, and
     ``make_production_mesh`` builds the 512-device mesh over a fake group;
@@ -323,6 +324,10 @@ def test_lower_cell_smoke_mesh(runs, arch, shape, seq, batch):
     assert mem["total_per_device"] == mem["argument_bytes"] + \
         mem["temp_bytes"] > 0
     assert art["roofline"]["flops_per_device"] > 0
+    if (arch, shape) == ("paper-lm-209m", "train_4k"):
+        # sequence parallelism: the block outputs reduce-scattered onto
+        # the residual's sequence shard (seq 64 on the model axis of 2)
+        assert art["roofline"]["coll_breakdown"].get("reduce-scatter", 0) > 0
 
 
 def test_remat_full_against_none_smoke_mesh(runs):

@@ -16,7 +16,9 @@ CPU:
   * the peak of live bytes of one forward and backward, counted by
     ``DeviceCounter`` on fake tensors at 4 layers and S = 4 x attn_chunk,
     orders full < dots < none, and the chunked attention's peak is below
-    the whole softmax's (one chunk of S keys);
+    the whole softmax's (one chunk of S keys); its breakdown by allocating
+    op sums to the peak above the arguments, the logits its largest entry
+    at a wide vocab;
   * "dots" recomputes no ``aten.mm`` in the backward; "full" recomputes
     every 2-D product of the super-blocks (with the checkpoint's early
     stop off; with it on, the default, the last product of each
@@ -29,6 +31,7 @@ within 3.6e-7 and gradients within 1.5e-6 absolute of the JAX package's
 0.40 of the allowance (|a - b| / (atol + rtol |b|)).
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -160,6 +163,27 @@ def test_remat_lowers_peak_bytes():
     assert peak["full"] < peak["dots"] < peak["none"], peak
     whole = _peak_bytes(dataclasses.replace(cfg, attn_chunk=seq), seq)
     assert peak["none"] < whole, (peak, whole)
+
+
+def test_peak_breakdown_sums_to_the_peak():
+    """``DeviceCounter.peak_by_op``: what was live at the peak above the
+    arguments, by allocating op, sums to the peak less the arguments; at a
+    vocab far wider than the model the largest entry is logits-shaped."""
+    cfg = TB.reduced(TB.get_config("paper-lm-209m"), vocab_size=4096)
+    counter = DeviceCounter()
+    with FakeTensorMode(), counter:
+        with counter.arguments():
+            model = TM.Model(cfg, device="cpu")
+            tokens = torch.zeros((2, 64), dtype=torch.long)
+        logits, _ = model(tokens)
+        logits.float().mean().backward()
+    assert sum(counter.peak_by_op.values()) == \
+        counter.peak_bytes - counter.tracked_bytes > 0
+    rows = counter.peak_breakdown(top=3)
+    assert [r[0] for r in rows] == sorted((r[0] for r in rows), reverse=True)
+    b, op, shape, dtype = rows[0]
+    assert math.prod(shape) == 2 * 64 * 4096 and dtype == "float32", rows
+    assert b == 4 * math.prod(shape)
 
 
 class _CountMM(TorchDispatchMode):
