@@ -215,14 +215,18 @@ are held to them bit for bit.  Phases, one line or more each:
    sharding rules' arithmetic (the dry run checks them), its per-device
    total printed against the card's 80 GB with its collective bytes by
    kind and what was live at its peak by the allocating op (the
-   residual sequence-sharded between blocks: command-r-35b's and
-   stablelm-1.6b's train_4k cells were the two dense cells above the
-   card); (b) the calibration: the dry
+   residual sequence-sharded between blocks, the loss reduced on the
+   vocab shards; recurrentgemma-9b's and xlstm-350m's train cells with
+   their scans counted from a few traced steps times their trip count,
+   ``models/scan_utils.counting``); (b) the calibrations: the dry
    run of paper-lm-209m at this script's train shape (SEQ_LEN x BATCH,
    adam8, ``impl="torch"``) on a mesh of one device, against the same step
    run on the card: its FLOPs equal ``FlopCounterMode``'s over the card's
    step, its peak within DRYRUN_PEAK_RTOL of ``max_memory_allocated``
-   from a reset.  ``--phase dryrun`` runs phase 1 and this phase alone.
+   from a reset; and the same of xlstm-350m at its published widths, one
+   block pattern deep (XLSTM_CAL_LAYERS), XLSTM_CAL_SEQ x XLSTM_CAL_BATCH,
+   one microbatch, whose scans the dry run counts and the card runs step
+   by step.  ``--phase dryrun`` runs phase 1 and this phase alone.
 12. remat — activation remat (fifteenth slice; ``cfg.remat``,
    ``cfg.attn_chunk``), no kernel of its own, after phase 11: (a)
    paper-lm-209m at SEQ_LEN x BATCH, adamw8 pooled through the kernels,
@@ -498,10 +502,16 @@ VARIANTS = {"adamw8": ("adamw", False), "adamw8_sr": ("adamw", True),
 # of its own, the others share the other lanes), and the calibration's
 # tolerance on the peak memory
 DRYRUN_CELLS = ("mixtral-8x22b:train_4k", "qwen1.5-32b:train_4k",
-                "command-r-35b:train_4k", "stablelm-1.6b:train_4k",
+                "command-r-35b:train_4k", "recurrentgemma-9b:train_4k",
+                "xlstm-350m:train_4k", "stablelm-1.6b:train_4k",
                 "paper-lm-209m:train_4k", "qwen1.5-32b:decode_32k",
                 "recurrentgemma-9b:decode_32k")
-DRYRUN_LANES = 2
+DRYRUN_LANES = 3
+# the recurrent calibration (phase 11): xlstm-350m at its published widths,
+# one block pattern deep (7 mLSTM + 1 sLSTM), XLSTM_CAL_SEQ x XLSTM_CAL_BATCH,
+# one microbatch: the dry run's counted scans (eight chunks of 64) against
+# the step run for real on the card
+XLSTM_CAL_LAYERS, XLSTM_CAL_SEQ, XLSTM_CAL_BATCH = 8, 512, 2
 DRYRUN_PEAK_RTOL = 0.10
 CARD_BYTES = 80e9
 
@@ -4330,14 +4340,22 @@ DRYRUN_MAIN = ("import os, sys, torch; os.nice(19); "
 
 
 def _host_cell(out: Path, arch: str, seq: int, batch: int,
-               remat: str | None = None) -> tuple:
+               remat: str | None = None, n_layers: int | None = None,
+               microbatches: int | None = None) -> tuple:
     """(arguments, artifact path) of the dry run of ``arch``'s train step at
-    seq x batch on a mesh of one device."""
+    seq x batch on a mesh of one device (its config cut to ``n_layers``,
+    ``microbatches`` microbatches, where given)."""
     args = ["--arch", arch, "--shape", "train_4k", "--mesh", "host",
             "--seq-len", str(seq), "--batch", str(batch), "--out",
             str(out / "host")] + (["--remat", remat] if remat else [])
     tag = f"{arch}__train_4k__host__s{seq}b{batch}" + (
         f"__remat_{remat}" if remat else "")
+    if n_layers:
+        args += ["--n-layers", str(n_layers)]
+        tag += f"__l{n_layers}"
+    if microbatches:
+        args += ["--microbatches", str(microbatches)]
+        tag += f"__mb{microbatches}"
     return args, out / "host" / f"{tag}.json"
 
 
@@ -4366,6 +4384,10 @@ def start_dryrun(only: tuple | None = None) -> dict:
                      out / "pod" / f"{arch}__{shape}__pod.json"))
     jobs.append(("calibration",
                  *_host_cell(out, "paper-lm-209m", SEQ_LEN, BATCH)))
+    jobs.append(("recurrent_calibration",
+                 *_host_cell(out, "xlstm-350m", XLSTM_CAL_SEQ,
+                             XLSTM_CAL_BATCH, n_layers=XLSTM_CAL_LAYERS,
+                             microbatches=1)))
     jobs.append(("long_calibration",
                  *_host_cell(out, LONG_ARCH, LONG_SEQ, LONG_BATCH)))
     jobs.append(("long_remat_none",
@@ -4443,6 +4465,20 @@ def dryrun_phase(torch, dev, runs: dict) -> dict:
                                           global_batch=BATCH, seed=SEED))
     calibrate(torch, dev, arts["calibration"], cfg, pipe.batch_at(0),
               f"paper-lm-209m adam8 seq {SEQ_LEN} x batch {BATCH}")
+    # the recurrent calibration: the scans counted from a few traced steps
+    # on the host, run step by step on the card
+    import dataclasses
+    cfg = dataclasses.replace(base.get_config("xlstm-350m"),
+                              n_layers=XLSTM_CAL_LAYERS)
+    pipe = SyntheticLMPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=XLSTM_CAL_SEQ,
+                                          global_batch=XLSTM_CAL_BATCH,
+                                          seed=SEED))
+    calibrate(torch, dev, arts["recurrent_calibration"], cfg,
+              pipe.batch_at(0),
+              f"xlstm-350m ({XLSTM_CAL_LAYERS} layers: 7 mLSTM + 1 sLSTM) "
+              f"adam8 seq {XLSTM_CAL_SEQ} x batch {XLSTM_CAL_BATCH}, scans "
+              f"counted")
     return arts
 
 

@@ -32,7 +32,13 @@ The model runs as the card runs it: a train forward under the config's
 ``remat`` (every published config: "full"; ``--remat`` replaces it), so
 the count holds the recomputed forward, its redistributions and the
 checkpoints' frees, and train and prefill attention in KV chunks of
-``attn_chunk``.
+``attn_chunk``.  The recurrent scans are the one exception: in the dry
+run they are counted (``models/scan_utils.counting``: a few time steps
+traced, each counted as many times as the loop runs it, what the others
+hold allocated at its real size), as the JAX package's cost model
+multiplies a loop body by its trip count (``lower_cell(...,
+count_scans=False)`` traces every step: what the tests hold the counting
+to).
 
 A :class:`~repro_torch.roofline.analysis.DeviceCounter` beneath DTensor
 counts what this device runs.  The artifact
@@ -72,6 +78,7 @@ from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.shapes import SHAPES, cell_supported, input_specs
 from repro_torch.models import constrain as constrain_lib
 from repro_torch.models import model as M
+from repro_torch.models import scan_utils
 from repro_torch.roofline import analysis as roofline
 from repro_torch.sharding import rules
 from repro_torch.train import loop as L
@@ -437,12 +444,16 @@ def _piece_rows(piece, arena) -> int:
 
 def lower_cell(arch: str, shape_name: str, mesh_kind: str,
                overrides: dict | None = None, cfg=None, case=None,
-               counter: roofline.DeviceCounter | None = None) -> dict:
+               counter: roofline.DeviceCounter | None = None,
+               count_scans: bool = True) -> dict:
     """Trace one cell; returns the artifact dict.  ``cfg`` / ``case``: the
     model config / ``ShapeCase`` in place of the registry's and
     ``SHAPES[shape_name]`` (reduced ones, a calibration's shape).
     ``counter``: the ``DeviceCounter`` to count with (a new one by
     default), whose ``peak_breakdown`` the caller may read after.
+    ``count_scans``: the recurrent scans traced in the counting mode of
+    ``models/scan_utils`` (a few steps, counted times their trip count);
+    False traces every time step (the reference the mode is held to).
 
     On a mesh of one device nothing is sharded: the step traced is the
     port's own (``make_train_step``, ``prefill``, ``decode_step``) on fake
@@ -517,7 +528,9 @@ def lower_cell(arch: str, shape_name: str, mesh_kind: str,
                     _place_model(cell, model, pspec, train)
                     step = _serve_step(cell, model, ins)
             t_build = time.time() - t0
-            out_bytes = step()
+            with (scan_utils.counting(counter) if count_scans
+                  else contextlib.nullcontext()):
+                out_bytes = step()
             gc.collect()
         t_trace = time.time() - t0 - t_build
     finally:
@@ -595,6 +608,11 @@ def main(argv=None):
     ap.add_argument("--remat", type=str, default=None,
                     choices=("none", "full", "dots"),
                     help="the config's activation remat replaced")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="the config cut to this many layers (a "
+                         "calibration's depth)")
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="the train cell's microbatch count replaced")
     args = ap.parse_args(argv)
 
     archs = cfgs.list_archs() if (args.all or args.arch is None) \
@@ -619,6 +637,13 @@ def main(argv=None):
         if args.remat:
             tag += f"__remat_{args.remat}"
             overrides["remat"] = args.remat
+        cfg = cfgs.get_config(arch)
+        if args.n_layers:
+            tag += f"__l{args.n_layers}"
+            cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+        if args.microbatches:
+            tag += f"__mb{args.microbatches}"
+            overrides["microbatches"] = args.microbatches
         path = os.path.join(args.out, tag + ".json")
         if os.path.exists(path) and not args.force:
             print(f"[skip cached] {tag}")
@@ -627,7 +652,8 @@ def main(argv=None):
         counter = roofline.DeviceCounter()
         try:
             art = lower_cell(arch, shape_name, args.mesh,
-                             overrides=overrides, case=case, counter=counter)
+                             overrides=overrides, cfg=cfg, case=case,
+                             counter=counter)
         except Exception as e:  # a failure here is a framework bug
             failures += 1
             art = {"arch": arch, "shape": shape_name, "mesh": args.mesh,

@@ -235,6 +235,21 @@ def attention_dims(KV: int, G: int, S: int):
     return ("dp", None, None, None), ("dp", None, None, None)
 
 
+def tp_shard_dim(x, dim: int):
+    """The mesh dim of the tp axis if it, and no other mesh dim, splits
+    ``dim`` of the DTensor ``x`` (under configured axes) and ``x`` holds no
+    partial sum: a reduction over ``dim`` is then one on the local shard
+    and one across that mesh dim's group.  Else None."""
+    if not active() or not is_dtensor(x) or _CTX["tp"] is None:
+        return None
+    from torch.distributed.tensor import Replicate, Shard
+    i = x.device_mesh.mesh_dim_names.index(_CTX["tp"])
+    on = [k for k, p in enumerate(x.placements)
+          if type(p) is Shard and p.dim == dim]
+    whole = all(type(p) in (Replicate, Shard) for p in x.placements)
+    return i if on == [i] and whole else None
+
+
 def shard_offset(x, dim: int) -> int:
     """Index along ``dim`` of this device's first element of the DTensor
     ``x`` (mesh dims sharding ``dim`` split it major to minor)."""

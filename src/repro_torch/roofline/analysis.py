@@ -71,7 +71,17 @@ class DeviceCounter(TorchDispatchMode):
     ``peak_by_op`` what was live then above the arguments, by the op that
     allocated it: {(op, shape, dtype): bytes}.  DTensor's planning (its
     shape inference on global-shape stand-ins, its redistribution costs)
-    is not counted."""
+    is not counted.
+
+    For the dry run's scans (``models/scan_utils.counting``) the counter
+    has a multiplier, ``scale``: every op counted while it is k counts k
+    times (its FLOPs, bytes and collective bytes, and k ops), so one traced
+    time step stands for k identical ones; :meth:`scaled` sets it around
+    a forward, the scans' autograd markers set it in the backward.
+    :meth:`phantom` allocates bytes that are live but not work (the steps
+    not traced hold them in the real loop), :meth:`account` counts an op
+    whose output is such an allocation, and :meth:`probing` records what
+    a step allocates without counting or holding it."""
 
     def __init__(self):
         super().__init__()
@@ -93,11 +103,15 @@ class DeviceCounter(TorchDispatchMode):
         self._muted = 0
         self._placing = False
         self._patched = None
+        self.scale = 1
+        self._probe = None
 
     # ------------------------------------------------------- live storages
-    def _add_storage(self, t: torch.Tensor) -> int:
+    def _add_storage(self, t: torch.Tensor, origin=False) -> int:
         """Count ``t``'s storage as live (once); returns its new bytes.
-        A "meta" tensor (a shape the trace reads) allocates nothing."""
+        A "meta" tensor (a shape the trace reads) allocates nothing.
+        ``origin``: its (op, shape, dtype) key in ``peak_by_op`` (by
+        default the op being counted and ``t``'s own shape and dtype)."""
         if t.is_meta:
             return 0
         st = t.untyped_storage()
@@ -105,8 +119,9 @@ class DeviceCounter(TorchDispatchMode):
         if key in self._storages:
             return 0
         n = st.nbytes()
-        origin = None if self._placing else \
-            (self._op, tuple(t.shape), str(t.dtype).replace("torch.", ""))
+        if origin is False:
+            origin = None if self._placing else (
+                self._op, tuple(t.shape), str(t.dtype).replace("torch.", ""))
         self._storages[key] = (n, origin)
         self.live_bytes += n
         if origin is not None:
@@ -120,12 +135,12 @@ class DeviceCounter(TorchDispatchMode):
     def _free(self, key) -> None:
         n, origin = self._storages.pop(key, (0, None))
         self.live_bytes -= n
-        if origin is not None:
-            left = self._live_by_op[origin] - n
+        if origin is not None:         # (storages of 0 bytes share keys)
+            left = self._live_by_op.get(origin, 0) - n
             if left:
                 self._live_by_op[origin] = left
             else:
-                del self._live_by_op[origin]
+                self._live_by_op.pop(origin, None)
 
     def peak_breakdown(self, top: int = 8) -> list:
         """The ``top`` largest entries of ``peak_by_op``: [(bytes, op,
@@ -133,6 +148,47 @@ class DeviceCounter(TorchDispatchMode):
         rows = sorted(((b, *k) for k, b in self.peak_by_op.items()),
                       key=lambda r: -r[0])
         return rows[:top]
+
+    @contextlib.contextmanager
+    def scaled(self, k: int):
+        """Every op counted in the context counts ``k`` times."""
+        before, self.scale = self.scale, k
+        try:
+            yield
+        finally:
+            self.scale = before
+
+    def phantom(self, nbytes: int, origin, device=None) -> torch.Tensor:
+        """A tensor of ``nbytes`` bytes, live as long as it is referenced,
+        under the ``peak_by_op`` key ``origin``: memory that the real run
+        holds (the tensors of time steps not traced), not work."""
+        self._muted += 1
+        try:
+            t = torch.empty(int(nbytes), dtype=torch.uint8, device=device)
+        finally:
+            self._muted -= 1
+        self._add_storage(t, origin=origin)
+        return t
+
+    def account(self, op: str, bytes_read: int, out: torch.Tensor) -> None:
+        """Count one op named ``op`` that reads ``bytes_read`` bytes and
+        writes ``out`` (times ``scale``), ``out`` allocated by
+        :meth:`phantom` or by a muted op."""
+        self.n_ops += self.scale
+        self.bytes_read += self.scale * int(bytes_read)
+        self.bytes_written += self.scale * nbytes(out)
+
+    @contextlib.contextmanager
+    def probing(self):
+        """Ops in the context are not counted and their outputs not held
+        as live; yields {storage id: (bytes, (op, shape, dtype), tensor)}
+        of every storage they create (the tensor kept until the dict is
+        dropped, so that no id is reused meanwhile)."""
+        seen, self._probe = self._probe, {}
+        try:
+            yield self._probe
+        finally:
+            self._probe = seen
 
     @contextlib.contextmanager
     def arguments(self):
@@ -199,27 +255,40 @@ class DeviceCounter(TorchDispatchMode):
             return out
         self._op = func._schema.name.split("::")[-1]
         outs = _tensors(out)
+        if self._probe is not None:
+            for t in outs:
+                if not t.is_meta and id(t.untyped_storage()) not in \
+                        self._storages:
+                    st = t.untyped_storage()    # ``t`` held: ids stay unique
+                    self._probe.setdefault(id(st), (st.nbytes(), (
+                        self._op, tuple(t.shape),
+                        str(t.dtype).replace("torch.", "")), t))
+            return out
         if self._placing:
             for t in outs:
                 self._add_storage(t)
             return out
         ns = func.namespace
         name = func._schema.name.split("::")[-1]
-        if ns in ("_c10d_functional", "_dtensor", "c10d"):
+        if ns == "prim":
+            pass              # a metadata query (``prim::device``): no bytes
+        elif ns in ("_c10d_functional", "_dtensor", "c10d"):
             kind = _COLLECTIVES.get(name)
             if kind is not None:
                 b = sum(nbytes(t) for t in outs)
-                self.collectives[kind] = self.collectives.get(kind, 0) + b
-                self.n_collectives += 1
+                self.collectives[kind] = self.collectives.get(kind, 0) + \
+                    self.scale * b
+                self.n_collectives += self.scale
         elif not func.is_view:
-            self.n_ops += 1
+            k = self.scale
+            self.n_ops += k
             pk = func._overloadpacket
             if pk in self._flop_registry:
-                self.flops += int(self._flop_registry[pk](
+                self.flops += k * int(self._flop_registry[pk](
                     *args, **kwargs, out_val=out))
-            self.bytes_read += sum(nbytes(t) for t in
-                                   _tensors((args, kwargs)))
-            self.bytes_written += sum(nbytes(t) for t in outs)
+            self.bytes_read += k * sum(nbytes(t) for t in
+                                       _tensors((args, kwargs)))
+            self.bytes_written += k * sum(nbytes(t) for t in outs)
         for t in outs:
             self._add_storage(t)
         return out

@@ -66,16 +66,92 @@ class TrainHyper:
     lr_schedule: Optional[Callable[[int], Any]] = None
 
 
+class _VocabParallelNLL(torch.autograd.Function):
+    """Per-token loss of this device's vocab shard ``x`` (b, S, V/tp) f32,
+    as the JAX package's ``logsumexp`` and masked gold sum reduce under
+    GSPMD (Megatron-LM's vocab-parallel cross entropy): the local max
+    all-reduced MAX over the tp ``group`` (no gradient, as in any stable
+    logsumexp), then the local sum of ``exp(x - m)``, the gold logit (the
+    label offset by the shard's first vocab index ``offset``; zero where
+    the label lies in another shard) and, with ``smoothing``, the sum of
+    the logits, stacked and all-reduced SUM.  Returns the (b, S) loss,
+    ``logz - (1 - s) gold - s sum / V``: the unsharded expression.  The
+    backward, ``softmax - (1 - s) onehot - s / V`` on the shard times the
+    loss's gradient, moves nothing across the group."""
+
+    @staticmethod
+    def forward(ctx, x, labels, offset: int, vocab: int, smoothing: float,
+                group):
+        from torch.distributed import _functional_collectives as funcol
+        Vl = x.shape[-1]
+        m = funcol.wait_tensor(funcol.all_reduce(x.amax(dim=-1), "max",
+                                                 group))
+        idx = labels.long() - offset
+        mine = (idx >= 0) & (idx < Vl)
+        idx = idx.clamp(0, Vl - 1)
+        gold = torch.where(mine, x.gather(-1, idx[..., None])[..., 0], 0.0)
+        parts = [torch.sub(x, m[..., None]).exp_().sum(dim=-1), gold]
+        if smoothing > 0.0:
+            parts.append(x.sum(dim=-1))
+        sums = funcol.wait_tensor(funcol.all_reduce(torch.stack(parts), "sum",
+                                                    group))
+        logz = m + torch.log(sums[0])
+        nll = logz - (1 - smoothing) * sums[1]
+        if smoothing > 0.0:
+            nll = nll - (smoothing / vocab) * sums[2]
+        ctx.save_for_backward(x, logz, idx, mine)
+        ctx.smoothing, ctx.vocab = smoothing, vocab
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        x, logz, idx, mine = ctx.saved_tensors
+        s = ctx.smoothing
+        grad = torch.sub(x, logz[..., None]).exp_()
+        if s > 0.0:
+            grad.sub_(s / ctx.vocab)
+        grad.scatter_add_(-1, idx[..., None],
+                          (mine.to(grad.dtype) * (s - 1.0))[..., None])
+        return grad.mul_(g[..., None]), None, None, None, None, None
+
+
+def _vocab_parallel_nll(logits, labels, smoothing: float, i: int):
+    """The (B, S) loss of the DTensor ``logits`` whose vocab mesh dim ``i``
+    alone splits (``constrain.tp_shard_dim``), as a DTensor placed as the
+    logits are but whole on mesh dim ``i``: only the (b, S) partials of
+    :class:`_VocabParallelNLL` cross its group, no full-vocab tensor is
+    made, forward or backward.  ``labels``: the (B, S) DTensor of the
+    batch the logits came from."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = logits.device_mesh
+    rows = list(logits.placements)
+    rows[i] = Replicate()
+    if list(labels.placements) != rows:
+        labels = labels.redistribute(mesh, rows)
+    nll = _VocabParallelNLL.apply(
+        logits.to_local(), labels.to_local(),
+        constrain_lib.shard_offset(logits, 2),
+        logits.shape[-1], smoothing, mesh.get_group(i))
+    return DTensor.from_local(nll, mesh, rows, run_check=False)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   smoothing: float = 0.0) -> torch.Tensor:
     """Mean token NLL in f32. logits (B, S, V), labels (B, S).
 
-    Under activation sharding (``models.constrain``) the gold logit is
-    taken with a vocab-local masked sum, as the JAX package takes it, so
-    vocab-sharded logits are not gathered; the sum of one logit and zeros
-    is that logit, the value ``gather`` reads."""
+    Under activation sharding (``models.constrain``) logits whose vocab
+    the tp axis splits are reduced on their shards
+    (:func:`_vocab_parallel_nll`): the vocab is never gathered, as the JAX
+    package's GSPMD reduction does not gather it.  Where the axes leave
+    the vocab whole (a vocab the tp axis does not divide), the gold logit
+    is taken with a vocab-local masked sum, as the JAX package takes it;
+    the sum of one logit and zeros is that logit, the value ``gather``
+    reads."""
     logits = constrain_lib.constrain(logits.to(torch.float32), "dp", None,
                                      "tp")
+    tp = constrain_lib.tp_shard_dim(logits, logits.ndim - 1)
+    if tp is not None:
+        return _vocab_parallel_nll(logits, labels, smoothing, tp).mean()
     logz = torch.logsumexp(logits, dim=-1)
     if constrain_lib.active():
         iota = torch.arange(logits.shape[-1], device=labels.device)

@@ -562,13 +562,14 @@ def _whole(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def _tp_run(mesh, cfg, tokens):
+def _tp_run(mesh, cfg, tokens, hyper=TL.TrainHyper()):
     """(loss, {path: gradient}) of one forward and backward of ``cfg``
-    from seed 0: unsharded when ``mesh`` is None, else on DTensors placed
-    by the rules on ``mesh`` with the activation axes set."""
+    from seed 0 under ``hyper``: unsharded when ``mesh`` is None, else on
+    DTensors placed by the rules on ``mesh`` with the activation axes
+    set."""
     model, spec = _tp_model(mesh, cfg)
     with _tp_axes(mesh, spec):
-        loss, _ = TL.microbatch_loss(cfg, model, TL.TrainHyper(),
+        loss, _ = TL.microbatch_loss(cfg, model, hyper,
                                      _tp_batch(mesh, tokens), None)
         loss.backward()
         return _whole(loss).detach(), {
@@ -625,6 +626,24 @@ def case_tensor_parallel_matches_unsharded(mesh, world, tmp):
         rows.append(f"{name}: loss rel {rel:.3g}, grads {gap:.3g} of the "
                     f"largest")
     return ok, "; ".join(rows)
+
+
+def case_tensor_parallel_label_smoothing_matches_unsharded(mesh, world,
+                                                          tmp):
+    """With ``label_smoothing`` 0.1 the (world/2, 2) forward and backward
+    of the 3-head config of ``_tp_cfgs`` (its vocab of 128 split on
+    "model": the loss reduced on the vocab shards) equal the unsharded
+    ones at the tolerances of the case above."""
+    tp_mesh = ML.make_mesh((world // 2, 2), ("data", "model"), "cpu")
+    tokens = _batch_tokens(2)
+    cfg = _tp_cfgs()["heads_3"]
+    hyper = TL.TrainHyper(label_smoothing=0.1)
+    loss_ref, g_ref = _tp_run(None, cfg, tokens, hyper)
+    loss_tp, g_tp = _tp_run(tp_mesh, cfg, tokens, hyper)
+    rel = float(abs(loss_tp - loss_ref) / abs(loss_ref))
+    gap = max(_gap(g_tp[k], g_ref[k]) for k in g_ref)
+    ok = rel <= TP_LOSS_RTOL and gap <= TP_GRAD_TOL and set(g_tp) == set(g_ref)
+    return ok, f"loss rel {rel:.3g}, grads {gap:.3g} of the largest"
 
 
 def case_tensor_parallel_serving_matches_unsharded(mesh, world, tmp):

@@ -6,8 +6,7 @@ package's, without devices:
   * ``model_flops`` equals the JAX package's formula exactly;
   * ``lower_cell`` on the smoke mesh (2 x 2 x 2, a fake process group of
     8 in a subprocess) returns ``ok`` for train, prefill and decode of a
-    reduced paper-lm and a reduced recurrentgemma (at small shapes: the
-    recurrent scans are Python loops over time), with the key set of the
+    reduced paper-lm and a reduced recurrentgemma, with the key set of the
     JAX package's artifact and, for the serving cells, argument bytes
     equal to the rules' arithmetic recomputed here (the train cells hold
     their own: ``lower_cell`` raises when they differ); the paper-lm train
@@ -25,12 +24,26 @@ package's, without devices:
     row of the one-device update;
   * ``DeviceCounter`` counts a sharded product's FLOPs per device (the
     global count over the shards), and raises where DTensor lacks a
-    method it must mute.
+    method it must mute;
+  * the scans' counting mode (``models/scan_utils.counting``, on in
+    ``lower_cell``) against the step-by-step trace of the same cell, for a
+    reduced recurrentgemma and a reduced xlstm (one mLSTM and one sLSTM
+    block) at T = 192, train and prefill, on the one-device host mesh and
+    the smoke mesh: FLOPs, bytes read and written and every collective
+    kind equal, the peak within SCAN_PEAK_RTOL; the mode raises on real
+    tensors;
+  * a vocab-sharded train cell (reduced stablelm, vocab 256 on the model
+    axis of 2): no (B, S, V) tensor at the full vocab is live at its peak
+    and no collective returns the logits at the full vocab (the loss
+    reduces the vocab on its shards, ROADMAP C17);
+  * xlstm-350m's parameter count and train_4k model FLOPs equal the JAX
+    artifact's.
 
 The subprocesses (one per smoke cell, the calibration, the command line)
 run side by side, once for the file.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -218,6 +231,79 @@ json.dump(art, open(sys.argv[1], "w"))
 """
 
 
+# the scan counting mode (``models/scan_utils.counting``) against the
+# step-by-step trace of the same cell: (arch, shape, mesh, seq, batch,
+# reduced() overrides, lower_cell overrides).  T = 192 is three chunks of
+# 64: the counted trace runs the first and the last chunk, the middle one
+# only as phantoms and multipliers.  The xlstm config holds one mLSTM and
+# one sLSTM block.
+SCAN_T = 192
+SCANS = [
+    (arch, shape, mesh, SCAN_T,
+     {"train_4k": 4, "prefill_32k": 2}[shape] * (4 if mesh == "smoke" else 1),
+     kw, {"microbatches": 1} if shape == "train_4k" else {})
+    for arch, kw in (("recurrentgemma-9b", {}),
+                     ("xlstm-350m", {"n_layers": 2,
+                                     "block_pattern": ("mlstm", "slstm")}))
+    for shape in ("train_4k", "prefill_32k")
+    for mesh in ("host", "smoke")]
+
+SCAN_SCRIPT = r"""
+import dataclasses, json, sys, time
+from repro_torch.configs import base
+from repro_torch.launch import dryrun, shapes
+from repro_torch.roofline.analysis import DeviceCounter
+arch, shape, mesh, seq, batch, kw, over = CELL
+cfg = base.reduced(base.get_config(arch), **kw)
+case = dataclasses.replace(shapes.SHAPES[shape], seq_len=seq,
+                           global_batch=batch)
+out = {}
+for counted in (True, False):
+    c = DeviceCounter()
+    t0 = time.time()
+    art = dryrun.lower_cell(arch, shape, mesh, overrides=over, cfg=cfg,
+                            case=case, counter=c, count_scans=counted)
+    out["counted" if counted else "steps"] = {
+        "status": art["status"], "flops": c.flops, "read": c.bytes_read,
+        "written": c.bytes_written, "collectives": c.collectives,
+        "n_collectives": c.n_collectives, "peak": c.peak_bytes,
+        "s": time.time() - t0}
+json.dump(out, open(sys.argv[1], "w"))
+"""
+
+# a vocab-sharded train cell on the smoke mesh (vocab 256 on the model axis
+# of 2): what was live at its peak, and the shape of every collective's
+# result
+VOCAB = 256
+VOCAB_SCRIPT = r"""
+import dataclasses, json, sys
+from repro_torch.configs import base
+from repro_torch.launch import dryrun, shapes
+from repro_torch.roofline import analysis
+results = []
+
+class Recording(analysis.DeviceCounter):
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        name = func._schema.name.split("::")[-1]
+        if out is not NotImplemented and not self._muted and \
+                name in analysis._COLLECTIVES:
+            results.extend([name, list(t.shape)]
+                           for t in analysis._tensors(out))
+        return out
+
+cfg = base.reduced(base.get_config("stablelm-1.6b"), vocab_size=VOCAB)
+case = dataclasses.replace(shapes.SHAPES["train_4k"], seq_len=64,
+                           global_batch=16)
+c = Recording()
+art = dryrun.lower_cell("stablelm-1.6b", "train_4k", "smoke", cfg=cfg,
+                        case=case, counter=c)
+json.dump({"status": art["status"], "error": art.get("error"),
+           "peak": [[list(k[1]), b] for k, b in c.peak_by_op.items()],
+           "collectives": results}, open(sys.argv[1], "w"))
+""".replace("VOCAB", str(VOCAB))
+
+
 MESH_SCRIPT = r"""
 from repro_torch.launch import mesh
 mesh.init_fake_process_group(512)
@@ -251,6 +337,11 @@ def runs():
             tmp, f"update_{kind}.json")])
     procs["counter"] = run(["-c", COUNTER_SCRIPT,
                             os.path.join(tmp, "counter.json")])
+    for cell in SCANS:
+        key = "scan:" + ":".join(map(str, cell[:3]))
+        procs[key] = run(["-c", f"CELL = {cell!r}\n" + SCAN_SCRIPT,
+                          os.path.join(tmp, key + ".json")])
+    procs["vocab"] = run(["-c", VOCAB_SCRIPT, os.path.join(tmp, "vocab.json")])
     procs["cli"] = run(["-m", "repro_torch.launch.dryrun", "--arch",
                         "paper-lm-209m", "--shape", "train_4k", "--mesh",
                         "pod", "--out", cli_dir])
@@ -269,6 +360,10 @@ def runs():
             "remat": load(os.path.join(tmp, "remat.json")),
             **{f"update_{k}": load(os.path.join(tmp, f"update_{k}.json"))
                for k in ("host", "tp2")},
+            "scans": {":".join(map(str, c[:3])): load(os.path.join(
+                tmp, "scan:" + ":".join(map(str, c[:3])) + ".json"))
+                for c in SCANS},
+            "vocab": load(os.path.join(tmp, "vocab.json")),
             "cli": load(os.path.join(
                 cli_dir, "paper-lm-209m__train_4k__pod.json"))}
 
@@ -388,3 +483,74 @@ def test_device_counter_counts_per_device(runs):
     assert got is not None, runs["logs"]["counter"][-3000:]
     assert got["flops"] == got["global"] // got["shards"] > 0
     assert "DTensor has no OpDispatcher." in got["raised"]
+
+
+# the counted trace's peak against the step-by-step trace's: the middle
+# chunks' backward is not traced, and there the real loop holds one
+# chunk's input gradients more than the first or the last chunk does (or
+# one carry less); on these cells the two peaks are equal
+SCAN_PEAK_RTOL = 0.005
+
+
+@pytest.mark.parametrize("arch,shape,mesh", [c[:3] for c in SCANS])
+def test_scan_counting_equals_step_by_step(runs, arch, shape, mesh):
+    """The counted scans give the step-by-step trace's FLOPs, bytes read,
+    bytes written and collective bytes of every kind exactly, its peak
+    within SCAN_PEAK_RTOL."""
+    key = f"{arch}:{shape}:{mesh}"
+    got = runs["scans"][key]
+    assert got is not None, runs["logs"]["scan:" + key][-3000:]
+    counted, steps = got["counted"], got["steps"]
+    assert counted["status"] == steps["status"] == "ok"
+    for k in ("flops", "read", "written", "collectives", "n_collectives"):
+        assert counted[k] == steps[k], k
+    assert counted["flops"] > 0
+    if mesh == "smoke":
+        assert counted["collectives"]
+    assert abs(counted["peak"] - steps["peak"]) <= \
+        SCAN_PEAK_RTOL * steps["peak"]
+
+
+def test_scan_counting_refuses_real_tensors():
+    """The counting mode raises on a real tensor: a run on the CPU (or the
+    card) cannot take it."""
+    from repro_torch.models import scan_utils
+    step = lambda h, x: (h + x, h + x)
+    with scan_utils.counting(TA.DeviceCounter()):
+        for grad in (False, True):
+            xs = torch.zeros(192, 2, requires_grad=grad)
+            with pytest.raises(RuntimeError, match="real tensor"):
+                scan_utils.checkpointed_scan(step, torch.zeros(2), xs)
+    _, ys = scan_utils.checkpointed_scan(step, torch.zeros(2),
+                                         torch.ones(192, 2))
+    assert float(ys[-1, 0]) == 192.0
+
+
+def test_vocab_sharded_loss_keeps_the_vocab_sharded(runs):
+    """Under activation sharding the loss reduces the vocab on its shards:
+    no (B, S, V) tensor at the full vocab is live at the peak, and no
+    collective returns one (the logits' local shards are (b, S, V / 2))."""
+    got = runs["vocab"]
+    assert got is not None, runs["logs"]["vocab"][-3000:]
+    assert got["status"] == "ok", got.get("error")
+    full = [s for s, _ in got["peak"] if len(s) >= 3 and s[-1] == VOCAB]
+    assert not full, full
+    assert any(len(s) >= 3 and s[-1] == VOCAB // 2 for s, _ in got["peak"])
+    # no collective returns the logits of this device's rows (16 over the
+    # 4 data-parallel devices, 64 positions) at the full vocab, in any
+    # layout
+    logits = (16 // 4) * 64 * VOCAB
+    gathered = [r for r in got["collectives"] if len(r[1]) >= 3 and (
+        r[1][-1] == VOCAB or math.prod(r[1]) >= logits)]
+    assert not gathered, gathered
+
+
+def test_xlstm_train_4k_smoke_matches_jax_artifact_counts():
+    """The JAX artifact's cell: the parameter count and model FLOPs of
+    xlstm-350m at train_4k are the port's exactly (the traced cell itself
+    runs on the card machine's host, PERF.md)."""
+    want = json.load(open(JAX_ARTIFACT))
+    cfg = TB.get_config("xlstm-350m")
+    assert cfg.param_count() == want["params"] == 347744256
+    assert TA.model_flops(cfg, TS.SHAPES["train_4k"]) == \
+        want["roofline"]["model_flops"] == 2187817685876736
